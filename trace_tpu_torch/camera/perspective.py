@@ -1,0 +1,83 @@
+"""Perspective camera with batched ray generation (port of
+trace_tpu/camera/perspective.py, ``convention="reference"``, pinhole).
+
+The raster -> camera chain is built on the host with the reference's
+literal matrix semantics (``compose_ref`` and the transposed projection,
+see core/transform.py); ray generation runs on the film-sample tensors'
+device. The thin lens and the "pbrt" convention are not ported yet.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import math as m
+from ..core import transform as T
+from ..core.ray import RayDifferentials
+from ..film.film import Film
+
+F32 = torch.float32
+
+
+class PerspectiveCamera:
+    def __init__(self, camera_to_world: T.Transform,
+                 screen_window=((-1.0, -1.0), (1.0, 1.0)),
+                 shutter_open: float = 0.0, shutter_close: float = 1.0,
+                 lens_radius: float = 0.0, focal_distance: float = 1e6,
+                 fov: float = 90.0, film: Film = None,
+                 convention: str = "reference"):
+        if film is None:
+            raise ValueError("PerspectiveCamera requires a Film")
+        if convention != "reference" or lens_radius > 0:
+            raise NotImplementedError(
+                "only the reference convention with a pinhole is ported")
+        self.camera_to_world = camera_to_world
+        self.shutter_open = float(shutter_open)
+        self.shutter_close = float(shutter_close)
+        self.film = film
+
+        camera_to_screen = T.perspective(fov, 1e-2, 1000.0)
+        (sx0, sy0), (sx1, sy1) = screen_window
+        rx, ry = film.resolution
+        comp = T.compose_ref
+        screen_to_raster = comp(
+            comp(T.scale(rx, ry, 1.0),
+                 T.scale(1.0 / (sx1 - sx0), 1.0 / (sy1 - sy0), 1.0)),
+            T.translate([-sx0, -sy1, 0.0]),
+        )
+        self.raster_to_camera = comp(T.inverse(camera_to_screen),
+                                     T.inverse(screen_to_raster))
+
+    def _one_ray(self, p_film: torch.Tensor):
+        """Camera-space origin/direction for film points [N, 2]."""
+        p_cam = T.apply_point(
+            self.raster_to_camera,
+            torch.cat([p_film, torch.zeros_like(p_film[..., :1])], dim=-1))
+        d = m.normalize(p_cam)
+        return torch.zeros_like(d), d
+
+    def generate_ray_differentials(self, p_film, u_lens, u_time):
+        """p_film [N, 2] (1-based raster), u_lens [N, 2] (unused by a
+        pinhole), u_time [N] -> (RayDifferentials, weight [N])."""
+        dev = p_film.device
+        o_c, d_c = self._one_ray(p_film)
+        ox_c, dx_c = self._one_ray(
+            p_film + torch.tensor([1.0, 0.0], dtype=F32, device=dev))
+        oy_c, dy_c = self._one_ray(
+            p_film + torch.tensor([0.0, 1.0], dtype=F32, device=dev))
+        c2w = self.camera_to_world
+        time = m.lerp(float(np.float32(self.shutter_open)),
+                      float(np.float32(self.shutter_close)), u_time)
+        n = p_film.shape[0]
+        rd = RayDifferentials(
+            o=T.apply_point(c2w, o_c),
+            d=m.normalize(T.apply_vec(c2w, d_c)),
+            t_max=torch.full((n,), float("inf"), dtype=F32, device=dev),
+            time=time,
+            has_differentials=torch.ones((n,), dtype=torch.bool, device=dev),
+            rx_origin=T.apply_point(c2w, ox_c),
+            ry_origin=T.apply_point(c2w, oy_c),
+            rx_direction=m.normalize(T.apply_vec(c2w, dx_c)),
+            ry_direction=m.normalize(T.apply_vec(c2w, dy_c)),
+        )
+        return rd, torch.ones((n,), dtype=F32, device=dev)
