@@ -3,28 +3,50 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line with its seconds; any failure raises):
+Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep kernel (nvcc, sm_90a) and the SAH builder (g++);
-  2. kernel vs plain: the 1M-triangle mesh_heavy scene; every sweep launch
-     of one 256^2 depth-2 frame (camera, shadow and specular rays, in the
-     frame's own 65536-ray chunks), plus the camera rays as any-hit, through
-     the CUDA kernel and its plain PyTorch version on the same inputs;
-  3. golden: the 5k-triangle scene at 32^2 against
-     tests/goldens/mesh_heavy5k_32.npy (the JAX package's render), MSE < 5e-4;
-  4. slice: Whitted on the 1M-triangle scene, 256^2, 1 spp, depth 2; one warm
-     frame, then three frames timed with CUDA events; the PNG goes to the
-     temporary directory (TMPDIR).
-The last two lines are the card's name and power limit, and
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repository, it exits non-zero and prints no result.
+  1. build: the sweep and intersect kernels (one nvcc each, in parallel,
+     sm_90a) with ptxas's registers and spills per kernel arm, and the SAH
+     builder (g++);
+  2. kernel vs plain, on the main paths' own launches:
+     a. the 1M-triangle mesh_heavy scene: every sweep launch of one 256^2
+        depth-2 frame (camera, shadow and specular rays, in the frame's
+        own 65536-ray chunks), plus the camera rays as any-hit;
+     b. the same scene with exact_shared_edges=True: every sweep launch of
+        its frame, through the certified kernel and the bf16, hi/lo,
+        certified-bf16 and certified-hi/lo arms, each against its plain
+        version, with step counts; the double-buffered kernel against the
+        single-buffered one; certified hit masks against the plain f32 ones;
+     c. the fused brute-force kernel against its plain version on every
+        launch of the 5k-triangle scene's 256^2 frame;
+  3. correctness of the images and of the edges:
+     a. 65536 rays aimed at points on the shared quad diagonals of the 1M
+        heightfield: misses with exact edges off and on (on: must be 0);
+     b. golden: the 5k-triangle scene at 32^2 -- default, with exact edges,
+        and with exact edges through the fused accelerator -- against
+        tests/goldens/mesh_heavy5k_32.npy (the JAX package's render),
+        MSE < 5e-4 each;
+  4. the slices, timed with CUDA events (one warm frame, then three): the
+     1M-triangle 256^2 frame by default and with exact_shared_edges=True
+     (the PNGs go to the temporary directory, TMPDIR); each sweep option
+     (bf16 and hi/lo panels, with and without exact edges; the
+     double-buffered copy; step counts) and the fused accelerator on the
+     5k-triangle scene, each driven as its own frame with the launch
+     counts set to 0 before it and read after it; then the camera chunk's
+     kernel time per arm and block size against the plain version, with
+     steps and panel GB/s per launch.
+The last three lines are the kernels' JSON line, the card's name and power
+limit, and {"ok": true, "device": {...}}. Without a CUDA device, or outside
+a checkout of the repository, it exits non-zero and prints no result.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -35,6 +57,8 @@ MSE_GATE = 5e-4
 # association order, so the two should agree bit for bit; the stated
 # tolerance on t leaves room for nothing but a last-ulp difference.
 T_RTOL = 1e-6
+SWEEP_SRC = "trace_tpu_torch/csrc/sweep.cu"
+JAX_SWEEP = "trace_tpu/ops/sweep_pallas.py"
 
 
 def log(phase, t0, msg):
@@ -80,51 +104,48 @@ def compare(kt, ki, pt, pi):
     }
 
 
-def main() -> int:
-    import torch
+def accumulate(tot, cmp):
+    for k, v in cmp.items():
+        tot[k] = max(tot.get(k, 0.0), v) if k == "max_abs_err" \
+            else tot.get(k, 0) + v
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, REPO)
-    from trace_tpu_torch.accel import native
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
-    from trace_tpu_torch.models import mesh_heavy
-    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
-    from trace_tpu_torch.sampler import uniform as U
 
-    dev = torch.device("cuda", 0)
-    t0 = time.perf_counter()
-    card = smi()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
-    log(0, t0, f"card {card}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+def disagrees(tot) -> bool:
+    return bool(tot["hit_mismatch"] or tot["t_beyond_tol"]
+                or tot["id_mismatch_untied_t"])
 
-    t0 = time.perf_counter()
-    sweep_kernel.load()
-    t_nvcc = time.perf_counter() - t0
-    native.load()
-    log(1, t0, f"built sweep kernel (nvcc {t_nvcc:.2f} s) and SAH builder")
 
-    # -- 2: kernel vs plain on the main path's own launches ---------------
-    t0 = time.perf_counter()
-    scene = mesh_heavy.build_scene(1_000_000, device=dev)
-    build_s = time.perf_counter() - t0
-    acc = scene.accel
-    tb = acc.tables
-    log(2, t0, f"host scene build {build_s:.2f} s: n_triangles "
-        f"{scene.n_triangles}, n_supers {tb.n_supers}, panel "
-        f"{tb.panel.nbytes / 2**20:.1f} MB")
-    png = os.path.join(tempfile.gettempdir(), "chip_smoke_256.png")
-    cam = mesh_heavy.build_camera(256, png)
-    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
-    # Record the rays of every intersect call of one frame (camera, shadow
-    # and depth-2 specular rays), then replay each call's chunks exactly as
-    # SweepAccelerator.intersect launches them.
+def ptxas_summary(logtext: str) -> list:
+    """(kernel, registers, spill stores, spill loads) per compiled entry."""
+    from trace_tpu_torch.ops.sweep import arm_name
+
+    out, name, spill = [], None, ("?", "?")
+    for line in logtext.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            t = re.search(r"sweep_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)E", name)
+            if t:
+                c, k, s, p = t.groups()
+                name = arm_name(("f32", "bf16", "hilo")[int(k)], c == "1",
+                                p == "1", s == "1")
+            elif "intersect_kernel" in name:
+                name = "intersect"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), int(spill[0]), int(spill[1])))
+    return out
+
+
+def record_calls(integ, scene):
+    """Render one frame and return the rays of every accelerator call:
+    [(o, d, t_max, any_hit)] (camera, shadow and specular rays)."""
     calls = []
+    acc = scene.accel
     traced = acc.intersect
 
     def record(o, d, t_max, any_hit):
@@ -136,75 +157,37 @@ def main() -> int:
         integ.render(scene)
     finally:
         del acc.intersect
+    return calls
+
+
+def sweep_chunks(acc, calls):
+    """[(case name, [kernel args of each chunk, as the accelerator launches
+    them])] for the recorded calls, plus the camera rays as any-hit."""
     cases = [(f"call{i}_{'any_hit' if a else 'closest'}", o, d, tm, a)
              for i, (o, d, tm, a) in enumerate(calls)]
     # The camera rays once more as any-hit: nearly every lane is occluded,
     # so the any-hit early exit runs at full scale.
     o, d, tm, _ = calls[0]
     cases.append(("camera_any_hit", o, d, tm, True))
-    res = {}
+    out = []
     for name, o, d, tm, anyh in cases:
         perm = acc.coherence_order(o, d, tm)
         o, d, tm = o[perm], d[perm], tm[perm]
         n, c = o.shape[0], acc.ray_chunk
-        tot = dict(hit_mismatch=0, t_beyond_tol=0, id_mismatch_untied_t=0,
-                   max_abs_err=0.0, n_found=0)
-        chunks = []
-        for s in range(0, n, c):
-            args = (*acc.prologue(o[s:s + c], d[s:s + c], tm[s:s + c]),
-                    acc.panel, acc.block_rays, anyh)
-            kt, ki = sweep_kernel(*args)
-            pt, pi = sweep_plain(*args)
-            torch.cuda.synchronize()
-            cmp = compare(kt, ki, pt, pi)
-            for k, v in cmp.items():
-                tot[k] = max(tot[k], v) if k == "max_abs_err" else tot[k] + v
-            chunks.append((min(c, n - s), args))
-        res[name] = tot
-        log(2, t0, f"{name}: {n} rays in chunks "
-            f"{[k for k, _ in chunks]}, {tot}")
-        if tot["hit_mismatch"] or tot["t_beyond_tol"] \
-                or tot["id_mismatch_untied_t"]:
-            raise AssertionError(f"kernel disagrees with plain: {name} {tot}")
-        if name == "call0_closest":
-            args = chunks[0][1]
-            tot["ms"] = cuda_ms(lambda: sweep_kernel(*args), 10)
-            tot["plain_ms"] = cuda_ms(lambda: sweep_plain(*args), 2)
-            log(2, t0, f"{name} first chunk ({chunks[0][0]} rays): kernel "
-                f"{tot['ms']:.3f} ms, plain {tot['plain_ms']:.3f} ms (CUDA "
-                f"events)")
-    if [a for *_, a in calls] != [False, True, False, True]:
-        raise AssertionError(f"unexpected intersect calls: {len(calls)}")
-    if res["call0_closest"]["n_found"] <= 0 \
-            or res["camera_any_hit"]["n_found"] < 1000:
-        raise AssertionError("too few hits to exercise the kernel")
-    del calls, cases, chunks, args, o, d, tm
+        out.append((name, anyh, [acc.prologue(o[s:s + c], d[s:s + c],
+                                              tm[s:s + c])
+                                 for s in range(0, n, c)]))
+    return out
 
-    # -- 3: golden --------------------------------------------------------
-    t0 = time.perf_counter()
-    small = mesh_heavy.build_scene(5000, device=dev)
-    cam32 = mesh_heavy.build_camera(
-        32, os.path.join(tempfile.gettempdir(), "chip_smoke_32.png"))
-    st = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0),
-                           max_depth=2).render(small)
-    img = cam32.film.to_image(st).cpu().numpy()
-    golden = np.load(GOLDEN)
-    mse = float(np.mean((img - golden) ** 2))
-    log(3, t0, f"golden 32^2: MSE {mse:.3e} (gate {MSE_GATE}), max abs "
-        f"{float(np.abs(img - golden).max()):.4f}")
-    if not (img.shape == golden.shape and np.isfinite(img).all()
-            and mse < MSE_GATE):
-        raise AssertionError(f"golden mismatch: MSE {mse}")
 
-    # -- 4: the slice -----------------------------------------------------
-    t0 = time.perf_counter()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    sweep_kernel.launches = 0
-    integ.render(scene)  # warm frame
+def timed_frames(integ, scene, n=3):
+    """One warm frame, then ``n`` frames timed with CUDA events (ms)."""
+    import torch
+
+    integ.render(scene)
     torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
+    times, state = [], None
+    for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -212,36 +195,389 @@ def main() -> int:
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
-    launches = sweep_kernel.launches
-    img = cam.film.to_image(state).cpu().numpy()
-    cam.film.save_png(state)
+    return times, state
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    from trace_tpu_torch.accel import native
+    from trace_tpu_torch.core.vec import V3
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import intersect as TI
+    from trace_tpu_torch.ops import sweep as TS
+    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.wavefront import whitted as WF
+
+    dev = torch.device("cuda", 0)
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    card = smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    log(0, t0, f"card {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    # -- 1: builds, one nvcc per source, in parallel ------------------------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor() as ex:   # nvcc runs outside the GIL
+        list(ex.map(lambda k: k.lib.load(),
+                    (sweep_kernel, TI.intersect_kernel)))
+    t_nvcc = time.perf_counter() - t0
+    native.load()
+    regs = ptxas_summary(sweep_kernel.lib.build_log
+                         + TI.intersect_kernel.lib.build_log)
+    log(1, t0, f"built sweep and intersect kernels (nvcc {t_nvcc:.2f} s, "
+        f"in parallel) and SAH builder; registers/spill stores/spill loads "
+        f"per arm: {[f'{n}:{r}/{s}/{l}' for n, r, s, l in regs]}")
+    if any(s or l for _, _, s, l in regs):
+        print("[1] note: a kernel arm spills registers", flush=True)
+
+    # -- 2a: kernel vs plain on the default path's own launches ------------
+    t0 = time.perf_counter()
+    scene = mesh_heavy.build_scene(1_000_000, device=dev)
+    build_s = time.perf_counter() - t0
+    acc = scene.accel
+    tb = acc.tables
+    log(2, t0, f"host scene build {build_s:.2f} s: n_triangles "
+        f"{scene.n_triangles}, n_supers {tb.n_supers}, panel "
+        f"{tb.panel.nbytes / 2**20:.1f} MB")
+    png = os.path.join(tempfile.gettempdir(), "chip_smoke_256.png")
+    cam = mesh_heavy.build_camera(256, png)
+    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+    calls = record_calls(integ, scene)
+    if [a for *_, a in calls] != [False, True, False, True]:
+        raise AssertionError(f"unexpected intersect calls: {len(calls)}")
+    res = {}
+    for name, anyh, chunks in sweep_chunks(acc, calls):
+        tot = {}
+        for args in chunks:
+            kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
+            pt, pi = sweep_plain(*args, acc.panel, acc.block_rays, anyh)
+            torch.cuda.synchronize()
+            accumulate(tot, compare(kt, ki, pt, pi))
+        res[name] = tot
+        log("2a", t0, f"{name}: {[a[0].shape[1] for a in chunks]} lanes, "
+            f"{tot}")
+        if disagrees(tot):
+            raise AssertionError(f"kernel disagrees with plain: {name} {tot}")
+    if res["call0_closest"]["n_found"] <= 0 \
+            or res["camera_any_hit"]["n_found"] < 1000:
+        raise AssertionError("too few hits to exercise the kernel")
+
+    # -- 2b: the exact-edge scene, every arm, on its frame's launches -------
+    t0 = time.perf_counter()
+    exact = mesh_heavy.build_scene(1_000_000, device=dev,
+                                   exact_shared_edges=True)
+    eacc = exact.accel
+    assert eacc.certified and exact.exact_edges
+    png_e = os.path.join(tempfile.gettempdir(), "chip_smoke_256_exact.png")
+    cam_e = mesh_heavy.build_camera(256, png_e)
+    integ_e = WhittedIntegrator(cam_e, U.UniformSampler(1, seed=0),
+                                max_depth=2)
+    e_calls = record_calls(integ_e, exact)
+    e_chunks = sweep_chunks(eacc, e_calls)
+    panels = {k: TS.panel_tensor(TS.cast_panel(tb.panel, k == "bf16",
+                                               k == "hilo"), dev)
+              for k in ("f32", "bf16", "hilo")}
+    arms = [("certified", "f32", True), ("bf16", "bf16", False),
+            ("hilo", "hilo", False), ("certified_bf16", "bf16", True),
+            ("certified_hilo", "hilo", True)]
+    arm_res = {a: {} for a, _, _ in arms}
+    b = eacc.block_rays
+    for name, anyh, chunks in e_chunks:
+        for args in chunks:
+            ut, ui = sweep_plain(*args, panels["f32"], b, anyh)
+            for arm, kind, cert in arms:
+                p = panels[kind]
+                opt = dict(certified=cert)
+                pt, pi, ps = sweep_plain(*args, p, b, anyh,
+                                         collect_stats=True, **opt)
+                kt, ki = sweep_kernel(*args, p, b, anyh, **opt)
+                st, si, ss = sweep_kernel(*args, p, b, anyh,
+                                          collect_stats=True, **opt)
+                qt, qi, qs = sweep_kernel(*args, p, b, anyh,
+                                          collect_stats=True, pipeline=True,
+                                          **opt)
+                torch.cuda.synchronize()
+                tot = arm_res[arm].setdefault(name, {})
+                accumulate(tot, compare(kt, ki, pt, pi))
+                tot["stats_arm_differs"] = tot.get("stats_arm_differs", 0) + \
+                    int(not (torch.equal(st, kt) and torch.equal(si, ki)))
+                tot["steps_differ"] = tot.get("steps_differ", 0) + \
+                    int((ss != ps).sum())
+                tot["pipelined_differs"] = tot.get("pipelined_differs", 0) + \
+                    int(not (torch.equal(qt, kt) and torch.equal(qi, ki)
+                             and torch.equal(qs, ss)))
+                tot["steps"] = tot.get("steps", 0) + int(ss.sum())
+                lost = int(((ui >= 0) & (ki < 0)).sum())
+                tot["plain_f32_hits_lost"] = tot.get(
+                    "plain_f32_hits_lost", 0) + lost
+        for arm, kind, cert in arms:
+            tot = arm_res[arm][name]
+            log("2b", t0, f"{arm} {name}: {tot}")
+            lost_gated = cert and (kind == "f32" or not anyh)
+            if disagrees(tot) or tot["stats_arm_differs"] \
+                    or tot["steps_differ"] or tot["pipelined_differs"] \
+                    or (lost_gated and tot["plain_f32_hits_lost"]):
+                raise AssertionError(f"arm {arm} fails on {name}: {tot}")
+    log("2b", t0, f"exact-edge frame: {len(e_calls)} calls, every arm "
+        f"bit-equal to its plain version, pipelined == single-buffered, "
+        f"steps equal; certified hits cover plain f32 hits")
+
+    # -- 2c: the fused brute-force kernel on the 5k scene's frame -----------
+    t0 = time.perf_counter()
+    small = mesh_heavy.build_scene(5000, device=dev)
+    TI.attach(small)
+    fcam = mesh_heavy.build_camera(
+        256, os.path.join(tempfile.gettempdir(), "chip_smoke_fused.png"))
+    finteg = WhittedIntegrator(fcam, U.UniformSampler(1, seed=0), max_depth=2)
+    f_calls = record_calls(finteg, small)
+    fused = {}
+    fa = small.accel
+    for i, (o, d, tm, anyh) in enumerate(f_calls):
+        rays, _ = TI.pack_rays(o, d, tm)
+        kt, ki = TI.intersect_kernel(rays, fa.tris, fa.ids)
+        pt, pi = TI.intersect_plain(rays, fa.tris, fa.ids)
+        torch.cuda.synchronize()
+        name = f"call{i}_{'any_hit' if anyh else 'closest'}"
+        accumulate(fused, compare(kt, ki, pt, pi))
+        eq = torch.equal(kt, pt) and torch.equal(ki, pi)
+        log("2c", t0, f"fused {name}: {rays.shape[1]} lanes, bit-equal "
+            f"{eq}, found {int((ki >= 0).sum())}")
+        if not eq:
+            raise AssertionError(f"fused kernel disagrees: {name}")
+        if i == 0:
+            fused["ms"] = cuda_ms(
+                lambda: TI.intersect_kernel(rays, fa.tris, fa.ids), 10)
+            fused["plain_ms"] = cuda_ms(
+                lambda: TI.intersect_plain(rays, fa.tris, fa.ids), 2)
+            log("2c", t0, f"fused camera rays ({rays.shape[1]} lanes x "
+                f"{small.n_triangles} triangles): kernel {fused['ms']:.3f} "
+                f"ms, plain {fused['plain_ms']:.3f} ms")
+    if len(f_calls) < 2:
+        raise AssertionError("the fused frame made too few calls")
+
+    # -- 3a: shared-edge leaks on the 1M heightfield -------------------------
+    t0 = time.perf_counter()
+    n_grid = int(np.sqrt(1_000_000 / 2)) + 1
+    verts, _ = mesh_heavy.heightfield(n_grid)
+    rng = np.random.default_rng(0)
+    quad = rng.choice((n_grid - 1) ** 2, 65536, replace=False)
+    ii, jj = quad // (n_grid - 1), quad % (n_grid - 1)
+    v00 = ii * n_grid + jj
+    va, vb = verts[v00 + n_grid], verts[v00 + 1]   # the v10 -- v01 diagonal
+    s = rng.uniform(0.05, 0.95, (65536, 1)).astype(np.float32)
+    p = (va + s * (vb - va)).astype(np.float32)
+    o = p + np.stack([rng.uniform(-0.3, 0.3, 65536),
+                      rng.uniform(2.0, 4.0, 65536),
+                      rng.uniform(-0.3, 0.3, 65536)], -1).astype(np.float32)
+    d = (p - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True).astype(np.float32)
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    inf = torch.full((65536,), float("inf"), device=dev)
+    leaks = {}
+    for label, sc in (("off", scene), ("on", exact)):
+        h, _, _ = sc.accel.intersect(o, d, inf, False)
+        hit = WF.closest_hit(sc, V3.of(o), V3.of(d), inf,
+                             torch.zeros(65536, device=dev))
+        leaks[label] = (int((~h).sum()), int((~hit.valid).sum()))
+    log("3a", t0, f"65536 rays at shared diagonals of the 1M heightfield: "
+        f"misses through the sweep kernel / through closest_hit: exact "
+        f"edges off {leaks['off']}, on {leaks['on']}")
+    if leaks["on"] != (0, 0):
+        raise AssertionError(f"shared edges leak with exact edges: {leaks}")
+
+    # -- 3b: goldens -------------------------------------------------------
+    t0 = time.perf_counter()
+    golden = np.load(GOLDEN)
+    goldens = {}
+    fused_small = mesh_heavy.build_scene(5000, device=dev,
+                                         exact_shared_edges=True)
+    TI.attach(fused_small)
+    for label, sc in (
+            ("default", mesh_heavy.build_scene(5000, device=dev)),
+            ("exact_edges", mesh_heavy.build_scene(
+                5000, device=dev, exact_shared_edges=True)),
+            ("exact_edges_fused", fused_small)):
+        cam32 = mesh_heavy.build_camera(
+            32, os.path.join(tempfile.gettempdir(), f"chip_smoke_32_{label}"
+                             ".png"))
+        st = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0),
+                               max_depth=2).render(sc)
+        img = cam32.film.to_image(st).cpu().numpy()
+        mse = float(np.mean((img - golden) ** 2))
+        goldens[label] = mse
+        log("3b", t0, f"golden 32^2 {label}: MSE {mse:.3e} (gate "
+            f"{MSE_GATE}), max abs {float(np.abs(img - golden).max()):.4f}")
+        if not (img.shape == golden.shape and np.isfinite(img).all()
+                and mse < MSE_GATE):
+            raise AssertionError(f"golden mismatch ({label}): MSE {mse}")
+
+    # -- 4: the slices, and each option as its own run ---------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     n_pix = (x1 - x0 + 1) * (y1 - y0 + 1)
-    rays = n_pix * 1 * (1 + int(scene.lights.kind.shape[0])) * 2
-    ms = float(np.mean(times))
-    nonzero = float((img > 0).any(-1).mean())
-    log(4, t0, f"1M tris 256^2 1spp depth 2: frames {times} ms, mean "
-        f"{ms:.2f} ms, {rays / ms / 1e3:.3f} Mrays/s ({rays} rays/frame), "
-        f"kernel launches {launches}, queue_drops {integ.last_queue_drops}, "
-        f"useful_rays {integ.last_useful_rays}, non-zero pixels "
-        f"{nonzero:.3f}, peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; PNG {png}; "
-        f"card {card}")
-    if launches <= 0 or integ.last_queue_drops != 0:
-        raise AssertionError("slice did not run through the kernel cleanly")
-    if not (np.isfinite(img).all() and img.shape == (256, 256, 3)
-            and nonzero > 0.05):
-        raise AssertionError(f"bad frame: non-zero share {nonzero}")
+    rays_per_frame = n_pix * 1 * (1 + int(scene.lights.kind.shape[0])) * 2
+    tables = {"f32": tb,
+              "bf16": TS.SweepTables.from_arrays(
+                  TS.cast_panel(tb.panel, bf16=True), tb.slot_to_tri,
+                  tb.s_lo, tb.s_hi),
+              "hilo": TS.SweepTables.from_arrays(
+                  TS.cast_panel(tb.panel, hilo=True), tb.slot_to_tri,
+                  tb.s_lo, tb.s_hi)}
 
-    kern = res["call0_closest"]
-    print(json.dumps({"kernels": [{
-        "name": "sweep", "route": "cuda",
-        "source": "trace_tpu_torch/csrc/sweep.cu",
-        "replaces": "trace_tpu/ops/sweep_pallas.py:213",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in res.values()),
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
-    }]}))
+    def with_sweep(sc, kind="f32", **kw):
+        sc.accel = TS.SweepAccelerator(tables[kind], dev, block_rays=b,
+                                       ray_chunk=acc.ray_chunk, **kw)
+        return sc
+
+    # (run, arm it must launch, scene, integrator): the default path, the
+    # slice (exact edges), then each option on the path it extends.
+    runs = [
+        ("default", "f32", scene, integ),
+        ("exact_edges", "certified_f32", exact, integ_e),
+        ("exact_edges+bf16", "certified_bf16", None, integ_e),
+        ("exact_edges+hilo", "certified_hilo", None, integ_e),
+        ("exact_edges+pipeline", "certified_f32_pipelined", None, integ_e),
+        ("exact_edges+stats", "certified_f32_stats", None, integ_e),
+        ("bf16", "bf16", None, integ),
+        ("hilo", "hilo", None, integ),
+        ("fused_5k", "intersect", small, finteg),
+    ]
+    frames = {}
+    for run, arm, sc, it in runs:
+        if sc is None:
+            base = exact if run.startswith("exact_edges") else scene
+            kind = run.split("+")[-1] if run.split("+")[-1] in tables \
+                else "f32"
+            sc = with_sweep(base, kind, certified=base.exact_edges,
+                            pipeline=run.endswith("pipeline"),
+                            collect_stats=run.endswith("stats"))
+        torch.cuda.reset_peak_memory_stats()
+        sweep_kernel.reset_counts()
+        TI.intersect_kernel.reset_counts()
+        times, state = timed_frames(it, sc)
+        launches = (TI.intersect_kernel.launches if arm == "intersect"
+                    else sweep_kernel.arm_launches[arm])
+        others = sweep_kernel.launches - (0 if arm == "intersect"
+                                          else launches)
+        ms = float(np.mean(times))
+        img = it.camera.film.to_image(state).cpu().numpy()
+        nonzero = float((img > 0).any(-1).mean())
+        extra = ""
+        if run.endswith("stats"):
+            steps = [int(s.sum()) for s in sc.accel.last_steps]
+            extra = (f", sweep steps per launch {steps[:8]}"
+                     f"{'...' if len(steps) > 8 else ''}")
+            sc.accel.last_steps = []
+        frames[run] = dict(ms=ms, times=times, launches=launches)
+        log(4, t0, f"{run}: frames {[round(x, 3) for x in times]} ms, mean "
+            f"{ms:.2f} ms, {rays_per_frame / ms / 1e3:.3f} Mrays/s, "
+            f"{arm} launches {launches} (other sweep arms {others}), "
+            f"queue_drops {it.last_queue_drops}, useful_rays "
+            f"{it.last_useful_rays}, non-zero pixels {nonzero:.3f}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}")
+        if launches <= 0 or others or it.last_queue_drops != 0:
+            raise AssertionError(f"{run} did not run through {arm} cleanly")
+        if not (np.isfinite(img).all() and nonzero > 0.05):
+            raise AssertionError(f"bad frame in {run}: non-zero {nonzero}")
+        if run in ("default", "exact_edges"):
+            it.camera.film.save_png(state)
+    exact.accel, scene.accel = eacc, acc
+    log(4, t0, f"1M tris 256^2 1spp depth 2 ({rays_per_frame} rays/frame): "
+        f"default {frames['default']['ms']:.2f} ms, exact_shared_edges "
+        f"{frames['exact_edges']['ms']:.2f} ms (CUDA events, mean of 3); "
+        f"PNGs {png}, {png_e}; card {card}")
+
+    # Camera chunk (the exact frame's first 65536 camera rays), per arm and
+    # block size: kernel ms (CUDA events, 10 launches) against plain ms.
+    o, d, tm, _ = e_calls[0]
+    perm = eacc.coherence_order(o, d, tm)
+    o, d, tm = (x[perm][:acc.ray_chunk] for x in (o, d, tm))
+    timing = {}
+    panel_bytes = {k: p[0].numel() * p.element_size()
+                   for k, p in panels.items()}
+    for blk in (32, 64, 128):
+        args = TS.SweepAccelerator(tb, dev, block_rays=blk).prologue(o, d, tm)
+        for arm, kind, cert in [("f32", "f32", False)] + arms:
+            for pipe in (False, True):
+                if blk != 32 and kind != "f32":
+                    continue
+                p = panels[kind]
+                opt = dict(certified=cert, pipeline=pipe)
+                steps = int(sweep_kernel(*args, p, blk, False,
+                                         collect_stats=True, **opt)[2].sum())
+                ms = cuda_ms(lambda: sweep_kernel(*args, p, blk, False, **opt),
+                             10)
+                name = arm + ("_pipelined" if pipe else "")
+                row = dict(ms=ms, steps=steps,
+                           gbs=steps * panel_bytes[kind] / ms / 1e6)
+                if blk == 32 and not pipe:
+                    row["stats_ms"] = cuda_ms(
+                        lambda: sweep_kernel(*args, p, blk, False,
+                                             collect_stats=True, **opt), 10)
+                    row["plain_ms"] = cuda_ms(
+                        lambda: sweep_plain(*args, p, blk, False,
+                                            certified=cert), 2)
+                timing[(name, blk)] = row
+                log(4, t0, f"camera chunk {o.shape[0]} rays, block {blk}, "
+                    f"{name}: kernel {ms:.3f} ms"
+                    + (f" ({row['stats_ms']:.3f} ms with step counts), "
+                       f"plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
+                       else "")
+                    + f", steps {steps}, panel {row['gbs']:.1f} GB/s")
+    log(4, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+
+    def err(arm):
+        return max(r["max_abs_err"] for r in arm_res[arm].values())
+
+    def entry(name, replaces, launches, max_abs_err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": SWEEP_SRC,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+
+    t32 = lambda k: timing[(k, 32)]
+    kernels = [
+        entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
+              max(r["max_abs_err"] for r in res.values()),
+              t32("f32")["ms"], t32("f32")["plain_ms"]),
+        entry("sweep_certified", f"{JAX_SWEEP}:69",
+              frames["exact_edges"]["launches"], err("certified"),
+              t32("certified")["ms"], t32("certified")["plain_ms"]),
+        entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
+              err("bf16"), t32("bf16")["ms"], t32("bf16")["plain_ms"]),
+        entry("sweep_hilo", f"{JAX_SWEEP}:253", frames["hilo"]["launches"],
+              err("hilo"), t32("hilo")["ms"], t32("hilo")["plain_ms"]),
+        entry("sweep_certified_bf16", f"{JAX_SWEEP}:69",
+              frames["exact_edges+bf16"]["launches"], err("certified_bf16"),
+              t32("certified_bf16")["ms"], t32("certified_bf16")["plain_ms"]),
+        entry("sweep_certified_hilo", f"{JAX_SWEEP}:69",
+              frames["exact_edges+hilo"]["launches"], err("certified_hilo"),
+              t32("certified_hilo")["ms"], t32("certified_hilo")["plain_ms"]),
+        entry("sweep_stats", f"{JAX_SWEEP}:305",
+              frames["exact_edges+stats"]["launches"], err("certified"),
+              t32("certified")["stats_ms"], t32("certified")["plain_ms"]),
+        entry("sweep_pipelined", f"{JAX_SWEEP}:313",
+              frames["exact_edges+pipeline"]["launches"], err("certified"),
+              t32("certified_pipelined")["ms"], t32("certified")["plain_ms"]),
+        {"name": "intersect", "route": "cuda",
+         "source": "trace_tpu_torch/csrc/intersect.cu",
+         "replaces": "trace_tpu/ops/intersect_pallas.py:94",
+         "launches": frames["fused_5k"]["launches"],
+         "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
+         "plain_ms": fused["plain_ms"]},
+    ]
+    print(json.dumps({"kernels": kernels}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,9 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages([PKG_DIR],
 
 
 def test_every_module_is_listed():
-    assert "trace_tpu_torch.ops.sweep" in MODULES
-    assert "trace_tpu_torch.wavefront.whitted" in MODULES
+    for name in ("accel.mxu", "ops.sweep", "ops.intersect",
+                 "wavefront.whitted"):
+        assert "trace_tpu_torch." + name in MODULES
 
 
 @pytest.mark.parametrize("name", MODULES)

@@ -10,8 +10,9 @@ package (trace_tpu.accel.clusters, trace_tpu.ops.sweep_pallas).
   atol 1e-5 + rtol 1e-5 (the JAX side contracts its K=3 dots through XLA,
   the port rounds every product, so t may differ in the last ulps); ids
   equal on every ray whose winning t is not tied with another triangle.
-- The CUDA kernel against the plain version on the card (``cuda`` marker,
-  skipped without a GPU): bit-equal.
+- The CUDA kernel, in every arm (certified, bf16 and hi/lo panels, step
+  counts, double-buffered), against the plain version on the card
+  (``cuda`` marker, skipped without a GPU): bit-equal.
 
 JAX is imported inside the ``jx`` fixture, so the ``cuda`` test also runs
 where JAX is not installed (``pytest --noconftest -m cuda``).
@@ -247,6 +248,48 @@ def test_cuda_kernel_matches_plain():
         assert (ki >= 0).sum() > 100
         assert torch.equal(ki, pi)
         assert torch.equal(kt, pt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "bf16", "hilo"])
+def test_cuda_kernel_arms_match_plain(kind):
+    # Every arm of the kernel -- certified or not, with step counts,
+    # double-buffered or not -- against the plain version: bit-equal.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trace_tpu_torch.models import mesh_heavy
+
+    dev = torch.device("cuda")
+    scene = mesh_heavy.build_scene(20_000, device=dev)
+    acc = scene.accel
+    panel = TS.panel_tensor(
+        TS.cast_panel(acc.tables.panel, kind == "bf16", kind == "hilo"), dev)
+    rng = np.random.default_rng(42)
+    o = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32))
+    o[:, 1] = 6.0
+    d = torch.from_numpy(rng.normal(0, 1, (3000, 3)).astype(np.float32))
+    d[:, 1] = -d[:, 1].abs()
+    d = d / d.norm(dim=1, keepdim=True)
+    o, d = o.to(dev), d.to(dev)
+    for any_hit, tm in ((False, float("inf")), (True, 8.0)):
+        t_max = torch.full((3000,), tm, device=dev)
+        perm = acc.coherence_order(o, d, t_max)
+        args = (*acc.prologue(o[perm], d[perm], t_max[perm]), panel,
+                acc.block_rays, any_hit)
+        for certified in (False, True):
+            pt, pi, ps = TS.sweep_plain(*args, certified=certified,
+                                        collect_stats=True)
+            for pipeline in (False, True):
+                kt, ki, ks = TS.sweep_kernel(*args, certified=certified,
+                                             collect_stats=True,
+                                             pipeline=pipeline)
+                nt, ni = TS.sweep_kernel(*args, certified=certified,
+                                         pipeline=pipeline)
+                torch.cuda.synchronize()
+                assert (ki >= 0).sum() > 100
+                for a, b in ((kt, pt), (ki, pi), (ks, ps), (nt, pt),
+                             (ni, pi)):
+                    assert torch.equal(a, b)
 
 
 def test_miss_stays_a_miss_when_the_last_slot_is_a_triangle(jx):

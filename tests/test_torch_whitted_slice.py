@@ -139,6 +139,33 @@ def test_scene_from_numpy_equals_scene_builder(jax_scene, port_scene):
     np.testing.assert_array_equal(img_c, img_b)
 
 
+def test_scene_from_numpy_takes_half_panels_exact_edges_and_fused_b(
+        jax_scene, port_scene):
+    from trace_tpu.accel.clusters import build_clusters
+    from trace_tpu.ops.intersect_pallas import pack_tris
+    from trace_tpu.ops.sweep_pallas import SweepTables
+    from trace_tpu_torch.ops import intersect as TI
+
+    a = _arrays_from_jax(jax_scene)
+    jtb = SweepTables(build_clusters(jax_scene.triangles_host, 64, 4), 8,
+                      panel_hilo=True)
+    a["panel"] = np.asarray(jtb.panel).view(np.uint16)
+    a["exact_edges"] = True
+    conv = scene_from_numpy(a, "cpu")
+    assert conv.exact_edges and conv.accel.certified
+    assert conv.accel.tables.panel_hilo
+    assert conv.accel.panel.dtype == torch.bfloat16
+    assert conv.accel.panel.shape[1] == 32
+    th = jax_scene.triangles_host
+    a["fused_b"] = pack_tris(th.v0, th.v1, th.v2)
+    fused = scene_from_numpy(a, "cpu")
+    assert isinstance(fused.accel, TI.IntersectAccelerator)
+    tr = port_scene.triangles
+    panel, ids = TI.pack_tris(tr.v0, tr.v1, tr.v2)
+    np.testing.assert_array_equal(fused.accel.tris.numpy(), panel)
+    np.testing.assert_array_equal(fused.accel.ids.numpy(), ids)
+
+
 def _camera_inputs(n=257, seed=3):
     rng = np.random.default_rng(seed)
     p_film = rng.uniform(0.0, RES + 2.0, (n, 2)).astype(np.float32)

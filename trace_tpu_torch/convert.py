@@ -10,7 +10,11 @@ identical data. Keys (all numpy):
 - materials: ``material_kind`` [M] i32 (MATTE or GLASS) and
   ``material_params`` [M, 7] f32: matte (Kd rgb, sigma), glass (Kr rgb,
   Kt rgb, index);
-- sweep tables (optional): ``panel``, ``slot_to_tri``, ``s_lo``, ``s_hi``.
+- sweep tables (optional): ``panel`` (f32, or a bf16 or hi/lo panel as
+  its uint16 view), ``slot_to_tri``, ``s_lo``, ``s_hi``;
+- ``exact_edges`` (optional): the scene's exact_shared_edges switch;
+- ``fused_b`` (optional): ops/intersect_pallas.py::pack_tris' B; the scene
+  then intersects through the fused brute-force accelerator.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 from .core import transform as T
 from .lights import lights as light_mod
 from .materials.materials import GlassMaterial, MatteMaterial
+from .ops import intersect
 from .ops.sweep import SweepTables
 from .scene import Scene
 from .shapes.sphere import Spheres
@@ -55,7 +60,11 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
         tables = SweepTables.from_arrays(arrays["panel"],
                                          arrays["slot_to_tri"],
                                          arrays["s_lo"], arrays["s_hi"])
-    return Scene(spheres, tris,
-                 _materials(arrays["material_kind"],
-                            arrays["material_params"]),
-                 lights, device, sweep_tables=tables)
+    scene = Scene(spheres, tris,
+                  _materials(arrays["material_kind"],
+                             arrays["material_params"]),
+                  lights, device, sweep_tables=tables,
+                  exact_edges=bool(arrays.get("exact_edges", False)))
+    if "fused_b" in arrays:
+        intersect.attach(scene, b=arrays["fused_b"])
+    return scene

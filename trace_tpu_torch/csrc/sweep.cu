@@ -1,17 +1,19 @@
 // Per-ray-block sparse sweep: closest-hit and any-hit ray/triangle
 // traversal for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel trace_tpu/ops/sweep_pallas.py::_sweep_kernel
-// (f32 panel, certified=False). What it computes is the same; the Mosaic
+// Replaces the TPU kernels trace_tpu/ops/sweep_pallas.py::_sweep_kernel
+// (every arm: f32, bf16 and hi/lo panels, plain or certified epilogue,
+// with or without step counts) and ::_sweep_kernel_pipelined (the
+// double-buffered panel copy). What they compute is the same; the Mosaic
 // layout (8-sublane order/suffix rows, 16-row ray packing, 8-row
 // broadcast outputs) is not carried over.
 //
 // Work: one CTA per block of B rays, one thread per ray. The CTA walks
 // its own demand-ordered list of super-clusters (order[b, :], built by
 // ops/sweep.py). Each step copies one super's Moller-Trumbore panel,
-// 16 rows x GL columns of f32 (32 KB at G=8 clusters x L=64 triangles),
-// into shared memory; each thread then tests its ray against all GL
-// triangles:
+// 16 rows x GL columns (32 KB of f32 at G=8 clusters x L=64 triangles;
+// 16 KB as bf16; 32 KB as hi/lo bf16 pairs), into shared memory; each
+// thread then tests its ray against all GL triangles:
 //   det   = -d.n          u*det = m.e2 - d.w      (m = o x d)
 //   v*det = -m.e1 - d.q   t*det = o.n - v0.n
 // with the sign-folded epilogue of trace_tpu/accel/mxu.py::mt_epilogue,
@@ -23,15 +25,35 @@
 // suffix-min of the block's entry distances. Any-hit retires a lane at
 // its first hit (lane_limit = -inf once best_t <= t_lim).
 //
+// Arms (template parameters, one instantiation each):
+//   CERT   the certified epilogue (mxu.py::mt_epilogue_certified): every
+//          boundary test is widened by err_eps times the abs-dot bounds
+//          |d|.|n|, ma.|e2| + |d|.|w|, ma.|e1| + |d|.|q|, |o|.|n| + |v0.n|
+//          (ma = abs-cross of |o| and |d|). |o|, |d| and ma are computed
+//          once per ray, in registers.
+//   KIND   the panel type: f32, bf16 (upcast = bits << 16, exact), or
+//          hi/lo (32 rows; f32(hi) + f32(lo), one rounding).
+//   STATS  write the number of supers the CTA swept (steps[b]).
+//   PIPE   double-buffer the panel: while super s is tested, super s+1's
+//          panel is already in flight into the other shared slot, by
+//          cp.async (16 bytes per thread and instruction, through L2
+//          only: .cg). cp.async was chosen over a 1-D cp.async.bulk with
+//          an mbarrier because every thread of the CTA is idle at the
+//          copy point anyway, the copy is one contiguous 16-32 KB run,
+//          and commit/wait groups need no barrier object in shared
+//          memory. The order rows are not padded, so the prefetch is
+//          guarded (s+1 < S); an empty group keeps the wait count
+//          uniform. Two slots of 32 KB cut residency from 7 to 3 CTAs
+//          per SM at f32.
+//
 // What bounds it on this card: FP32 ALU work on the dense (ray x
-// triangle) tests -- about 40 FP32 operations per pair, every ray
-// against every triangle of every super its block enters -- plus
-// re-reading panels from L2 (a 1M-triangle panel is ~100 MB, twice the
-// 50 MB L2). The design keeps the panel in shared memory so each byte
-// loaded from L2/HBM feeds B ray tests, reads it there with broadcast
-// loads (all lanes read the same word), and keeps per-lane state in
-// registers. Not done yet: double-buffering the next panel (cp.async or
-// TMA) behind the tests, and vectorised shared loads.
+// triangle) tests -- about 40 FP32 operations per pair (some 90 when
+// certified), every ray against every triangle of every super its block
+// enters -- plus re-reading panels from L2 (a 1M-triangle f32 panel is
+// ~86 MB, more than the 50 MB L2). The design keeps the panel in shared
+// memory so each byte loaded from L2/HBM feeds B ray tests, reads it
+// there with broadcast loads (all lanes read the same word), and keeps
+// per-lane state in registers.
 //
 // Rounding: built with --fmad=false, so every product and sum rounds
 // separately in the association order of the plain PyTorch version
@@ -41,9 +63,10 @@
 //   rays   f32 [10, NB*B]: o.xyz, d.xyz, m.xyz, t_lim (t_lim < 0: dead)
 //   order  i32 [NB, S]:    super ids, near-first per block
 //   suffix f32 [NB, S]:    suffix-min of the ordered entry distances
-//   panel  f32 [S, 16, GL]
+//   panel  [S, 16, GL] f32 or bf16, or [S, 32, GL] bf16 (hi rows, then lo)
 //   out_t  f32 [NB*B]:     best t, +inf when nothing was found
 //   out_i  i32 [NB*B]:     best local slot s*GL + k, -1 when nothing
+//   steps  i32 [NB]:       supers swept per block (STATS only)
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -51,15 +74,75 @@
 
 namespace {
 
+enum PanelKind { kF32 = 0, kBF16 = 1, kHiLo = 2 };
+
+__device__ __forceinline__ float bf16_to_f32(uint16_t h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// Row r, column k of a staged panel, as f32.
+template <int KIND>
+struct Panel;
+
+template <>
+struct Panel<kF32> {
+  static constexpr int kRows = 16;
+  static constexpr int kElemBytes = 4;
+  __device__ __forceinline__ static float at(const void *p, int gl, int r,
+                                             int k) {
+    return static_cast<const float *>(p)[r * gl + k];
+  }
+};
+
+template <>
+struct Panel<kBF16> {
+  static constexpr int kRows = 16;
+  static constexpr int kElemBytes = 2;
+  __device__ __forceinline__ static float at(const void *p, int gl, int r,
+                                             int k) {
+    return bf16_to_f32(static_cast<const uint16_t *>(p)[r * gl + k]);
+  }
+};
+
+template <>
+struct Panel<kHiLo> {
+  static constexpr int kRows = 32;
+  static constexpr int kElemBytes = 2;
+  __device__ __forceinline__ static float at(const void *p, int gl, int r,
+                                             int k) {
+    const uint16_t *h = static_cast<const uint16_t *>(p);
+    return bf16_to_f32(h[r * gl + k]) + bf16_to_f32(h[(16 + r) * gl + k]);
+  }
+};
+
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <bool CERT, int KIND, bool STATS, bool PIPE>
 __global__ void sweep_kernel(const float *__restrict__ rays,
                              const int32_t *__restrict__ order,
                              const float *__restrict__ suffix,
-                             const float *__restrict__ panel,
+                             const uint4 *__restrict__ panel,
                              float *__restrict__ out_t,
-                             int32_t *__restrict__ out_i, int n_supers,
-                             int gl, int any_hit) {
-  extern __shared__ float4 smem4[];
-  float *sp = reinterpret_cast<float *>(smem4);
+                             int32_t *__restrict__ out_i,
+                             int32_t *__restrict__ out_steps, int n_supers,
+                             int gl, int any_hit, float err_eps) {
+  using P = Panel<KIND>;
+  extern __shared__ uint4 smem[];
+  const int n16 = P::kRows * gl * P::kElemBytes / 16;  // 16-byte chunks
 
   const int b = blockIdx.x;
   const int n_lanes = gridDim.x * blockDim.x;
@@ -76,57 +159,112 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
   const float mz = rays[8 * n_lanes + lane];
   const float t_lim = rays[9 * n_lanes + lane];
 
+  // Per-ray factors of the certified error bounds.
+  const float oax = fabsf(ox), oay = fabsf(oy), oaz = fabsf(oz);
+  const float dax = fabsf(dx), day = fabsf(dy), daz = fabsf(dz);
+  const float max_ = oay * daz + oaz * day;
+  const float may = oaz * dax + oax * daz;
+  const float maz = oax * day + oay * dax;
+
   const int32_t *ord = order + (int64_t)b * n_supers;
   const float *suf = suffix + (int64_t)b * n_supers;
-  const int n4 = (16 * gl) / 4;
+
+  // Copy super sid's panel into shared slot ``slot``.
+  auto stage = [&](int slot, int sid) {
+    const uint4 *src = panel + (int64_t)sid * n16;
+    uint4 *dst = smem + slot * n16;
+    if (PIPE) {
+      for (int j = threadIdx.x; j < n16; j += blockDim.x)
+        cp_async16(dst + j, src + j);
+      cp_async_commit();
+    } else {
+      for (int j = threadIdx.x; j < n16; j += blockDim.x) dst[j] = src[j];
+    }
+  };
 
   float best_t = CUDART_INF_F;
   int32_t best_i = -1;
 
-  for (int s = 0; s < n_supers; ++s) {
+  if (PIPE && n_supers > 0) stage(0, ord[0]);
+  int s = 0;
+  for (; s < n_supers; ++s) {
     float lane_limit;
     if (any_hit) {
       lane_limit = (best_t <= t_lim) ? -CUDART_INF_F : t_lim;
     } else {
       lane_limit = fminf(best_t, t_lim);
     }
-    // Also the barrier that ends every thread's reads of the last panel.
+    // Also the barrier that ends every thread's reads of the last panel
+    // (so its slot may be overwritten below).
     if (!__syncthreads_or(suf[s] < lane_limit)) break;
 
     const int sid = ord[s];
-    const float4 *src =
-        reinterpret_cast<const float4 *>(panel + (int64_t)sid * 16 * gl);
-    for (int j = threadIdx.x; j < n4; j += blockDim.x) smem4[j] = src[j];
+    if (PIPE) {
+      if (s + 1 < n_supers) {
+        stage((s + 1) & 1, ord[s + 1]);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<1>();  // this thread's copies of super s have landed
+    } else {
+      stage(0, sid);
+    }
     __syncthreads();
-
-    const float *n_x = sp + 0 * gl, *n_y = sp + 1 * gl, *n_z = sp + 2 * gl;
-    const float *a_x = sp + 3 * gl, *a_y = sp + 4 * gl, *a_z = sp + 5 * gl;
-    const float *c_x = sp + 6 * gl, *c_y = sp + 7 * gl, *c_z = sp + 8 * gl;
-    const float *w_x = sp + 9 * gl, *w_y = sp + 10 * gl, *w_z = sp + 11 * gl;
-    const float *q_x = sp + 12 * gl, *q_y = sp + 13 * gl,
-                *q_z = sp + 14 * gl;
-    const float *v0n = sp + 15 * gl;
+    const void *sp = smem + (PIPE ? (s & 1) * n16 : 0);
 
     const float limit = fminf(best_t, t_lim);
     float cur_t = CUDART_INF_F;
     int cur_k = -1;
     for (int k = 0; k < gl; ++k) {
-      const float nx = n_x[k], ny = n_y[k], nz = n_z[k];
+#define ROW(r) P::at(sp, gl, r, k)
+      const float nx = ROW(0), ny = ROW(1), nz = ROW(2);
+      const float e1x = ROW(3), e1y = ROW(4), e1z = ROW(5);
+      const float e2x = ROW(6), e2y = ROW(7), e2z = ROW(8);
+      const float wx = ROW(9), wy = ROW(10), wz = ROW(11);
+      const float qx = ROW(12), qy = ROW(13), qz = ROW(14);
+      const float v0n = ROW(15);
+#undef ROW
       const float det = -((dx * nx + dy * ny) + dz * nz);
-      const float u_det = ((mx * c_x[k] + my * c_y[k]) + mz * c_z[k]) -
-                          ((dx * w_x[k] + dy * w_y[k]) + dz * w_z[k]);
-      const float v_det = -((mx * a_x[k] + my * a_y[k]) + mz * a_z[k]) -
-                          ((dx * q_x[k] + dy * q_y[k]) + dz * q_z[k]);
-      const float t_det = ((ox * nx + oy * ny) + oz * nz) - v0n[k];
+      const float u_det = ((mx * e2x + my * e2y) + mz * e2z) -
+                          ((dx * wx + dy * wy) + dz * wz);
+      const float v_det = -((mx * e1x + my * e1y) + mz * e1z) -
+                          ((dx * qx + dy * qy) + dz * qz);
+      const float t_det = ((ox * nx + oy * ny) + oz * nz) - v0n;
       const float sign = det < 0.0f ? -1.0f : 1.0f;
       const float adet = det * sign;
       const float u = u_det * sign;
       const float v = v_det * sign;
       const float tn = t_det * sign;
-      const bool live = adet > 1e-12f;
-      const float t = tn / (live ? adet : 1.0f);
-      const bool ok = live && u >= 0.0f && v >= 0.0f && u + v <= adet &&
-                      tn > 0.0f && t < limit;
+      bool ok;
+      float t;
+      if (CERT) {
+        const float err_det =
+            err_eps * ((dax * fabsf(nx) + day * fabsf(ny)) + daz * fabsf(nz));
+        const float err_u =
+            err_eps *
+            (((max_ * fabsf(e2x) + may * fabsf(e2y)) + maz * fabsf(e2z)) +
+             ((dax * fabsf(wx) + day * fabsf(wy)) + daz * fabsf(wz)));
+        const float err_v =
+            err_eps *
+            (((max_ * fabsf(e1x) + may * fabsf(e1y)) + maz * fabsf(e1z)) +
+             ((dax * fabsf(qx) + day * fabsf(qy)) + daz * fabsf(qz)));
+        const float err_t =
+            err_eps *
+            (((oax * fabsf(nx) + oay * fabsf(ny)) + oaz * fabsf(nz)) +
+             fabsf(v0n));
+        // torch.clamp_min(err_det, 1e-12): NaN stays NaN.
+        const float floor_det = err_det < 1e-12f ? 1e-12f : err_det;
+        const bool live = adet > floor_det;
+        t = tn / (live ? adet : 1.0f);
+        ok = live && u >= -err_u && v >= -err_v &&
+             u + v <= ((adet + err_u) + err_v) + err_det && tn > -err_t &&
+             t < limit;
+      } else {
+        const bool live = adet > 1e-12f;
+        t = tn / (live ? adet : 1.0f);
+        ok = live && u >= 0.0f && v >= 0.0f && u + v <= adet && tn > 0.0f &&
+             t < limit;
+      }
       if (ok && t < cur_t) {
         cur_t = t;
         cur_k = k;
@@ -137,26 +275,83 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
       best_i = sid * gl + cur_k;
     }
   }
+  if (PIPE) cp_async_wait<0>();  // the prefetch past the last step
   out_t[lane] = best_t;
   out_i[lane] = best_i;
+  if (STATS && threadIdx.x == 0) out_steps[b] = s;
+}
+
+struct Args {
+  const float *rays;
+  const int32_t *order;
+  const float *suffix;
+  const uint4 *panel;
+  float *out_t;
+  int32_t *out_i;
+  int32_t *out_steps;
+  int n_blocks, block_rays, n_supers, gl, any_hit;
+  float err_eps;
+  cudaStream_t stream;
+};
+
+template <bool CERT, int KIND, bool STATS, bool PIPE>
+int launch(const Args &a) {
+  auto fn = sweep_kernel<CERT, KIND, STATS, PIPE>;
+  const size_t smem = (PIPE ? 2 : 1) * (size_t)Panel<KIND>::kRows * a.gl *
+                      Panel<KIND>::kElemBytes;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sweep_kernel<CERT, KIND, STATS, PIPE><<<a.n_blocks, a.block_rays, smem,
+                                          a.stream>>>(
+      a.rays, a.order, a.suffix, a.panel, a.out_t, a.out_i, a.out_steps,
+      a.n_supers, a.gl, a.any_hit, a.err_eps);
+  return (int)cudaGetLastError();
+}
+
+template <bool CERT, int KIND>
+int launch_sp(const Args &a, bool stats, bool pipe) {
+  if (stats)
+    return pipe ? launch<CERT, KIND, true, true>(a)
+                : launch<CERT, KIND, true, false>(a);
+  return pipe ? launch<CERT, KIND, false, true>(a)
+              : launch<CERT, KIND, false, false>(a);
+}
+
+template <bool CERT>
+int launch_k(const Args &a, int kind, bool stats, bool pipe) {
+  switch (kind) {
+    case kF32:
+      return launch_sp<CERT, kF32>(a, stats, pipe);
+    case kBF16:
+      return launch_sp<CERT, kBF16>(a, stats, pipe);
+    case kHiLo:
+      return launch_sp<CERT, kHiLo>(a, stats, pipe);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launches on ``stream``; returns cudaGetLastError() of the launch.
+// ``out_steps`` may be null (then no step counts are written).
+// panel_kind: 0 f32, 1 bf16, 2 hi/lo.
 extern "C" int sweep_launch(const float *rays, const int32_t *order,
-                            const float *suffix, const float *panel,
-                            float *out_t, int32_t *out_i, int n_blocks,
-                            int block_rays, int n_supers, int gl,
-                            int any_hit, void *stream) {
-  const size_t smem = sizeof(float) * 16 * (size_t)gl;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  sweep_kernel<<<n_blocks, block_rays, smem, (cudaStream_t)stream>>>(
-      rays, order, suffix, panel, out_t, out_i, n_supers, gl, any_hit);
-  return (int)cudaGetLastError();
+                            const float *suffix, const void *panel,
+                            float *out_t, int32_t *out_i, int32_t *out_steps,
+                            int n_blocks, int block_rays, int n_supers,
+                            int gl, int any_hit, int certified,
+                            int panel_kind, int pipeline, float err_eps,
+                            void *stream) {
+  const Args a{rays,       order,   suffix,
+               static_cast<const uint4 *>(panel),
+               out_t,      out_i,   out_steps,
+               n_blocks,   block_rays, n_supers,
+               gl,         any_hit, err_eps,
+               static_cast<cudaStream_t>(stream)};
+  const bool stats = out_steps != nullptr;
+  return certified ? launch_k<true>(a, panel_kind, stats, pipeline != 0)
+                   : launch_k<false>(a, panel_kind, stats, pipeline != 0);
 }

@@ -1,7 +1,7 @@
 """Where a mesh_heavy Whitted frame spends its time on the GPU.
 
     python -m trace_tpu_torch.models.frame_profile --tris 1000000 \
-        --resolution 256 --out frame_profile.txt
+        --resolution 256 [--exact-shared-edges] --out frame_profile.txt
 
 Prints, for one warm 1-spp depth-2 frame at the shipped sweep block size:
 the frame time (CUDA events, 3 frames) and a torch.profiler table of
@@ -35,6 +35,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--tris", type=int, default=1_000_000)
     ap.add_argument("--resolution", type=int, default=256)
+    ap.add_argument("--exact-shared-edges", action="store_true")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
     if not torch.cuda.is_available():
@@ -56,14 +57,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     say(f"card: {card}; torch {torch.__version__}")
-    scene = mesh_heavy.build_scene(a.tris, device=dev)
+    scene = mesh_heavy.build_scene(
+        a.tris, device=dev, exact_shared_edges=a.exact_shared_edges)
     cam = mesh_heavy.build_camera(a.resolution, "unused.png")
     integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
     frame = lambda: integ.render(scene)
     frame()
 
     f_ms = _events_ms(frame, 3)
-    say(f"{a.tris} triangles, {a.resolution}^2: frames "
+    say(f"{a.tris} triangles, {a.resolution}^2, exact_shared_edges "
+        f"{a.exact_shared_edges}: frames "
         f"{' '.join(f'{x:.2f}' for x in f_ms)} ms (CUDA events)")
 
     from torch.autograd import DeviceType

@@ -36,7 +36,9 @@ def heightfield(n: int):
     return verts, tris.astype(np.uint32)
 
 
-def build_scene(target_tris: int = 1_000_000, device="cpu") -> Scene:
+def build_scene(target_tris: int = 1_000_000, device="cpu",
+                **build_kw) -> Scene:
+    """``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
     n = int(np.sqrt(target_tris / 2)) + 1
     verts, tris = heightfield(n)
     b = SceneBuilder()
@@ -45,7 +47,7 @@ def build_scene(target_tris: int = 1_000_000, device="cpu") -> Scene:
     b.triangle_mesh(T.identity(), tris, verts, ground)
     b.sphere(T.translate([0.0, 2.0, 0.0]), 1.0, glass)
     b.light(point_light(T.translate([4.0, 8.0, 4.0]), (400.0, 400.0, 400.0)))
-    return b.build(device=device)
+    return b.build(device=device, **build_kw)
 
 
 def build_camera(resolution: int = 512, filename: str = "terrain.png"):

@@ -9,41 +9,74 @@ every live lane's limit. The sweep itself is ``csrc/sweep.cu`` on CUDA
 tensors and :func:`sweep_plain` on CPU tensors; ``sweep`` picks by device
 and never falls back from one to the other. The prologue (entry
 distances, per-block order and suffix) and the ray sort stay PyTorch.
+
+Options, as in the JAX package (all off by default):
+
+- ``certified``: the epilogue is widened by proven error bounds
+  (accel/mxu.py::mt_epilogue_certified), so shared mesh edges do not
+  leak; the scene's ``exact_shared_edges`` switch sets it.
+- ``panel_bf16`` / ``panel_hilo`` (SweepTables): the panel is stored as
+  bf16, or as an f32(hi) + f32(lo) pair of bf16 rows; the certified
+  bound widens to match (``err_eps``).
+- ``collect_stats``: the number of supers each block swept.
+- ``pipeline``: the kernel copies the next super's panel while it tests
+  the current one (same results, bit for bit).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
-import os
-import subprocess
-import tempfile
-import threading
 
 import numpy as np
 import torch
 
 from ..accel.clusters import ClusterAccel, entry_boxes, sort_key
+from ..accel.mxu import MT_ERR_EPS, mt_epilogue, mt_epilogue_certified
+from .nvcc import CudaLibrary, check_tensors
 
 F32 = torch.float32
 INF = float("inf")
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "sweep.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libsweep.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+
+# Certified widening for half-precision panels (the JAX package's
+# constants): a bf16 constant carries <= 2^-9 relative error, a hi/lo
+# pair ~2^-18 plus one f32 add; the 1.25x / 2x margins only fatten
+# silhouettes.
+BF16_PANEL_ERR_EPS = 1.25 * 2.0 ** -9
+HILO_PANEL_ERR_EPS = 2.0 ** -17
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """f32 -> bf16 on the host (round to nearest even), as uint16 bits."""
+    t = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+
+
+def bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bf16 bits -> f32 (exact)."""
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def panel_err_eps(bf16: bool, hilo: bool) -> float:
+    """The certified epilogue's eps for a panel precision."""
+    return (BF16_PANEL_ERR_EPS if bf16 else HILO_PANEL_ERR_EPS if hilo
+            else MT_ERR_EPS)
 
 
 class SweepTables:
     """Kernel tables from a ClusterAccel (host numpy, bit-equal to the
-    JAX package's SweepTables with an f32 panel).
+    JAX package's SweepTables).
 
-    ``panel`` [S, 16, GLP]: row k is MT component k across the super's G
-    clusters (GLP = G*L padded to 128). ``slot_to_tri`` [S*GLP] maps a
-    local slot s*GLP + k to the global triangle id (-1 = padding; padding
-    slots carry zero constants, so det = 0 and they never hit).
+    ``panel`` [S, 16, GLP]: row k is MT component k (n, e1, e2, w, q,
+    v0.n) across the super's G clusters (GLP = G*L padded to 128); f32,
+    or with ``panel_bf16`` the same as bf16 bits (uint16), or with
+    ``panel_hilo`` [S, 32, GLP] bf16 bits, rows 0-15 hi and rows 16-31
+    lo = bf16(f32 - hi). ``slot_to_tri`` [S*GLP] maps a local slot
+    s*GLP + k to the global triangle id (-1 = padding; padding slots
+    carry zero constants, so det = 0 and they never hit).
     ``s_lo``/``s_hi`` [S, 3] are the super AABBs."""
 
-    def __init__(self, accel: ClusterAccel, group: int = 8):
+    def __init__(self, accel: ClusterAccel, group: int = 8,
+                 panel_bf16: bool = False, panel_hilo: bool = False):
         l = accel.leaf_tris
         c = accel.tri_id.shape[0]
         g = int(group)
@@ -58,31 +91,72 @@ class SweepTables:
             c_hi = np.concatenate([c_hi, np.repeat(c_hi[-1:], pad_c, 0)])
         s = (c + pad_c) // g
         gl = g * l
-        self.gl_pad = -(-gl // 128) * 128
+        gl_pad = -(-gl // 128) * 128
         panel = mt.reshape(s, g, 16, l).transpose(0, 2, 1, 3).reshape(s, 16, gl)
-        self.panel = np.asarray(
-            np.pad(panel, ((0, 0), (0, 0), (0, self.gl_pad - gl))), np.float32)
-        slot = np.full((s, self.gl_pad), -1, np.int32)
+        panel = np.asarray(np.pad(panel, ((0, 0), (0, 0), (0, gl_pad - gl))),
+                           np.float32)
+        slot = np.full((s, gl_pad), -1, np.int32)
         slot[:, :gl] = tid.reshape(s, gl)
-        self.slot_to_tri = np.ascontiguousarray(slot.reshape(-1))
-        self.s_lo = np.ascontiguousarray(c_lo.reshape(s, g, 3).min(axis=1))
-        self.s_hi = np.ascontiguousarray(c_hi.reshape(s, g, 3).max(axis=1))
-        self.n_supers = s
+        self._set(cast_panel(panel, panel_bf16, panel_hilo),
+                  slot.reshape(-1), c_lo.reshape(s, g, 3).min(axis=1),
+                  c_hi.reshape(s, g, 3).max(axis=1))
         self.group = g
         self.leaf_tris = l
 
+    def _set(self, panel, slot_to_tri, s_lo, s_hi):
+        self.panel = np.ascontiguousarray(panel)
+        rows = (16, 32) if self.panel.dtype == np.uint16 else (16,)
+        if self.panel.dtype not in (np.float32, np.uint16) \
+                or self.panel.ndim != 3 or self.panel.shape[1] not in rows:
+            raise ValueError(f"panel: f32 or bf16 bits [S, 16, GL], or bf16 "
+                             f"bits [S, 32, GL]; got {self.panel.dtype} "
+                             f"{self.panel.shape}")
+        self.panel_bf16 = self.panel.dtype == np.uint16 \
+            and self.panel.shape[1] == 16
+        self.panel_hilo = self.panel.shape[1] == 32
+        self.slot_to_tri = np.ascontiguousarray(slot_to_tri, np.int32)
+        self.s_lo = np.ascontiguousarray(s_lo, np.float32)
+        self.s_hi = np.ascontiguousarray(s_hi, np.float32)
+        self.n_supers = self.panel.shape[0]
+        self.gl_pad = self.panel.shape[2]
+
+    @property
+    def err_eps(self) -> float:
+        return panel_err_eps(self.panel_bf16, self.panel_hilo)
+
     @classmethod
     def from_arrays(cls, panel, slot_to_tri, s_lo, s_hi) -> "SweepTables":
-        """Wrap tables packed elsewhere (group/leaf sizes are not kept)."""
+        """Wrap tables packed elsewhere: ``panel`` is f32, or bf16 bits
+        (uint16) with 16 rows (bf16) or 32 rows (hi/lo). Group and leaf
+        sizes are not kept."""
         tb = object.__new__(cls)
-        tb.panel = np.ascontiguousarray(panel, np.float32)
-        tb.slot_to_tri = np.ascontiguousarray(slot_to_tri, np.int32)
-        tb.s_lo = np.ascontiguousarray(s_lo, np.float32)
-        tb.s_hi = np.ascontiguousarray(s_hi, np.float32)
-        tb.n_supers = tb.panel.shape[0]
-        tb.gl_pad = tb.panel.shape[2]
+        tb._set(panel, slot_to_tri, s_lo, s_hi)
         tb.group = tb.leaf_tris = None
         return tb
+
+
+def cast_panel(panel: np.ndarray, bf16: bool = False,
+               hilo: bool = False) -> np.ndarray:
+    """An f32 panel [S, 16, GL] in the stored precision: itself, bf16
+    bits, or hi/lo bf16 bits [S, 32, GL]."""
+    if bf16 and hilo:
+        raise ValueError("panel_bf16 and panel_hilo are mutually exclusive")
+    if bf16:
+        return bf16_bits(panel)
+    if hilo:
+        hi = bf16_bits(panel)
+        lo = bf16_bits(panel - bits_to_f32(hi))
+        return np.concatenate([hi, lo], axis=1)
+    return np.asarray(panel, np.float32)
+
+
+def panel_tensor(panel: np.ndarray, device) -> torch.Tensor:
+    """A host panel as a device tensor: f32, or bf16 for bf16 bits."""
+    p = np.ascontiguousarray(panel)
+    if p.dtype == np.uint16:
+        return torch.from_numpy(p.view(np.int16)).view(torch.bfloat16).to(
+            device)
+    return torch.from_numpy(p).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -90,25 +164,75 @@ class SweepTables:
 # ---------------------------------------------------------------------------
 
 
+def _panel_kind(panel: torch.Tensor) -> str:
+    if panel.dtype == F32 and panel.shape[1] == 16:
+        return "f32"
+    if panel.dtype == torch.bfloat16 and panel.shape[1] in (16, 32):
+        return "bf16" if panel.shape[1] == 16 else "hilo"
+    raise ValueError(f"sweep: panel must be f32 [S, 16, GL] or bf16 "
+                     f"[S, 16|32, GL], got {panel.dtype} {tuple(panel.shape)}")
+
+
+def _upcast(p: torch.Tensor) -> torch.Tensor:
+    """Panel rows as f32: a bf16 upcast is exact; hi/lo is f32(hi) +
+    f32(lo), one rounding."""
+    if p.dtype == F32:
+        return p
+    if p.shape[1] == 32:
+        return p[:, :16].float() + p[:, 16:].float()
+    return p.float()
+
+
 def _dot3(a0, a1, a2, p, r):
     """(a0 * p[r] + a1 * p[r+1]) + a2 * p[r+2], the kernel's order."""
     return a0 * p[:, None, r] + a1 * p[:, None, r + 1] + a2 * p[:, None, r + 2]
 
 
+def _panel_test(ra, p, certified: bool, err_eps: float):
+    """(ok, t) for rays ra [10, A, B, 1] against panels p [A, 16, GL] (f32),
+    in the kernel's association order."""
+    o0, o1, o2, d0, d1, d2, m0, m1, m2 = (ra[i] for i in range(9))
+    det = -_dot3(d0, d1, d2, p, 0)
+    u_det = _dot3(m0, m1, m2, p, 6) - _dot3(d0, d1, d2, p, 9)
+    v_det = -_dot3(m0, m1, m2, p, 3) - _dot3(d0, d1, d2, p, 12)
+    t_det = _dot3(o0, o1, o2, p, 0) - p[:, None, 15]
+    if not certified:
+        return mt_epilogue(det, u_det, v_det, t_det)
+    oa0, oa1, oa2, da0, da1, da2 = (x.abs() for x in (o0, o1, o2, d0, d1, d2))
+    ma0 = oa1 * da2 + oa2 * da1                 # abs_cross(|o|, |d|)
+    ma1 = oa2 * da0 + oa0 * da2
+    ma2 = oa0 * da1 + oa1 * da0
+    pa = p.abs()
+    err_det = err_eps * _dot3(da0, da1, da2, pa, 0)
+    err_u = err_eps * (_dot3(ma0, ma1, ma2, pa, 6)
+                       + _dot3(da0, da1, da2, pa, 9))
+    err_v = err_eps * (_dot3(ma0, ma1, ma2, pa, 3)
+                       + _dot3(da0, da1, da2, pa, 12))
+    err_t = err_eps * (_dot3(oa0, oa1, oa2, pa, 0) + pa[:, None, 15])
+    return mt_epilogue_certified(det, u_det, v_det, t_det, err_det, err_u,
+                                 err_v, err_t)
+
+
 def sweep_plain(rays: torch.Tensor, order: torch.Tensor,
                 suffix: torch.Tensor, panel: torch.Tensor, block_rays: int,
-                any_hit: bool):
+                any_hit: bool, certified: bool = False,
+                err_eps: float | None = None, collect_stats: bool = False):
     """Plain PyTorch version of the sweep kernel.
 
     rays f32 [10, NB*B] (o, d, m = o x d, t_lim); order i32 [NB, S];
-    suffix f32 [NB, S]; panel f32 [S, 16, GL] ->
-    (best_t f32 [NB*B], +inf where nothing was found;
-     best_i i32 [NB*B], local slot s*GL + k, -1 where nothing).
+    suffix f32 [NB, S]; panel f32 [S, 16, GL], bf16 [S, 16, GL] or hi/lo
+    bf16 [S, 32, GL] -> (best_t f32 [NB*B], +inf where nothing was found;
+    best_i i32 [NB*B], local slot s*GL + k, -1 where nothing), and with
+    ``collect_stats`` steps i32 [NB], the supers each block swept.
+    ``err_eps`` (certified only) defaults to the panel precision's.
 
     Vectorised over blocks with a Python loop over steps; a block stops
     at the first step where no lane can improve, as in the kernel. Same
     tie rule: within a super the lowest slot among equal t, across
     supers strict '<' (the earlier-visited super wins)."""
+    kind = _panel_kind(panel)
+    if err_eps is None:
+        err_eps = panel_err_eps(kind == "bf16", kind == "hilo")
     nb, n_supers = order.shape
     b = int(block_rays)
     gl = panel.shape[2]
@@ -118,6 +242,7 @@ def sweep_plain(rays: torch.Tensor, order: torch.Tensor,
     best_t = torch.full((nb, b), INF, dtype=F32, device=dev)
     best_i = torch.full((nb, b), -1, dtype=torch.int32, device=dev)
     done = torch.zeros(nb, dtype=torch.bool, device=dev)
+    steps = torch.zeros(nb, dtype=torch.int32, device=dev)
     cols = torch.arange(gl, dtype=torch.int32, device=dev)
     big = torch.iinfo(torch.int32).max
     for s in range(n_supers):
@@ -129,122 +254,113 @@ def sweep_plain(rays: torch.Tensor, order: torch.Tensor,
         blocks = (~done).nonzero().squeeze(1)
         if blocks.numel() == 0:
             break
+        steps += (~done).to(torch.int32)
         sid = order[blocks, s].long()
-        p = panel[sid]                                   # [A, 16, GL]
-        ra = r[:, blocks, :, None]                       # [10, A, B, 1]
-        o0, o1, o2, d0, d1, d2, m0, m1, m2 = (ra[i] for i in range(9))
-        det = -_dot3(d0, d1, d2, p, 0)
-        u_det = _dot3(m0, m1, m2, p, 6) - _dot3(d0, d1, d2, p, 9)
-        v_det = -_dot3(m0, m1, m2, p, 3) - _dot3(d0, d1, d2, p, 12)
-        t_det = _dot3(o0, o1, o2, p, 0) - p[:, None, 15]
-        sign = torch.where(det < 0.0, -1.0, 1.0)
-        adet = det * sign
-        u = u_det * sign
-        v = v_det * sign
-        tn = t_det * sign
-        live = adet > 1e-12
-        t = tn / torch.where(live, adet, 1.0)
+        ok, t = _panel_test(r[:, blocks, :, None], _upcast(panel[sid]),
+                            certified, err_eps)
         bt = best_t[blocks]
         limit = torch.minimum(bt, t_lim[blocks])[..., None]
-        ok = (live & (u >= 0.0) & (v >= 0.0) & (u + v <= adet) & (tn > 0.0)
-              & (t < limit))
-        t = torch.where(ok, t, INF)
+        t = torch.where(ok & (t < limit), t, INF)
         tmin = t.amin(dim=2)
         kmin = torch.where(t <= tmin[..., None], cols, big).amin(dim=2)
         better = tmin < bt
         best_t[blocks] = torch.where(better, tmin, bt)
         best_i[blocks] = torch.where(
             better, sid[:, None].to(torch.int32) * gl + kmin, best_i[blocks])
+    if collect_stats:
+        return best_t.reshape(-1), best_i.reshape(-1), steps
     return best_t.reshape(-1), best_i.reshape(-1)
 
 
+_KIND_CODE = {"f32": 0, "bf16": 1, "hilo": 2}
+
+
+def arm_name(kind: str, certified: bool, pipeline: bool,
+             collect_stats: bool) -> str:
+    """The kernel arm's name in ``SweepKernel.arm_launches``, e.g.
+    ``certified_bf16_pipelined``."""
+    return "_".join(
+        (["certified"] if certified else []) + [kind]
+        + (["pipelined"] if pipeline else [])
+        + (["stats"] if collect_stats else []))
+
+
 class SweepKernel:
-    """ctypes binding of csrc/sweep.cu, built with nvcc for sm_90a into
-    ``build/`` at the first launch. ``launches`` counts kernel launches."""
+    """ctypes binding of csrc/sweep.cu (ops/nvcc.py), built at the first
+    launch. ``launches`` counts kernel launches, ``arm_launches`` the same
+    per arm (:func:`arm_name`)."""
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
-        self._lock = threading.Lock()
+        self.arm_launches = collections.Counter()
+        self.lib = CudaLibrary(
+            "sweep", "sweep_launch",
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
 
-    def load(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                self._lib = ctypes.CDLL(self._build())
-                fn = self._lib.sweep_launch
-                fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                               + [ctypes.c_void_p])
-            return self._lib
-
-    @staticmethod
-    def _build() -> str:
-        if (os.path.exists(LIB_PATH)
-                and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE)):
-            return LIB_PATH
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                            "bin", "nvcc")
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                           check=True, capture_output=True, text=True,
-                           timeout=600)
-            os.replace(tmp, LIB_PATH)
-        except subprocess.CalledProcessError as e:
-            raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        return LIB_PATH
+    def reset_counts(self) -> None:
+        self.launches = 0
+        self.arm_launches.clear()
 
     def __call__(self, rays, order, suffix, panel, block_rays: int,
-                 any_hit: bool):
-        """Same contract as :func:`sweep_plain`, on CUDA tensors."""
+                 any_hit: bool, certified: bool = False,
+                 err_eps: float | None = None, collect_stats: bool = False,
+                 pipeline: bool = False):
+        """Same contract as :func:`sweep_plain`, on CUDA tensors;
+        ``pipeline`` double-buffers the panel copy (same results)."""
         nb, n_supers = order.shape
+        kind = _panel_kind(panel)
+        if err_eps is None:
+            err_eps = panel_err_eps(kind == "bf16", kind == "hilo")
         gl = panel.shape[2]
         b = int(block_rays)
         dev = rays.device
-        checks = (
+        check_tensors("sweep kernel", dev, (
             (rays, F32, (10, nb * b)), (order, torch.int32, (nb, n_supers)),
-            (suffix, F32, (nb, n_supers)), (panel, F32, (n_supers, 16, gl)),
-        )
-        for t, dtype, shape in checks:
-            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                    or not t.is_contiguous():
-                raise ValueError(
-                    f"sweep kernel: want {dtype} {shape} contiguous on {dev}, "
-                    f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if dev.type != "cuda" or not 32 <= b <= 1024 or b % 32 or gl % 4:
+            (suffix, F32, (nb, n_supers)),
+            (panel, panel.dtype, (n_supers, panel.shape[1], gl))))
+        if dev.type != "cuda" or not 32 <= b <= 1024 or b % 32 or gl % 8:
             raise ValueError("sweep kernel: CUDA tensors, 32 <= block_rays "
-                             "<= 1024 (a multiple of 32), GL % 4 == 0")
-        lib = self.load()
+                             "<= 1024 (a multiple of 32), GL % 8 == 0")
+        launch = self.lib.load()
         best_t = torch.empty(nb * b, dtype=F32, device=dev)
         best_i = torch.empty(nb * b, dtype=torch.int32, device=dev)
+        steps = torch.empty(nb, dtype=torch.int32, device=dev)
+        out = (best_t, best_i, steps) if collect_stats else (best_t, best_i)
         if nb == 0:
-            return best_t, best_i
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sweep_launch(
+            return out
+        err = launch(
             rays.data_ptr(), order.data_ptr(), suffix.data_ptr(),
             panel.data_ptr(), best_t.data_ptr(), best_i.data_ptr(),
-            nb, b, n_supers, gl, int(bool(any_hit)), stream)
+            steps.data_ptr() if collect_stats else None,
+            nb, b, n_supers, gl, int(bool(any_hit)), int(bool(certified)),
+            _KIND_CODE[kind], int(bool(pipeline)), float(err_eps),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
         self.launches += 1
-        return best_t, best_i
+        self.arm_launches[arm_name(kind, certified, pipeline,
+                                   collect_stats)] += 1
+        return out
 
 
 sweep_kernel = SweepKernel()
 
 
-def sweep(rays, order, suffix, panel, block_rays: int, any_hit: bool):
+def sweep(rays, order, suffix, panel, block_rays: int, any_hit: bool,
+          certified: bool = False, err_eps: float | None = None,
+          collect_stats: bool = False, pipeline: bool = False):
     """The sweep: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+    CPU tensors (``pipeline`` only changes how the kernel stages its
+    panels, so the plain version has no such option)."""
+    opts = dict(certified=certified, err_eps=err_eps,
+                collect_stats=collect_stats)
     if rays.device.type == "cuda":
-        return sweep_kernel(rays, order, suffix, panel, block_rays, any_hit)
+        return sweep_kernel(rays, order, suffix, panel, block_rays, any_hit,
+                            pipeline=pipeline, **opts)
     if rays.device.type == "cpu":
-        return sweep_plain(rays, order, suffix, panel, block_rays, any_hit)
+        return sweep_plain(rays, order, suffix, panel, block_rays, any_hit,
+                           **opts)
     raise ValueError(f"sweep: unsupported device {rays.device}")
 
 
@@ -258,15 +374,23 @@ class SweepAccelerator:
     tensors built once per scene.
 
     ``block_rays``: rays per kernel block (one CTA). ``ray_chunk``: rays
-    per launch; the [chunk, S] entry table bounds its memory."""
+    per launch; the [chunk, S] entry table bounds its memory.
+    ``certified``, ``pipeline``, ``collect_stats``: the sweep's options
+    (module docstring); with ``collect_stats`` every launch appends its
+    per-block step counts [NB] to ``last_steps``."""
 
     def __init__(self, tables: SweepTables, device, block_rays: int = 32,
-                 ray_chunk: int = 65536):
+                 ray_chunk: int = 65536, certified: bool = False,
+                 pipeline: bool = False, collect_stats: bool = False):
         dev = torch.device(device)
         self.tables = tables
         self.block_rays = int(block_rays)
         self.ray_chunk = int(ray_chunk)
-        self.panel = torch.from_numpy(tables.panel).to(dev)
+        self.certified = bool(certified)
+        self.pipeline = bool(pipeline)
+        self.collect_stats = bool(collect_stats)
+        self.last_steps = []
+        self.panel = panel_tensor(tables.panel, dev)
         self.slot_to_tri = torch.from_numpy(
             tables.slot_to_tri.astype(np.int64)).to(dev)
         self.s_lo = torch.from_numpy(tables.s_lo).to(dev)
@@ -308,9 +432,12 @@ class SweepAccelerator:
     def _traverse_chunk(self, o, d, t_max, any_hit: bool):
         n = o.shape[0]
         rays, order, suffix = self.prologue(o, d, t_max)
-        bt, bi = sweep(rays, order, suffix, self.panel, self.block_rays,
-                       any_hit)
-        bt, bi = bt[:n], bi[:n]
+        out = sweep(rays, order, suffix, self.panel, self.block_rays, any_hit,
+                    certified=self.certified, err_eps=self.tables.err_eps,
+                    collect_stats=self.collect_stats, pipeline=self.pipeline)
+        if self.collect_stats:
+            self.last_steps.append(out[2])
+        bt, bi = out[0][:n], out[1][:n]
         found = bi >= 0
         tri = self.slot_to_tri[torch.where(found, bi, 0).long()]
         hit = found & (tri >= 0) & (bt <= t_max)

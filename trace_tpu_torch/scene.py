@@ -6,7 +6,10 @@ materials on the host and moves every table the render reads onto
 ``device`` once. Above 64 triangles it attaches the sparse sweep
 (ops/sweep.py): the CUDA kernel for a CUDA device, its plain PyTorch
 version on the CPU. Smaller meshes need the brute-force triangle path,
-which is not ported yet.
+which is not ported yet. ``exact_shared_edges=True`` makes shared mesh
+edges watertight: the sweep runs its certified epilogue, and the winner
+detail phase keeps the sweep's mask and recomputes barycentrics with the
+double-single edge fallback (wavefront/geom.py).
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ class SceneBuilder:
     def light(self, entry: dict) -> None:
         self._lights.append(entry)
 
-    def build(self, device="cpu") -> "Scene":
+    def build(self, device="cpu", exact_shared_edges: bool = False
+              ) -> "Scene":
         spheres = sph_mod.pack_spheres(self._spheres)
         tris = tri_mod.concat_triangles(self._tri_parts)
         lights = light_mod.pack_lights(self._lights)
@@ -70,13 +74,15 @@ class SceneBuilder:
             tables = SweepTables(
                 build_clusters(tris, LEAF_TRIS, MAX_PRIMS_PER_LEAF), GROUP)
         return Scene(spheres, tris, self._materials, lights, device,
-                     sweep_tables=tables)
+                     sweep_tables=tables, exact_edges=exact_shared_edges)
 
 
 class Scene:
     def __init__(self, spheres, triangles, materials, lights, device,
-                 sweep_tables: SweepTables | None = None):
+                 sweep_tables: SweepTables | None = None,
+                 exact_edges: bool = False):
         self.device = torch.device(device)
+        self.exact_edges = bool(exact_edges)
         self.spheres = spheres
         self.triangles = triangles
         self.materials = list(materials)
@@ -94,7 +100,8 @@ class Scene:
         self.triangle_rows = torch.from_numpy(
             G.triangle_rows(triangles)).to(dev)
         self.accel = (None if sweep_tables is None else SweepAccelerator(
-            sweep_tables, dev, block_rays=BLOCK_RAYS, ray_chunk=RAY_CHUNK))
+            sweep_tables, dev, block_rays=BLOCK_RAYS, ray_chunk=RAY_CHUNK,
+            certified=self.exact_edges))
 
         bounds = []
         if self.n_spheres:

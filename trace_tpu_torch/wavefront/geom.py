@@ -171,9 +171,40 @@ def spheres_anyhit(cols, o: V3, d: V3, t_max):
 # ---------------------------------------------------------------------------
 
 
-def _watertight(v0: V3, v1: V3, v2: V3, o: V3, d: V3, t_max):
+_SPLIT = 4097.0  # 2^12 + 1, the Veltkamp split constant for f32
+
+
+def _two_prod(a, b):
+    """Error-free product: (fl(a*b), err) with a*b == fl + err exactly.
+    Dekker/Veltkamp split; each step is its own eager op, so nothing is
+    contracted into an FMA."""
+    p = a * b
+    ah = a * _SPLIT
+    ah = ah - (ah - a)
+    al = a - ah
+    bh = b * _SPLIT
+    bh = bh - (bh - b)
+    bl = b - bh
+    err = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    return p, err
+
+
+def _edge_ds(a, b, c, d_):
+    """Sign-exact a*b - c*d in double-single arithmetic. Consumed only
+    where fl(fl(ab) - fl(cd)) == 0, i.e. fl(ab) == fl(cd): their
+    difference is then exact (Sterbenz) and the result is the error
+    terms' difference -- the value the reference's f64 recompute gives."""
+    p1, s1 = _two_prod(a, b)
+    p2, s2 = _two_prod(c, d_)
+    return (p1 - p2) + (s1 - s2)
+
+
+def _watertight(v0: V3, v1: V3, v2: V3, o: V3, d: V3, t_max,
+                exact_edges: bool = False):
     """Permute-shear watertight test; operands broadcast together.
-    Returns (hit, t, b0, b1, b2)."""
+    Returns (hit, t, b0, b1, b2). ``exact_edges``: where an edge function
+    is exactly 0 at f32, all three are recomputed in double-single (the
+    reference's f64 fallback, triangle_mesh.jl:194-197)."""
     e01, e02 = v2 - v0, v1 - v0
     degenerate = e01.cross(e02).length_squared() == 0.0
     ad_x, ad_y, ad_z = d.x.abs(), d.y.abs(), d.z.abs()
@@ -202,6 +233,11 @@ def _watertight(v0: V3, v1: V3, v2: V3, o: V3, d: V3, t_max):
     e0 = x1 * y2 - y1 * x2
     e1 = x2 * y0 - y2 * x0
     e2 = x0 * y1 - y0 * x1
+    if exact_edges:
+        need = (e0 == 0.0) | (e1 == 0.0) | (e2 == 0.0)
+        e0 = torch.where(need, _edge_ds(x1, y2, y1, x2), e0)
+        e1 = torch.where(need, _edge_ds(x2, y0, y2, x0), e1)
+        e2 = torch.where(need, _edge_ds(x0, y1, y0, x1), e2)
     mixed = (((e0 < 0) | (e1 < 0) | (e2 < 0))
              & ((e0 > 0) | (e1 > 0) | (e2 > 0)))
     det = e0 + e1 + e2
@@ -262,7 +298,15 @@ def _bits_to_int(x: torch.Tensor) -> torch.Tensor:
 
 
 def make_hit_triangles(rows: torch.Tensor, o: V3, d: V3, time, idx, valid,
-                       prim_offset: int = 0) -> HitP:
+                       prim_offset: int = 0, exact_edges: bool = False,
+                       trust_valid: bool = False) -> HitP:
+    """Detail phase for each lane's winning triangle: the watertight
+    recompute gives t and the barycentrics, from which p, uv, the frames
+    and the shading normal follow. ``exact_edges``: the recompute uses the
+    double-single edge fallback. ``trust_valid``: keep the caller's valid
+    mask instead of AND-ing the recompute's acceptance back in -- for a
+    certified accelerator, whose winner may lie exactly on a shared edge
+    that the recompute's strict edge signs would reject."""
     mt = rows[idx.long()].T                       # [27, N]
     v0, v1, v2 = (V3(mt[j], mt[j + 1], mt[j + 2]) for j in (0, 3, 6))
     n0, n1, n2 = (V3(mt[j], mt[j + 1], mt[j + 2]) for j in (9, 12, 15))
@@ -274,8 +318,9 @@ def make_hit_triangles(rows: torch.Tensor, o: V3, d: V3, time, idx, valid,
     n = o.x.shape[0]
     dev = o.x.device
     inf = torch.full((n,), INF, dtype=F32, device=dev)
-    hit, t, b0, b1, b2 = _watertight(v0, v1, v2, o, d, inf)
-    valid = valid & hit
+    hit, t, b0, b1, b2 = _watertight(v0, v1, v2, o, d, inf, exact_edges)
+    if not trust_valid:
+        valid = valid & hit
 
     duv13u, duv13v = uv0u - uv2u, uv0v - uv2v
     duv23u, duv23v = uv1u - uv2u, uv1v - uv2v

@@ -74,8 +74,12 @@ def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
         rec = G.make_hit_spheres(scene.sphere_rows, o, d, time, t_s, i_s,
                                  h_s & ~tri_wins)
     if scene.n_triangles:
-        rec_t = G.make_hit_triangles(scene.triangle_rows, o, d, time, i_t,
-                                     tri_wins, prim_offset=scene.n_spheres)
+        # With exact shared edges the accelerator's (certified) mask is
+        # kept: the recompute must not drop a winner exactly on an edge.
+        rec_t = G.make_hit_triangles(
+            scene.triangle_rows, o, d, time, i_t, tri_wins,
+            prim_offset=scene.n_spheres, exact_edges=scene.exact_edges,
+            trust_valid=scene.exact_edges)
         rec = rec_t if rec is None else G.where_hit(tri_wins, rec_t, rec)
     if rec is None:
         raise ValueError("scene has no geometry")
