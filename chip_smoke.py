@@ -34,7 +34,22 @@ Phases (each prints lines with its seconds; any failure raises):
      5k-triangle scene, each driven as its own frame with the launch
      counts set to 0 before it and read after it; then the camera chunk's
      kernel time per arm and block size against the plain version, with
-     steps and panel GB/s per launch.
+     steps and panel GB/s per launch;
+  5. slice 3, the shadows and Cornell scenes and the path tracer:
+     a. goldens on the card: shadows 16^2 (Whitted, 1 spp, seed 11, depth
+        3) against tests/goldens/shadows16.npy and Cornell 48^2 (path
+        tracer, 8 spp, seed 3, depth 4) against cornell48_planar.npy, MSE
+        < 5e-4 each;
+     b. bench config 1: shadows, Whitted, 256^2, 4 spp, depth 5, seed 0,
+        level_caps (0.5, 0.25, 0.1875, 0.125): queue_drops 0, the capped
+        frame equal to the uncapped one (MSE < 1e-8), timed;
+     c. bench config 2: Cornell, path tracer, 512^2, 4 spp, depth 5, seed
+        0: a finite frame, timed, with useful rays and peak memory;
+     d. the path tracer on the 1M-triangle mesh_heavy (256^2, 1 spp, depth
+        3): every sweep launch of one frame (camera, diffuse bounces and
+        shadow rays, in the frame's own chunks) against the plain version,
+        with kernel ms, plain ms, steps and the busiest block's steps per
+        launch; the frame timed.
 The last three lines are the kernels' JSON line, the card's name and power
 limit, and {"ok": true, "device": {...}}. Without a CUDA device, or outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -52,6 +67,9 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(REPO, "tests", "goldens", "mesh_heavy5k_32.npy")
+SHADOWS_GOLDEN = os.path.join(REPO, "tests", "goldens", "shadows16.npy")
+CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                              "cornell48_planar.npy")
 MSE_GATE = 5e-4
 # Kernel vs plain: built with --fmad=false in the plain version's
 # association order, so the two should agree bit for bit; the stated
@@ -196,6 +214,167 @@ def timed_frames(integ, scene, n=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return times, state
+
+
+def image(integ, state) -> np.ndarray:
+    return integ.camera.film.to_image(state).cpu().numpy()
+
+
+def slice3(dev, card, scene, t_all):
+    """Phase 5: the shadows and Cornell scenes, and the path tracer through
+    the sweep on the 1M-triangle scene (module docstring)."""
+    import torch
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import cornell, mesh_heavy, spheres
+    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+    from trace_tpu_torch.sampler import uniform as U
+
+    tmp = tempfile.gettempdir()
+    # -- 5a: goldens --------------------------------------------------------
+    t0 = time.perf_counter()
+    shadows = spheres.build_scene(device=dev)
+    box = cornell.build_scene(device=dev)
+    assert shadows.accel is None and box.accel is None
+    for label, sc, mod, integ_cls, res, spp, seed, depth, path in (
+            ("shadows", shadows, spheres, WhittedIntegrator, 16, 1, 11, 3,
+             SHADOWS_GOLDEN),
+            ("cornell", box, cornell, PathIntegrator, 48, 8, 3, 4,
+             CORNELL_GOLDEN)):
+        cam = mod.build_camera(res, os.path.join(tmp, f"chip_smoke_{label}"
+                                                 f"{res}.png"))
+        it = integ_cls(cam, U.UniformSampler(spp, seed=seed), max_depth=depth)
+        img = image(it, it.render(sc))
+        golden = np.load(path)
+        mse = float(np.mean((img - golden) ** 2))
+        log("5a", t0, f"golden {label} {res}^2 {spp} spp depth {depth}: MSE "
+            f"{mse:.3e} (gate {MSE_GATE}), max abs "
+            f"{float(np.abs(img - golden).max()):.4f}")
+        if not (img.shape == golden.shape and np.isfinite(img).all()
+                and mse < MSE_GATE):
+            raise AssertionError(f"golden mismatch ({label}): MSE {mse}")
+    out = {}
+
+    def bench(label, sc, integ, rays):
+        torch.cuda.reset_peak_memory_stats()
+        sweep_kernel.reset_counts()
+        times, state = timed_frames(integ, sc)
+        ms = float(np.mean(times))
+        img = image(integ, state)
+        row = dict(ms=ms, times=times, mrays=rays / ms / 1e3,
+                   useful=integ.last_useful_rays,
+                   useful_mrays=integ.last_useful_rays / ms / 1e3,
+                   drops=integ.last_queue_drops,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   launches=sweep_kernel.launches,
+                   nonzero=float((img > 0).any(-1).mean()))
+        log(label, t0, f"frames {[round(x, 3) for x in times]} ms, mean "
+            f"{ms:.2f} ms, workload {row['mrays']:.3f} Mrays/s, useful "
+            f"{row['useful_mrays']:.3f} Mrays/s ({row['useful']} rays), "
+            f"queue_drops {row['drops']}, sweep launches {row['launches']}, "
+            f"non-zero pixels {row['nonzero']:.3f}, peak mem "
+            f"{row['peak_gib']:.2f} GiB; card {card}")
+        if not np.isfinite(img).all() or row["nonzero"] < 0.05:
+            raise AssertionError(f"bad frame in {label}")
+        return row, img, state
+
+    # -- 5b: bench config 1 ---------------------------------------------------
+    t0 = time.perf_counter()
+    cam = spheres.build_camera(256, os.path.join(tmp, "chip_smoke_shadows"
+                                                 "256.png"))
+    (x0, y0), (x1, y1) = cam.film.sample_bounds()
+    n_pix = (x1 - x0 + 1) * (y1 - y0 + 1)
+    n_lights = int(shadows.lights.kind.shape[0])
+    capped = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                               level_caps=spheres.LEVEL_CAPS)
+    row, img, state = bench("5b", shadows, capped,
+                            n_pix * 4 * (1 + n_lights) * 5)
+    cam.film.save_png(state)
+    full = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    img_full = image(full, full.render(shadows))
+    mse = float(np.mean((img - img_full) ** 2))
+    log("5b", t0, f"shadows 256^2 4 spp depth 5, level_caps "
+        f"{spheres.LEVEL_CAPS} -> {capped._resolve_caps(n_pix)}: "
+        f"queue_drops {row['drops']}, capped "
+        f"vs uncapped MSE {mse:.3e}, max abs "
+        f"{float(np.abs(img - img_full).max()):.3e}; uncapped useful_rays "
+        f"{full.last_useful_rays}")
+    if row["drops"] != 0 or mse >= 1e-8 or row["launches"]:
+        raise AssertionError(f"config 1: drops {row['drops']}, MSE {mse}")
+    out["config1"] = row
+
+    # -- 5c: bench config 2 ---------------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cam = cornell.build_camera(512, os.path.join(tmp, "chip_smoke_cornell"
+                                                 "512.png"))
+    (x0, y0), (x1, y1) = cam.film.sample_bounds()
+    n_pix = (x1 - x0 + 1) * (y1 - y0 + 1)
+    path = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    row, img, state = bench("5c", box, path, n_pix * 4 * 5 * 3)
+    cam.film.save_png(state)
+    if row["launches"]:
+        raise AssertionError("config 2 launched the sweep")
+    out["config2"] = row
+
+    # -- 5d: the path tracer through the sweep on the 1M-triangle scene -----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    acc = scene.accel
+    cam = mesh_heavy.build_camera(256, os.path.join(tmp, "chip_smoke_path_"
+                                                    "1m.png"))
+    depth = 3
+    path = PathIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=depth)
+    calls = record_calls(path, scene)
+    if len(calls) != 2 * depth:
+        raise AssertionError(f"unexpected intersect calls: {len(calls)}")
+    launches, tot_all = [], {}
+    for i, (name, anyh, chunks) in enumerate(sweep_chunks(acc, calls)):
+        bounce = i // 2
+        kind = ("camera_any_hit" if name == "camera_any_hit"
+                else f"shadow {bounce}" if anyh
+                else "camera" if i == 0 else f"bounce {bounce}")
+        for c, args in enumerate(chunks):
+            kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
+            pt, pi = sweep_plain(*args, acc.panel, acc.block_rays, anyh)
+            torch.cuda.synchronize()
+            cmp = compare(kt, ki, pt, pi)
+            accumulate(tot_all, cmp)
+            # A block's steps run one after another: the block with the
+            # most steps bounds the launch.
+            per_block = sweep_kernel(*args, acc.panel, acc.block_rays, anyh,
+                                     collect_stats=True)[2]
+            steps = int(per_block.sum())
+            max_steps = int(per_block.max())
+            live = int((args[0][9] >= 0).sum())
+            k_ms = cuda_ms(lambda: sweep_kernel(*args, acc.panel,
+                                                acc.block_rays, anyh), 5)
+            p_ms = cuda_ms(lambda: sweep_plain(*args, acc.panel,
+                                               acc.block_rays, anyh), 1)
+            launches.append(dict(kind=kind, chunk=c, lanes=args[0].shape[1],
+                                 live=live, ms=k_ms, plain_ms=p_ms,
+                                 steps=steps, max_block_steps=max_steps,
+                                 **cmp))
+            log("5d", t0, f"{kind} chunk {c}: {args[0].shape[1]} lanes "
+                f"({live} live), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
+                f"steps {steps} (most in one block {max_steps}), {cmp}")
+            if disagrees(cmp):
+                raise AssertionError(f"kernel disagrees with plain: {kind} "
+                                     f"chunk {c}: {cmp}")
+    row, img, state = bench("5d", scene, path,
+                            n_pix_of(cam) * 1 * depth * 3)
+    cam.film.save_png(state)
+    if row["launches"] <= 0 or sweep_kernel.arm_launches["f32"] \
+            != row["launches"]:
+        raise AssertionError("the path frame did not run through the sweep")
+    out["path_1m"] = dict(row, per_launch=launches, agreement=tot_all)
+    log(5, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def n_pix_of(cam) -> int:
+    (x0, y0), (x1, y1) = cam.film.sample_bounds()
+    return (x1 - x0 + 1) * (y1 - y0 + 1)
 
 
 def main() -> int:
@@ -537,6 +716,14 @@ def main() -> int:
                        else "")
                     + f", steps {steps}, panel {row['gbs']:.1f} GB/s")
     log(4, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+
+    # -- 5: slice 3 ---------------------------------------------------------
+    del exact, e_calls, e_chunks, calls
+    torch.cuda.empty_cache()
+    s3 = slice3(dev, card, scene, t_all)
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out", "slice3.json"), "w") as f:
+        json.dump(dict(card=card, **s3), f, indent=1)
 
     def err(arm):
         return max(r["max_abs_err"] for r in arm_res[arm].values())

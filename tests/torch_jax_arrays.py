@@ -1,0 +1,104 @@
+"""Carry a ``trace_tpu`` Scene across to the port as numpy arrays (the keys
+of ``trace_tpu_torch.convert.scene_from_numpy``), so both packages compute
+on identical data. Also the small converters the port's tests share."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import torch
+
+from trace_tpu.materials import materials as JM
+from trace_tpu_torch import convert as C
+from trace_tpu_torch.core.vec import V3 as TV3
+from trace_tpu_torch.shapes.sphere import Spheres
+from trace_tpu_torch.shapes.triangle import Triangles
+
+LIGHT_FIELDS = ("kind", "p", "i", "direction", "w2l", "l2w",
+                "cos_total_width", "cos_falloff_start", "tri_start",
+                "tri_count", "two_sided")
+
+
+def _v(tex):
+    return np.asarray(tex.value, np.float32).reshape(-1)
+
+
+def material_arrays(materials):
+    kinds, params = [], []
+    for m in materials:
+        if isinstance(m, JM.MatteMaterial):
+            k, p = C.MATTE, [*_v(m.Kd), *_v(m.sigma)]
+        elif isinstance(m, JM.GlassMaterial):
+            k, p = C.GLASS, [*_v(m.Kr), *_v(m.Kt), *_v(m.index),
+                             *_v(m.u_roughness), *_v(m.v_roughness),
+                             float(m.remap_roughness)]
+        elif isinstance(m, JM.MirrorMaterial):
+            k, p = C.MIRROR, [*_v(m.Kr)]
+        elif isinstance(m, JM.PlasticMaterial):
+            k, p = C.PLASTIC, [*_v(m.Kd), *_v(m.Ks), *_v(m.roughness),
+                               float(m.remap_roughness)]
+        elif isinstance(m, JM.MetalMaterial):
+            k, p = C.METAL, [*_v(m.eta), *_v(m.k), *_v(m.roughness),
+                             float(m.remap_roughness)]
+        else:
+            raise TypeError(type(m))
+        kinds.append(k)
+        params.append(p + [0.0] * (C.N_PARAMS - len(p)))
+    return np.asarray(kinds, np.int32), np.asarray(params, np.float32)
+
+
+def arrays_from_jax(scene) -> dict:
+    a = {}
+    for f in Spheres._fields:
+        a["sphere_" + f] = np.asarray(getattr(scene.spheres_host, f))
+    for f in Triangles._fields:
+        a["tri_" + f] = np.asarray(getattr(scene.triangles_host, f))
+    a["tri_light_id"] = np.asarray(scene.tri_light_id)
+    for f in LIGHT_FIELDS:
+        a["light_" + f] = np.asarray(getattr(scene.lights, f))
+    a["material_kind"], a["material_params"] = material_arrays(
+        scene.materials)
+    a["exact_edges"] = scene.exact_edges
+    if scene.n_triangles > 64:
+        from trace_tpu.accel.clusters import build_clusters
+        from trace_tpu.ops.sweep_pallas import SweepTables
+
+        tb = SweepTables(build_clusters(scene.triangles_host, 64, 4), 8)
+        for f in ("panel", "slot_to_tri", "s_lo", "s_hi"):
+            a[f] = np.asarray(getattr(tb, f))
+    return a
+
+
+def port_scene(jax_scene, device="cpu"):
+    return C.scene_from_numpy(arrays_from_jax(jax_scene), device)
+
+
+def both3(a):
+    """numpy [N, 3] -> (torch V3, JAX V3)."""
+    from trace_tpu.core.vec import V3 as JV3
+
+    a = np.asarray(a, np.float32)
+    return (TV3(*[torch.from_numpy(a[:, i].copy()) for i in range(3)]),
+            JV3(*[jnp.asarray(a[:, i]) for i in range(3)]))
+
+
+def both(a):
+    a = np.asarray(a)
+    return torch.from_numpy(a.copy()), jnp.asarray(a)
+
+
+def lane_keys(seed: int, n: int):
+    """(torch [N, 2] int64 keys, JAX key array) for lanes 0..n-1."""
+    from trace_tpu.sampler import uniform as JU
+
+    jk = JU.lane_keys(jax.random.key(seed), jnp.arange(n, dtype=jnp.uint32))
+    tk = torch.from_numpy(
+        np.asarray(jax.random.key_data(jk)).astype(np.int64))
+    return tk, jk
+
+
+def np3(v) -> np.ndarray:
+    """torch or JAX V3 -> numpy [N, 3]."""
+    return np.stack([np.asarray(c) for c in v], -1)
+
+
+def mse(a, b) -> float:
+    return float(np.mean((np.asarray(a, np.float32) - b) ** 2))

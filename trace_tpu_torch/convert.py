@@ -5,11 +5,16 @@ caller extracted from a ``trace_tpu`` Scene, so both packages compute on
 identical data. Keys (all numpy):
 
 - spheres: ``sphere_<field>`` for every field of shapes.sphere.Spheres;
-- triangles: ``tri_<field>`` for every field of shapes.triangle.Triangles;
-- lights: ``light_kind`` [L] i32, ``light_p`` [L, 3], ``light_i`` [L, 3];
-- materials: ``material_kind`` [M] i32 (MATTE or GLASS) and
-  ``material_params`` [M, 7] f32: matte (Kd rgb, sigma), glass (Kr rgb,
-  Kt rgb, index);
+- triangles: ``tri_<field>`` for every field of shapes.triangle.Triangles,
+  and optionally ``tri_light_id`` [T] i32 (-1: not emissive);
+- lights: ``light_<field>`` for fields of lights.lights.Lights; ``kind``,
+  ``p`` and ``i`` are required, the rest default as in ``make_lights``
+  (``flags`` follow from the kinds, ``total_area`` from the triangles);
+- materials: ``material_kind`` [M] i32 (MATTE, GLASS, MIRROR, PLASTIC,
+  METAL) and ``material_params`` [M, <= 10] f32, zero-padded: matte (Kd
+  rgb, sigma), glass (Kr rgb, Kt rgb, index, u and v roughness,
+  remap_roughness), mirror (Kr rgb), plastic (Kd rgb, Ks rgb, roughness,
+  remap_roughness), metal (eta rgb, k rgb, roughness, remap_roughness);
 - sweep tables (optional): ``panel`` (f32, or a bf16 or hi/lo panel as
   its uint16 view), ``slot_to_tri``, ``s_lo``, ``s_hi``;
 - ``exact_edges`` (optional): the scene's exact_shared_edges switch;
@@ -18,11 +23,12 @@ identical data. Keys (all numpy):
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from .core import transform as T
 from .lights import lights as light_mod
-from .materials.materials import GlassMaterial, MatteMaterial
+from .materials import materials as M
 from .ops import intersect
 from .ops.sweep import SweepTables
 from .scene import Scene
@@ -31,18 +37,45 @@ from .shapes.triangle import Triangles
 
 MATTE = 0
 GLASS = 1
+MIRROR = 2
+PLASTIC = 3
+METAL = 4
+N_PARAMS = 10
 
 
 def _materials(kinds, params):
+    params = np.asarray(params, np.float32)
+    params = np.pad(params, ((0, 0), (0, N_PARAMS - params.shape[1])))
     out = []
-    for k, p in zip(np.asarray(kinds), np.asarray(params, np.float32)):
+    for k, p in zip(np.asarray(kinds), params):
         if k == MATTE:
-            out.append(MatteMaterial(Kd=p[0:3], sigma=p[3]))
+            out.append(M.MatteMaterial(Kd=p[0:3], sigma=p[3]))
         elif k == GLASS:
-            out.append(GlassMaterial(Kr=p[0:3], Kt=p[3:6], index=p[6]))
+            out.append(M.GlassMaterial(Kr=p[0:3], Kt=p[3:6], index=p[6],
+                                       u_roughness=p[7], v_roughness=p[8],
+                                       remap_roughness=bool(p[9])))
+        elif k == MIRROR:
+            out.append(M.MirrorMaterial(Kr=p[0:3]))
+        elif k == PLASTIC:
+            out.append(M.PlasticMaterial(Kd=p[0:3], Ks=p[3:6],
+                                         roughness=p[6],
+                                         remap_roughness=bool(p[7])))
+        elif k == METAL:
+            out.append(M.MetalMaterial(eta=p[0:3], k=p[3:6], roughness=p[6],
+                                       remap_roughness=bool(p[7])))
         else:
-            raise NotImplementedError(f"material kind {k} is not ported yet")
+            raise NotImplementedError(f"material kind {k} is not ported")
     return out
+
+
+def _lights(arrays, tris) -> light_mod.Lights:
+    names = [f.name for f in dataclasses.fields(light_mod.Lights)
+             if f.name not in ("kind", "p", "i", "flags", "total_area",
+                               "world_center", "world_radius")]
+    return light_mod.make_lights(
+        arrays["light_kind"], arrays["light_p"], arrays["light_i"], tris,
+        **{f: arrays["light_" + f] for f in names
+           if "light_" + f in arrays})
 
 
 def scene_from_numpy(arrays: dict, device) -> Scene:
@@ -50,11 +83,6 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
                         for f in Spheres._fields])
     tris = Triangles(*[np.asarray(arrays["tri_" + f])
                        for f in Triangles._fields])
-    lights = light_mod.pack_lights([
-        light_mod.point_light(T.translate(p), i) if k == light_mod.POINT
-        else {"kind": int(k)}
-        for k, p, i in zip(arrays["light_kind"], arrays["light_p"],
-                           arrays["light_i"])])
     tables = None
     if "panel" in arrays:
         tables = SweepTables.from_arrays(arrays["panel"],
@@ -63,8 +91,9 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
     scene = Scene(spheres, tris,
                   _materials(arrays["material_kind"],
                              arrays["material_params"]),
-                  lights, device, sweep_tables=tables,
-                  exact_edges=bool(arrays.get("exact_edges", False)))
+                  _lights(arrays, tris), device, sweep_tables=tables,
+                  exact_edges=bool(arrays.get("exact_edges", False)),
+                  tri_light_id=arrays.get("tri_light_id"))
     if "fused_b" in arrays:
         intersect.attach(scene, b=arrays["fused_b"])
     return scene

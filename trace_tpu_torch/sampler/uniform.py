@@ -51,7 +51,10 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a key array [..., 2]; ``data`` is a
     scalar or an integer tensor broadcasting against the key batch."""
     if not torch.is_tensor(data):
-        data = torch.tensor(int(data), dtype=torch.int64, device=keys.device)
+        # A fill on the device, not a host copy (which would wait for the
+        # device to drain).
+        data = torch.full((), int(data), dtype=torch.int64,
+                          device=keys.device)
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],
                           torch.zeros_like(data, dtype=torch.int64),
                           data.to(torch.int64) & M32)

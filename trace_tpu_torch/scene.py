@@ -3,13 +3,16 @@ trace_tpu/scene.py).
 
 ``SceneBuilder.build(device)`` packs the spheres, triangles, lights and
 materials on the host and moves every table the render reads onto
-``device`` once. Above 64 triangles it attaches the sparse sweep
-(ops/sweep.py): the CUDA kernel for a CUDA device, its plain PyTorch
-version on the CPU. Smaller meshes need the brute-force triangle path,
-which is not ported yet. ``exact_shared_edges=True`` makes shared mesh
-edges watertight: the sweep runs its certified epilogue, and the winner
-detail phase keeps the sweep's mask and recomputes barycentrics with the
-double-single edge fallback (wavefront/geom.py).
+``device`` once. Above 64 triangles (the JAX package's ``use_bvh``
+threshold) it attaches the sparse sweep (ops/sweep.py): the CUDA kernel
+for a CUDA device, its plain PyTorch version on the CPU. Scenes of 1-64
+triangles intersect them by brute force over the [rays, triangles] grid
+(wavefront/geom.py), as the JAX package does. ``exact_shared_edges=True``
+makes shared mesh edges watertight: the sweep runs its certified
+epilogue, the brute-force grid and the winner detail phase the
+double-single edge fallback. A mesh given ``emission`` is a diffuse area
+light. What the port cannot render (environment lights, instancing,
+non-constant textures) raises NotImplementedError at ``build()``.
 """
 from __future__ import annotations
 
@@ -22,6 +25,8 @@ from .ops.sweep import SweepAccelerator, SweepTables
 from .shapes import sphere as sph_mod
 from .shapes import triangle as tri_mod
 from .wavefront import geom as G
+from .wavefront import lights as WL
+from .wavefront import materials as WM
 
 # Sweep geometry: leaf 64 x group 8 = 512 triangles per super (the JAX
 # package's kernel tuning). One CTA of 32 rays per block: on an H100
@@ -35,6 +40,7 @@ GROUP = 8
 BLOCK_RAYS = 32
 RAY_CHUNK = 65536
 MAX_PRIMS_PER_LEAF = 4
+BRUTE_FORCE_MAX_TRIS = 64
 
 
 class SceneBuilder:
@@ -44,7 +50,10 @@ class SceneBuilder:
         self._materials = []
         self._spheres = []
         self._tri_parts = []
+        self._tri_light = []
+        self._tri_count = 0
         self._lights = []
+        self._instanced = 0
 
     def material(self, mat) -> int:
         self._materials.append(mat)
@@ -56,49 +65,72 @@ class SceneBuilder:
 
     def triangle_mesh(self, object_to_world, indices, vertices,
                       material: int, normals=None, uv=None,
-                      reverse_orientation=False) -> None:
-        self._tri_parts.append(tri_mod.pack_triangle_mesh(
+                      reverse_orientation=False, emission=None,
+                      two_sided=False) -> None:
+        """Add an indexed mesh; with ``emission`` it is also a diffuse
+        area light over its triangles."""
+        part = tri_mod.pack_triangle_mesh(
             object_to_world, indices, vertices, normals=normals, uv=uv,
-            material_id=material, reverse_orientation=reverse_orientation))
+            material_id=material, reverse_orientation=reverse_orientation)
+        n = tri_mod.num_triangles(part)
+        light_id = -1
+        if emission is not None:
+            light_id = len(self._lights)
+            self._lights.append(light_mod.area_light(
+                emission, self._tri_count, n, two_sided))
+        self._tri_parts.append(part)
+        self._tri_light.append(np.full(n, light_id, np.int32))
+        self._tri_count += n
+
+    def instanced_mesh(self, *args, **kw) -> None:
+        self._instanced += 1
+
+    def instanced_spheres(self, *args, **kw) -> None:
+        self._instanced += 1
 
     def light(self, entry: dict) -> None:
         self._lights.append(entry)
 
     def build(self, device="cpu", exact_shared_edges: bool = False
               ) -> "Scene":
+        if self._instanced:
+            raise NotImplementedError("instanced geometry is not ported")
         spheres = sph_mod.pack_spheres(self._spheres)
         tris = tri_mod.concat_triangles(self._tri_parts)
-        lights = light_mod.pack_lights(self._lights)
+        tri_light = (np.concatenate(self._tri_light) if self._tri_light
+                     else np.zeros(0, np.int32))
+        lights = light_mod.pack_lights(self._lights, tris)
         tables = None
-        if tri_mod.num_triangles(tris):
+        if tri_mod.num_triangles(tris) > BRUTE_FORCE_MAX_TRIS:
             tables = SweepTables(
                 build_clusters(tris, LEAF_TRIS, MAX_PRIMS_PER_LEAF), GROUP)
         return Scene(spheres, tris, self._materials, lights, device,
-                     sweep_tables=tables, exact_edges=exact_shared_edges)
+                     sweep_tables=tables, exact_edges=exact_shared_edges,
+                     tri_light_id=tri_light)
 
 
 class Scene:
     def __init__(self, spheres, triangles, materials, lights, device,
                  sweep_tables: SweepTables | None = None,
-                 exact_edges: bool = False):
+                 exact_edges: bool = False, tri_light_id=None):
         self.device = torch.device(device)
         self.exact_edges = bool(exact_edges)
         self.spheres = spheres
         self.triangles = triangles
         self.materials = list(materials)
+        WM.check_materials(self.materials)
         self.n_spheres = sph_mod.num_spheres(spheres)
         self.n_triangles = tri_mod.num_triangles(triangles)
-        if 0 < self.n_triangles <= 64 or (self.n_triangles > 0) != (
-                sweep_tables is not None):
-            raise NotImplementedError(
-                "triangles need the sweep tables, and more than 64 of them "
-                "(brute-force triangles are not ported yet)")
+        if self.n_triangles > BRUTE_FORCE_MAX_TRIS and sweep_tables is None:
+            raise ValueError("more than 64 triangles need the sweep tables")
         dev = self.device
         self.sphere_cols = (G.sphere_cols(spheres, dev)
                             if self.n_spheres else None)
         self.sphere_rows = torch.from_numpy(G.sphere_rows(spheres)).to(dev)
         self.triangle_rows = torch.from_numpy(
             G.triangle_rows(triangles)).to(dev)
+        self.triangle_cols = (G.triangle_cols(triangles, dev)
+                              if self.n_triangles else None)
         self.accel = (None if sweep_tables is None else SweepAccelerator(
             sweep_tables, dev, block_rays=BLOCK_RAYS, ray_chunk=RAY_CHUNK,
             certified=self.exact_edges))
@@ -117,3 +149,10 @@ class Scene:
         center = (lo + hi) / 2
         self.lights = light_mod.preprocess(
             lights, center, float(np.linalg.norm(hi - center)))
+        if tri_light_id is None:
+            tri_light_id = np.full(self.n_triangles, -1, np.int32)
+        self.tri_light_id = torch.from_numpy(
+            np.asarray(tri_light_id, np.int32).reshape(-1)).to(dev)
+        self.max_area_tris = int(self.lights.tri_count.max(initial=0))
+        self.light_rows = torch.from_numpy(WL.light_rows(self.lights)).to(dev)
+        self.area_tables = {}   # per area-light window (wavefront/lights.py)

@@ -252,6 +252,39 @@ def _watertight(v0: V3, v1: V3, v2: V3, o: V3, d: V3, t_max,
 
 
 # ---------------------------------------------------------------------------
+# Triangles: brute-force [N, T] pair grids (scenes of 1-64 triangles)
+# ---------------------------------------------------------------------------
+
+
+def triangle_cols(tris, device) -> tuple:
+    """Vertices as (v0, v1, v2) V3s of [1, T] columns on ``device``."""
+    def col(a):
+        a = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        return V3(a[None, :, 0], a[None, :, 1], a[None, :, 2])
+    return col(tris.v0), col(tris.v1), col(tris.v2)
+
+
+def _tri_grid(cols, o: V3, d: V3, t_max, exact_edges: bool):
+    ob = V3(o.x[:, None], o.y[:, None], o.z[:, None])
+    db = V3(d.x[:, None], d.y[:, None], d.z[:, None])
+    return _watertight(*cols, ob, db, t_max[:, None], exact_edges)
+
+
+def triangles_closest(cols, o: V3, d: V3, t_max, exact_edges: bool = False):
+    """Closest triangle hit: (hit [N], t [N], idx [N] i32); among equal
+    t the lowest index wins. ``exact_edges``: the double-single edge
+    fallback, as the JAX package's packed intersect_all."""
+    hit, t, _, _, _ = _tri_grid(cols, o, d, t_max, exact_edges)
+    best, idx = torch.where(hit, t, INF).min(dim=-1)
+    return torch.isfinite(best), best, idx.to(torch.int32)
+
+
+def triangles_anyhit(cols, o: V3, d: V3, t_max, exact_edges: bool = False):
+    hit = _tri_grid(cols, o, d, t_max, exact_edges)[0]
+    return hit.any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # Detail phase: winner row gather + planar frame build
 # ---------------------------------------------------------------------------
 

@@ -1,11 +1,18 @@
 """Light sampling on planar state (port of trace_tpu/wavefront/lights.py:
-point lights, and the area-emission term of scenes without area
-lights). Lights are visited at static indices and their parameters read
-as host scalars from the scene's light table."""
+point, spot, distant and area lights, and the emission of area lights).
+
+Lights are visited at static indices; each light's kind, triangle range
+and parameters are host scalars from the scene's light table. An area
+light's windowed area CDF is built on the host in numpy, in float32,
+exactly as the JAX package builds it, so light picks agree at bucket
+edges.
+"""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import vec as V
 from ..core.vec import V3
 from ..lights import lights as L
 
@@ -16,25 +23,142 @@ def light_count(scene) -> int:
     return L.num_lights(scene.lights)
 
 
+def kind_of(scene, j: int) -> int:
+    return int(scene.lights.kind[j])
+
+
+def _full3(n, v, device) -> V3:
+    return V3.full((n,), v[0], v[1], v[2], device)
+
+
+def _spot_falloff(w2l, ctw, cfs, w: V3):
+    """Spot falloff delta^4; ``w2l`` [4, 4], ``ctw``/``cfs`` float32 host
+    scalars."""
+    r = [[float(w2l[a, c]) for c in range(3)] for a in range(3)]
+    cos_t = V.mat3_apply(r, w).normalize().z
+    denom = float(max(np.float32(cfs) - np.float32(ctw), np.float32(1e-12)))
+    d = (cos_t - float(ctw)) / denom
+    d = d.clamp(0.0, 1.0)
+    d2 = d * d
+    f = torch.where(cos_t < float(ctw), 0.0, d2 * d2)
+    return torch.where(cos_t >= float(cfs), 1.0, f)
+
+
 def sample_li_static(scene, j: int, p_ref: V3, u0, u1):
-    """sample_li for static point light ``j`` -> (radiance V3, wi V3,
-    pdf [N], p_light V3). ``u0``/``u1`` are unused by point lights."""
+    """sample_li for static light ``j`` -> (radiance V3, wi V3, pdf [N],
+    p_light V3). ``u0``/``u1`` are read by area lights only."""
     lights = scene.lights
+    kind = kind_of(scene, j)
     n = p_ref.x.shape[0]
     dev = p_ref.x.device
-    px, py, pz = (float(v) for v in lights.p[j])
-    ir, ig, ib = (float(v) for v in lights.i[j])
-    p_light = V3.full((n,), px, py, pz, dev)
-    to_l = p_light - p_ref
-    dist2 = to_l.length_squared().clamp_min(1e-20)
-    inv_d = 1.0 / torch.sqrt(dist2)
-    wi = to_l * inv_d
-    inv2 = 1.0 / dist2
-    rad = V3(ir * inv2, ig * inv2, ib * inv2)
-    return rad, wi, torch.ones((n,), dtype=F32, device=dev), p_light
+    i_rgb = lights.i[j]
+
+    if kind in (L.POINT, L.SPOT):
+        p_light = _full3(n, lights.p[j], dev)
+        to_l = p_light - p_ref
+        dist2 = to_l.length_squared().clamp_min(1e-20)
+        inv_d = 1.0 / torch.sqrt(dist2)
+        wi = to_l * inv_d
+        inv2 = 1.0 / dist2
+        rad = V3(float(i_rgb[0]) * inv2, float(i_rgb[1]) * inv2,
+                 float(i_rgb[2]) * inv2)
+        if kind == L.SPOT:
+            rad = rad * _spot_falloff(lights.w2l[j],
+                                      lights.cos_total_width[j],
+                                      lights.cos_falloff_start[j], -wi)
+        return rad, wi, torch.ones((n,), dtype=F32, device=dev), p_light
+
+    if kind == L.DISTANT:
+        wi = _full3(n, lights.direction[j], dev)
+        p_light = p_ref + wi * float(2.0 * lights.world_radius)
+        return (_full3(n, i_rgb, dev), wi,
+                torch.ones((n,), dtype=F32, device=dev), p_light)
+
+    if kind == L.AREA:
+        p_a, n_a = _sample_area_point_static(
+            scene, int(lights.tri_start[j]), int(lights.tri_count[j]), u0, u1)
+        to_a = p_a - p_ref
+        d2_a = to_a.length_squared().clamp_min(1e-20)
+        wi_a = to_a * (1.0 / torch.sqrt(d2_a))
+        cos_l = n_a.dot(-wi_a)
+        if bool(lights.two_sided[j]):
+            emits = cos_l.abs() > 1e-9
+        else:
+            emits = cos_l > 1e-9
+        area = float(max(float(lights.total_area[j]), 1e-20))
+        pdf_a = d2_a / (cos_l.abs() * area).clamp_min(1e-20)
+        rad = V.where(emits, _full3(n, i_rgb, dev), 0.0)
+        return rad, wi_a, pdf_a, p_a
+
+    raise NotImplementedError(f"light kind {kind} is not ported")
+
+
+def area_cdf(tris, tri_start: int, tri_count: int) -> np.ndarray:
+    """Host float32 area CDF over one light's triangle window."""
+    areas = L.triangle_areas(tris)[tri_start:tri_start + tri_count]
+    return (np.cumsum(areas) / max(areas.sum(), 1e-20)).astype(np.float32)
+
+
+def _area_tables(scene, tri_start: int, tri_count: int):
+    """(cdf [M], lower bucket edges [M], vertex rows [M, 10]) on the
+    scene's device, built once per light window."""
+    cache = scene.area_tables
+    key = (tri_start, tri_count)
+    if key not in cache:
+        tris = scene.triangles
+        s = slice(tri_start, tri_start + tri_count)
+        cdf = area_cdf(tris, tri_start, tri_count)
+        lo = np.concatenate([np.zeros(1, np.float32), cdf[:-1]])
+        rows = np.concatenate(
+            [tris.v0[s], tris.v1[s], tris.v2[s],
+             tris.flip_normal[s, None].astype(np.float32)], axis=1)
+        dev = scene.device
+        cache[key] = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in (cdf, lo, rows))
+    return cache[key]
+
+
+def _sample_area_point_static(scene, tri_start: int, tri_count: int, u0, u1):
+    """Uniform-by-area point on a light's triangles -> (p V3, n V3)."""
+    cdf, lo_t, rows = _area_tables(scene, tri_start, tri_count)
+    pick = (cdf[None, :] < u0[:, None]).to(torch.int32).sum(1)
+    pick = pick.clamp(0, tri_count - 1).long()
+    lo = lo_t[pick]
+    hi = cdf[pick]
+    u0r = ((u0 - lo) / (hi - lo).clamp_min(1e-12)).clamp(0.0, 1.0)
+    gt = rows[pick].T
+    gv0 = V3(gt[0], gt[1], gt[2])
+    gv1 = V3(gt[3], gt[4], gt[5])
+    gv2 = V3(gt[6], gt[7], gt[8])
+    su0 = torch.sqrt(u0r)
+    b0 = 1.0 - su0
+    b1 = u1 * su0
+    p_l = gv0 * (1.0 - b0 - b1) + gv1 * b0 + gv2 * b1
+    n_l = (gv1 - gv0).cross(gv2 - gv0).normalize()
+    return p_l, V.where(gt[9] != 0.0, -n_l, n_l)
 
 
 def area_light_radiance(scene, hit, wo: V3) -> V3:
-    """Emitted radiance at the hit: zero, as the port has no area lights
-    yet (pack_lights refuses them)."""
-    return V3.zeros(hit.t.shape, hit.t.device)
+    """Emitted radiance at hits on emissive triangles (zero elsewhere)."""
+    n = hit.t.shape[0]
+    dev = hit.t.device
+    if scene.max_area_tris == 0 or scene.n_triangles == 0:
+        return V3.zeros((n,), dev)
+    ns = scene.n_spheres
+    tri_idx = (hit.prim_id - ns).clamp(0, scene.n_triangles - 1).long()
+    is_flat = (hit.prim_id >= ns) & (hit.prim_id < ns + scene.n_triangles)
+    lid = torch.where(hit.valid & is_flat, scene.tri_light_id[tri_idx], -1)
+    g = scene.light_rows[lid.clamp_min(0).long()].T   # [5, N]
+    is_area = g[3] == float(L.AREA)
+    emits = (g[4] != 0.0) | (hit.n.dot(wo) > 0)
+    return V.where((lid >= 0) & is_area & emits, V3(g[0], g[1], g[2]), 0.0)
+
+
+def light_rows(lights: L.Lights) -> np.ndarray:
+    """[L, 5] host rows (radiance rgb, kind, two_sided) for the emission
+    gather."""
+    n = L.num_lights(lights)
+    return np.concatenate([
+        lights.i.reshape(n, 3), lights.kind.astype(np.float32)[:, None],
+        lights.two_sided.astype(np.float32)[:, None]], axis=1).reshape(
+            max(n, 0), 5)

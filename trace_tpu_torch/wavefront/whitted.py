@@ -5,7 +5,13 @@ hit, direct light from every light, then the two specular children per
 hit (reflection, transmission), compacted back into the queue by a
 stable argsort on liveness. Overflowing children are dropped and counted
 (``queue_drops``); ``useful_rays`` counts one closest-hit ray per live
-lane and one shadow ray per light per shading lane.
+lane and one shadow ray per light per shading lane. ``level_caps`` gives
+the queue after each level its own capacity (a shrinking schedule):
+the image is energy-exact iff ``queue_drops`` is 0.
+
+Intersection goes through the scene's accelerator (the sweep) where it
+has one, else through the brute-force triangle grid (scenes of 1-64
+triangles).
 
 Randomness is identity-keyed as in the JAX twin: per lane, fold in the
 branch path (heap numbering) and the depth.
@@ -24,6 +30,7 @@ from ..core import vec as V
 from ..core.ray import SPAWN_EPS
 from ..core.vec import V3
 from ..sampler import uniform as U
+from ..lights import lights as L
 from . import geom as G
 from . import lights as WL
 from . import materials as WM
@@ -50,6 +57,30 @@ def _zeros_hit(n, device):
             torch.zeros(n, dtype=torch.int32, device=device))
 
 
+def supports(scene) -> None:
+    """Raise for a scene the planar path cannot render (the JAX twin
+    falls back to its packed path there; the port has one path)."""
+    kinds = set(int(k) for k in scene.lights.kind)
+    if not kinds <= {L.POINT, L.SPOT, L.DISTANT, L.AREA}:
+        raise NotImplementedError(f"light kinds {sorted(kinds)}: only point, "
+                                  "spot, distant and area lights are ported")
+    WM.check_materials(scene.materials)
+
+
+def _triangles(scene, o: V3, d: V3, t_max, live, any_hit: bool):
+    """(hit, t, idx) over the scene's triangles: its accelerator, or the
+    brute-force grid. Dead lanes (``live`` false) get t_max = -1."""
+    tm = t_max if live is None else torch.where(live, t_max, -1.0)
+    if scene.accel is not None:
+        return scene.accel.intersect(o.arr(), d.arr(), tm, any_hit)
+    if any_hit:
+        h = G.triangles_anyhit(scene.triangle_cols, o, d, tm,
+                               scene.exact_edges)
+        return h, None, None
+    return G.triangles_closest(scene.triangle_cols, o, d, tm,
+                               scene.exact_edges)
+
+
 def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
     """Closest hit over spheres and triangles -> HitP; where both tie,
     the sphere (the earlier source) wins. ``live`` marks the lanes whose
@@ -61,8 +92,7 @@ def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
     else:
         h_s, t_s, i_s = _zeros_hit(n, dev)
     if scene.n_triangles:
-        tm = t_max if live is None else torch.where(live, t_max, -1.0)
-        h_t, t_t, i_t = scene.accel.intersect(o.arr(), d.arr(), tm, False)
+        h_t, t_t, i_t = _triangles(scene, o, d, t_max, live, False)
     else:
         h_t, t_t, i_t = _zeros_hit(n, dev)
 
@@ -76,10 +106,11 @@ def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
     if scene.n_triangles:
         # With exact shared edges the accelerator's (certified) mask is
         # kept: the recompute must not drop a winner exactly on an edge.
+        # The brute-force grid ran the same exact test as the recompute.
         rec_t = G.make_hit_triangles(
             scene.triangle_rows, o, d, time, i_t, tri_wins,
             prim_offset=scene.n_spheres, exact_edges=scene.exact_edges,
-            trust_valid=scene.exact_edges)
+            trust_valid=scene.exact_edges and scene.accel is not None)
         rec = rec_t if rec is None else G.where_hit(tri_wins, rec_t, rec)
     if rec is None:
         raise ValueError("scene has no geometry")
@@ -93,9 +124,8 @@ def any_hit(scene, o: V3, d: V3, t_max, live=None):
     if scene.n_spheres:
         occ = occ | G.spheres_anyhit(scene.sphere_cols, o, d, t_max)
     if scene.n_triangles:
-        tm = t_max if live is None else torch.where(live, t_max, -1.0)
-        h, t, _ = scene.accel.intersect(o.arr(), d.arr(), tm, True)
-        occ = occ | (h & (t <= t_max))
+        h, t, _ = _triangles(scene, o, d, t_max, live, True)
+        occ = occ | (h if t is None else h & (t <= t_max))
     return occ
 
 
@@ -222,10 +252,11 @@ def _compact(queue: dict, capacity: int) -> dict:
     return V.tree_gather(queue, order)
 
 
-def li(scene, rd, keys, max_depth: int = 5):
+def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
     """Radiance [N, 3] for a batch of camera rays, plus the device
     counters {"queue_drops", "useful_rays"} (int64 scalars). The queue
-    holds N lanes; children beyond that are dropped and counted.
+    holds N lanes, or ``level_caps[d - 1]`` after level d (ints, at least
+    max_depth - 1 of them); children beyond that are dropped and counted.
 
     ``keys`` are per-lane keys [N, 2]. The l buffer is accumulated per
     level in rounds of the branch rank, so no two adds of one round hit
@@ -281,7 +312,8 @@ def li(scene, rd, keys, max_depth: int = 5):
                 child, V.where(ok, beta * factor, 0.0), queue["slot"],
                 queue["path"] * 2 + (branch + 1), ok))
         allc = {k: torch.cat([c[k] for c in children]) for k in children[0]}
+        cap = n if level_caps is None else int(level_caps[depth - 1])
         live = allc["active"].sum()
-        drops = drops + (live - n).clamp_min(0)
-        queue = _compact(allc, n)
+        drops = drops + (live - cap).clamp_min(0)
+        queue = _compact(allc, cap)
     return l_buf, {"queue_drops": drops, "useful_rays": useful}
