@@ -5,18 +5,21 @@
 
 Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep and intersect kernels (one nvcc each, in parallel,
-     sm_90a) with ptxas's registers and spills per kernel arm, and the SAH
-     builder (g++);
+  1. build: the sweep, block entry and intersect kernels (one nvcc each,
+     in parallel, sm_90a) with ptxas's registers and spills per kernel
+     arm, the sweep's warps per CTA, and the SAH builder (g++);
   2. kernel vs plain, on the main paths' own launches:
      a. the 1M-triangle mesh_heavy scene: every sweep launch of one 256^2
         depth-2 frame (camera, shadow and specular rays, in the frame's
-        own 65536-ray chunks), plus the camera rays as any-hit;
+        own 65536-ray chunks), plus the camera rays as any-hit; and the
+        block entry kernel against its plain version on every chunk
+        (bit-equal);
      b. the same scene with exact_shared_edges=True: every sweep launch of
         its frame, through the certified kernel and the bf16, hi/lo,
         certified-bf16 and certified-hi/lo arms, each against its plain
         version, with step counts; the double-buffered kernel against the
         single-buffered one; certified hit masks against the plain f32 ones;
+        the block entry kernel on every chunk, bit-equal;
      c. the fused brute-force kernel against its plain version on every
         launch of the 5k-triangle scene's 256^2 frame;
   3. correctness of the images and of the edges:
@@ -32,9 +35,15 @@ Phases (each prints lines with its seconds; any failure raises):
      (bf16 and hi/lo panels, with and without exact edges; the
      double-buffered copy; step counts) and the fused accelerator on the
      5k-triangle scene, each driven as its own frame with the launch
-     counts set to 0 before it and read after it; then the camera chunk's
-     kernel time per arm and block size against the plain version, with
-     steps and panel GB/s per launch;
+     counts set to 0 before it and read after it (the block entry kernel
+     must launch once per sweep launch); then every sweep launch of the
+     default and exact-edge frames: kernel ms, plain ms, bound ms and its
+     share, steps, the busiest block's steps and the us per busiest-block
+     step, and the block entry kernel's ms against its plain version (the
+     old [N, S] prologue) and its bound; then the camera chunk's kernel
+     time per arm (block of 32 rays) against the plain version, with
+     steps, bound and panel GB/s per launch; a block of 64 rays must be
+     refused (ValueError: the kernel serves 32-ray blocks only);
   5. slice 3, the shadows and Cornell scenes and the path tracer:
      a. goldens on the card: shadows 16^2 (Whitted, 1 spp, seed 11, depth
         3) against tests/goldens/shadows16.npy and Cornell 48^2 (path
@@ -48,11 +57,14 @@ Phases (each prints lines with its seconds; any failure raises):
      d. the path tracer on the 1M-triangle mesh_heavy (256^2, 1 spp, depth
         3): every sweep launch of one frame (camera, diffuse bounces and
         shadow rays, in the frame's own chunks) against the plain version,
-        with kernel ms, plain ms, steps and the busiest block's steps per
-        launch; the frame timed.
-The last three lines are the kernels' JSON line, the card's name and power
-limit, and {"ok": true, "device": {...}}. Without a CUDA device, or outside
-a checkout of the repository, it exits non-zero and prints no result.
+        with kernel ms, plain ms, bound ms, steps, the busiest block's
+        steps and the us per busiest-block step per launch, and the block
+        entry kernel bit-equal and timed on every chunk; the frame timed.
+The last three lines are the kernels' JSON line (each kernel with its
+launches on the main path, max abs error, ms, plain ms, bound ms and what
+bounds it), the card's name and power limit, and {"ok": true, "device":
+{...}}. Without a CUDA device, or outside a checkout of the repository,
+it exits non-zero and prints no result.
 """
 import json
 import os
@@ -77,6 +89,15 @@ MSE_GATE = 5e-4
 T_RTOL = 1e-6
 SWEEP_SRC = "trace_tpu_torch/csrc/sweep.cu"
 JAX_SWEEP = "trace_tpu/ops/sweep_pallas.py"
+# Bounds (H100 SXM peaks): FP32 outside the tensor cores, and HBM.
+PEAK_F32 = 67e12
+PEAK_HBM = 3.35e12
+# FP32 operations per (ray, triangle) pair of the sweep (plain, certified;
+# csrc/sweep.cu's note) and of the fused kernel, and per (ray, box) pair
+# of the block entry kernel (csrc/entry.cu's note).
+SWEEP_OPS = {False: 40, True: 90}
+INTERSECT_OPS = 40
+ENTRY_OPS = 30
 
 
 def log(phase, t0, msg):
@@ -122,6 +143,63 @@ def compare(kt, ki, pt, pi):
     }
 
 
+def bound(ops, nbytes):
+    """(bound ms, what bounds it): the larger of operations over the FP32
+    peak and bytes over the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sweep_bound(args, per_block, panel, block_rays, certified):
+    """The sweep launch's bound from this run's data: the pairs its steps
+    test, and the bytes of the rays, the order/suffix entries walked, each
+    distinct super's panel once, and the outputs."""
+    import torch
+
+    rays, order, _ = args
+    steps = per_block.long()
+    walked = int(steps.sum())
+    mask = torch.arange(order.shape[1], device=order.device)[None] \
+        < steps[:, None]
+    distinct = int(torch.unique(order[mask]).numel())
+    panel_bytes = panel[0].numel() * panel.element_size()
+    ops = walked * block_rays * panel.shape[2] * SWEEP_OPS[certified]
+    nbytes = (rays.numel() * 4 + walked * 8 + distinct * panel_bytes
+              + rays.shape[1] * 8)
+    return bound(ops, nbytes)
+
+
+def entry_bound(t_p, n_supers, block_rays):
+    """The block entry kernel's bound: the live rays' box tests, and the
+    bytes of the rays (o, d, t_lim), the boxes and the [NB, S] output."""
+    n = t_p.numel()
+    ops = int((t_p >= 0).sum()) * n_supers * ENTRY_OPS
+    return bound(ops, n * 28 + n_supers * 24 + n // block_rays * n_supers * 4)
+
+
+def check_entry(acc, o, d, tm, tot, timed=None):
+    """The block entry kernel against its plain version on one chunk:
+    mismatching entries added to ``tot``; with ``timed`` (a dict), also
+    the kernel's and the plain version's ms and the bound."""
+    import torch
+    from trace_tpu_torch.ops.sweep import (block_entry_kernel,
+                                           block_entry_plain)
+
+    a = (acc.s_lo, acc.s_hi, *acc.pad_rays(o, d, tm), acc.block_rays)
+    k, p = block_entry_kernel(*a), block_entry_plain(*a)
+    torch.cuda.synchronize()
+    tot["entry_chunks"] = tot.get("entry_chunks", 0) + 1
+    tot["entry_mismatch"] = tot.get("entry_mismatch", 0) + int((k != p).sum())
+    both = torch.isfinite(k) & torch.isfinite(p)
+    tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), float(
+        (k - p)[both].abs().max()) if bool(both.any()) else 0.0)
+    if timed is not None:
+        timed["entry_ms"] = cuda_ms(lambda: block_entry_kernel(*a), 5)
+        timed["entry_plain_ms"] = cuda_ms(lambda: block_entry_plain(*a), 1)
+        timed["entry_bound_ms"], timed["entry_bound_by"] = entry_bound(
+            a[4], acc.tables.n_supers, acc.block_rays)
+
+
 def accumulate(tot, cmp):
     for k, v in cmp.items():
         tot[k] = max(tot.get(k, 0.0), v) if k == "max_abs_err" \
@@ -149,6 +227,8 @@ def ptxas_summary(logtext: str) -> list:
                                 p == "1", s == "1")
             elif "intersect_kernel" in name:
                 name = "intersect"
+            elif "entry_kernel" in name:
+                name = "block_entry"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -178,9 +258,11 @@ def record_calls(integ, scene):
     return calls
 
 
-def sweep_chunks(acc, calls):
+def sweep_chunks(acc, calls, entry_tot):
     """[(case name, [kernel args of each chunk, as the accelerator launches
-    them])] for the recorded calls, plus the camera rays as any-hit."""
+    them])] for the recorded calls, plus the camera rays as any-hit. The
+    block entry kernel is held against its plain version on every chunk
+    (mismatches added to ``entry_tot``)."""
     cases = [(f"call{i}_{'any_hit' if a else 'closest'}", o, d, tm, a)
              for i, (o, d, tm, a) in enumerate(calls)]
     # The camera rays once more as any-hit: nearly every lane is occluded,
@@ -192,10 +274,59 @@ def sweep_chunks(acc, calls):
         perm = acc.coherence_order(o, d, tm)
         o, d, tm = o[perm], d[perm], tm[perm]
         n, c = o.shape[0], acc.ray_chunk
-        out.append((name, anyh, [acc.prologue(o[s:s + c], d[s:s + c],
-                                              tm[s:s + c])
-                                 for s in range(0, n, c)]))
+        chunks = []
+        for s in range(0, n, c):
+            check_entry(acc, o[s:s + c], d[s:s + c], tm[s:s + c], entry_tot)
+            chunks.append(acc.prologue(o[s:s + c], d[s:s + c], tm[s:s + c]))
+        out.append((name, anyh, chunks))
     return out
+
+
+def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
+                  labels):
+    """Every sweep launch of one frame (the recorded calls' chunks): kernel
+    ms, plain ms, bound, steps, the busiest block's steps and the us per
+    busiest-block step, and the block entry kernel's ms against its plain
+    version. ``labels`` names each call's launches. Returns the rows."""
+    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+
+    rows = []
+    b = acc.block_rays
+    for i, ((_, anyh, ch), name) in enumerate(zip(chunks[:len(calls)],
+                                                  labels)):
+        o, d, tm, _ = calls[i]
+        perm = acc.coherence_order(o, d, tm)
+        o, d, tm = o[perm], d[perm], tm[perm]
+        for c, args in enumerate(ch):
+            sl = slice(c * acc.ray_chunk, (c + 1) * acc.ray_chunk)
+            opt = dict(certified=certified)
+            per_block = sweep_kernel(*args, panel, b, anyh, collect_stats=True,
+                                     **opt)[2]
+            k_ms = cuda_ms(lambda: sweep_kernel(*args, panel, b, anyh, **opt),
+                           5)
+            p_ms = cuda_ms(lambda: sweep_plain(*args, panel, b, anyh, **opt),
+                           1)
+            b_ms, b_by = sweep_bound(args, per_block, panel, b, certified)
+            row = dict(launch=name, chunk=c, lanes=args[0].shape[1],
+                       live=int((args[0][9] >= 0).sum()), ms=k_ms,
+                       plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       steps=int(per_block.sum()),
+                       max_block_steps=int(per_block.max()))
+            row["us_per_busiest_step"] = 1e3 * k_ms / max(
+                row["max_block_steps"], 1)
+            check_entry(acc, o[sl], d[sl], tm[sl], {}, row)
+            rows.append(row)
+            log(phase, t0, f"{name} chunk {c}: {row['lanes']} lanes "
+                f"({row['live']} live), kernel {k_ms:.3f} ms, plain "
+                f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}, "
+                f"{100 * b_ms / k_ms:.2f}% of it), steps {row['steps']}, "
+                f"busiest block {row['max_block_steps']} steps, "
+                f"{row['us_per_busiest_step']:.2f} us a busiest-block step; "
+                f"block entry {row['entry_ms']:.3f} ms vs plain "
+                f"{row['entry_plain_ms']:.3f} ms, bound "
+                f"{row['entry_bound_ms']:.4f} ms ({row['entry_bound_by']}); "
+                f"card {card}")
+    return rows
 
 
 def timed_frames(integ, scene, n=3):
@@ -227,7 +358,8 @@ def slice3(dev, card, scene, t_all):
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.whitted import WhittedIntegrator
     from trace_tpu_torch.models import cornell, mesh_heavy, spheres
-    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+    from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
+                                           sweep_plain)
     from trace_tpu_torch.sampler import uniform as U
 
     tmp = tempfile.gettempdir()
@@ -258,6 +390,7 @@ def slice3(dev, card, scene, t_all):
     def bench(label, sc, integ, rays):
         torch.cuda.reset_peak_memory_stats()
         sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
         times, state = timed_frames(integ, sc)
         ms = float(np.mean(times))
         img = image(integ, state)
@@ -267,6 +400,7 @@ def slice3(dev, card, scene, t_all):
                    drops=integ.last_queue_drops,
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=sweep_kernel.launches,
+                   entry_launches=block_entry_kernel.launches,
                    nonzero=float((img > 0).any(-1).mean()))
         log(label, t0, f"frames {[round(x, 3) for x in times]} ms, mean "
             f"{ms:.2f} ms, workload {row['mrays']:.3f} Mrays/s, useful "
@@ -328,46 +462,43 @@ def slice3(dev, card, scene, t_all):
     calls = record_calls(path, scene)
     if len(calls) != 2 * depth:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
-    launches, tot_all = [], {}
-    for i, (name, anyh, chunks) in enumerate(sweep_chunks(acc, calls)):
+    tot_all, entry_tot = {}, {}
+    chunks_1m = sweep_chunks(acc, calls, entry_tot)
+    labels = []
+    for i, (name, anyh, chunks) in enumerate(chunks_1m):
         bounce = i // 2
         kind = ("camera_any_hit" if name == "camera_any_hit"
                 else f"shadow {bounce}" if anyh
                 else "camera" if i == 0 else f"bounce {bounce}")
+        labels.append(kind)
         for c, args in enumerate(chunks):
             kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
             pt, pi = sweep_plain(*args, acc.panel, acc.block_rays, anyh)
             torch.cuda.synchronize()
             cmp = compare(kt, ki, pt, pi)
             accumulate(tot_all, cmp)
-            # A block's steps run one after another: the block with the
-            # most steps bounds the launch.
-            per_block = sweep_kernel(*args, acc.panel, acc.block_rays, anyh,
-                                     collect_stats=True)[2]
-            steps = int(per_block.sum())
-            max_steps = int(per_block.max())
-            live = int((args[0][9] >= 0).sum())
-            k_ms = cuda_ms(lambda: sweep_kernel(*args, acc.panel,
-                                                acc.block_rays, anyh), 5)
-            p_ms = cuda_ms(lambda: sweep_plain(*args, acc.panel,
-                                               acc.block_rays, anyh), 1)
-            launches.append(dict(kind=kind, chunk=c, lanes=args[0].shape[1],
-                                 live=live, ms=k_ms, plain_ms=p_ms,
-                                 steps=steps, max_block_steps=max_steps,
-                                 **cmp))
-            log("5d", t0, f"{kind} chunk {c}: {args[0].shape[1]} lanes "
-                f"({live} live), kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-                f"steps {steps} (most in one block {max_steps}), {cmp}")
+            log("5d", t0, f"{kind} chunk {c}: {args[0].shape[1]} lanes, "
+                f"{cmp}")
             if disagrees(cmp):
                 raise AssertionError(f"kernel disagrees with plain: {kind} "
                                      f"chunk {c}: {cmp}")
+    log("5d", t0, f"block entry kernel vs plain: {entry_tot}")
+    if entry_tot["entry_mismatch"]:
+        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
+    # A block's steps run one after another: the block with the most steps
+    # bounds the launch.
+    launches = time_launches("5d", t0, acc, calls, chunks_1m, acc.panel,
+                             False, card, labels)
+    del chunks_1m
     row, img, state = bench("5d", scene, path,
                             n_pix_of(cam) * 1 * depth * 3)
     cam.film.save_png(state)
     if row["launches"] <= 0 or sweep_kernel.arm_launches["f32"] \
-            != row["launches"]:
-        raise AssertionError("the path frame did not run through the sweep")
-    out["path_1m"] = dict(row, per_launch=launches, agreement=tot_all)
+            != row["launches"] or row["entry_launches"] != row["launches"]:
+        raise AssertionError("the path frame did not run through the sweep "
+                             "and the block entry kernel")
+    out["path_1m"] = dict(row, per_launch=launches, agreement=tot_all,
+                          entry_agreement=entry_tot)
     log(5, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
     return out
 
@@ -390,7 +521,8 @@ def main() -> int:
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops import intersect as TI
     from trace_tpu_torch.ops import sweep as TS
-    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+    from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
+                                           sweep_plain)
     from trace_tpu_torch.sampler import uniform as U
     from trace_tpu_torch.wavefront import whitted as WF
 
@@ -407,16 +539,18 @@ def main() -> int:
 
     # -- 1: builds, one nvcc per source, in parallel ------------------------
     t0 = time.perf_counter()
+    libs = (sweep_kernel, block_entry_kernel, TI.intersect_kernel)
     with ThreadPoolExecutor() as ex:   # nvcc runs outside the GIL
-        list(ex.map(lambda k: k.lib.load(),
-                    (sweep_kernel, TI.intersect_kernel)))
+        list(ex.map(lambda k: k.lib.load(), libs))
     t_nvcc = time.perf_counter() - t0
     native.load()
-    regs = ptxas_summary(sweep_kernel.lib.build_log
-                         + TI.intersect_kernel.lib.build_log)
-    log(1, t0, f"built sweep and intersect kernels (nvcc {t_nvcc:.2f} s, "
-        f"in parallel) and SAH builder; registers/spill stores/spill loads "
-        f"per arm: {[f'{n}:{r}/{s}/{l}' for n, r, s, l in regs]}")
+    regs = ptxas_summary("".join(k.lib.build_log for k in libs))
+    log(1, t0, f"built sweep, block entry and intersect kernels (nvcc "
+        f"{t_nvcc:.2f} s, in parallel) and SAH builder; sweep CTA: "
+        f"{TS.SWEEP_WARPS} warps per {TS.KERNEL_BLOCK_RAYS} rays; "
+        f"registers/spill "
+        f"stores/spill loads per arm: "
+        f"{[f'{n}:{r}/{s}/{l}' for n, r, s, l in regs]}")
     if any(s or l for _, _, s, l in regs):
         print("[1] note: a kernel arm spills registers", flush=True)
 
@@ -435,8 +569,9 @@ def main() -> int:
     calls = record_calls(integ, scene)
     if [a for *_, a in calls] != [False, True, False, True]:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
-    res = {}
-    for name, anyh, chunks in sweep_chunks(acc, calls):
+    res, entry_tot = {}, {}
+    d_chunks = sweep_chunks(acc, calls, entry_tot)
+    for name, anyh, chunks in d_chunks:
         tot = {}
         for args in chunks:
             kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
@@ -451,6 +586,9 @@ def main() -> int:
     if res["call0_closest"]["n_found"] <= 0 \
             or res["camera_any_hit"]["n_found"] < 1000:
         raise AssertionError("too few hits to exercise the kernel")
+    log("2a", t0, f"block entry kernel vs plain: {entry_tot}")
+    if entry_tot["entry_mismatch"]:
+        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
 
     # -- 2b: the exact-edge scene, every arm, on its frame's launches -------
     t0 = time.perf_counter()
@@ -463,7 +601,11 @@ def main() -> int:
     integ_e = WhittedIntegrator(cam_e, U.UniformSampler(1, seed=0),
                                 max_depth=2)
     e_calls = record_calls(integ_e, exact)
-    e_chunks = sweep_chunks(eacc, e_calls)
+    e_entry = {}
+    e_chunks = sweep_chunks(eacc, e_calls, e_entry)
+    log("2b", t0, f"block entry kernel vs plain: {e_entry}")
+    if e_entry["entry_mismatch"]:
+        raise AssertionError(f"block entry kernel disagrees: {e_entry}")
     panels = {k: TS.panel_tensor(TS.cast_panel(tb.panel, k == "bf16",
                                                k == "hilo"), dev)
               for k in ("f32", "bf16", "hilo")}
@@ -535,6 +677,10 @@ def main() -> int:
         if not eq:
             raise AssertionError(f"fused kernel disagrees: {name}")
         if i == 0:
+            fused["bound_ms"], fused["bound_by"] = bound(
+                rays.shape[1] * small.n_triangles * INTERSECT_OPS,
+                rays.numel() * 4 + fa.tris.numel() * 4 + fa.ids.numel() * 4
+                + rays.shape[1] * 8)
             fused["ms"] = cuda_ms(
                 lambda: TI.intersect_kernel(rays, fa.tris, fa.ids), 10)
             fused["plain_ms"] = cuda_ms(
@@ -644,6 +790,7 @@ def main() -> int:
                             collect_stats=run.endswith("stats"))
         torch.cuda.reset_peak_memory_stats()
         sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
         TI.intersect_kernel.reset_counts()
         times, state = timed_frames(it, sc)
         launches = (TI.intersect_kernel.launches if arm == "intersect"
@@ -659,15 +806,23 @@ def main() -> int:
             extra = (f", sweep steps per launch {steps[:8]}"
                      f"{'...' if len(steps) > 8 else ''}")
             sc.accel.last_steps = []
-        frames[run] = dict(ms=ms, times=times, launches=launches)
+        entry_launches = block_entry_kernel.launches
+        frames[run] = dict(ms=ms, times=times, launches=launches,
+                           entry_launches=entry_launches,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         log(4, t0, f"{run}: frames {[round(x, 3) for x in times]} ms, mean "
             f"{ms:.2f} ms, {rays_per_frame / ms / 1e3:.3f} Mrays/s, "
-            f"{arm} launches {launches} (other sweep arms {others}), "
-            f"queue_drops {it.last_queue_drops}, useful_rays "
-            f"{it.last_useful_rays}, non-zero pixels {nonzero:.3f}, peak mem "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB{extra}")
+            f"{arm} launches {launches} (other sweep arms {others}), block "
+            f"entry launches {entry_launches}, queue_drops "
+            f"{it.last_queue_drops}, useful_rays {it.last_useful_rays}, "
+            f"non-zero pixels {nonzero:.3f}, peak mem "
+            f"{frames[run]['peak_gib']:.2f} GiB{extra}")
         if launches <= 0 or others or it.last_queue_drops != 0:
             raise AssertionError(f"{run} did not run through {arm} cleanly")
+        if entry_launches != sweep_kernel.launches:
+            raise AssertionError(f"{run}: {entry_launches} block entry "
+                                 f"launches for {sweep_kernel.launches} "
+                                 f"sweep launches")
         if not (np.isfinite(img).all() and nonzero > 0.05):
             raise AssertionError(f"bad frame in {run}: non-zero {nonzero}")
         if run in ("default", "exact_edges"):
@@ -678,91 +833,122 @@ def main() -> int:
         f"{frames['exact_edges']['ms']:.2f} ms (CUDA events, mean of 3); "
         f"PNGs {png}, {png_e}; card {card}")
 
-    # Camera chunk (the exact frame's first 65536 camera rays), per arm and
-    # block size: kernel ms (CUDA events, 10 launches) against plain ms.
+    # Every sweep launch of the default and exact-edge frames.
+    labels = ["camera", "shadow", "specular", "specular shadow"]
+    per_launch = {
+        "default": time_launches("4 default", t0, acc, calls, d_chunks,
+                                 acc.panel, False, card, labels),
+        "exact_edges": time_launches("4 exact", t0, eacc, e_calls, e_chunks,
+                                     eacc.panel, True, card, labels)}
+
+    # Camera chunk (the exact frame's first 65536 camera rays), per arm, at
+    # the shipped block of 32 rays: kernel ms (CUDA events, 10 launches)
+    # against plain ms. The kernel refuses blocks of 64 and more rays (16
+    # warps per 32 rays: such a CTA needs more registers than an SM has).
     o, d, tm, _ = e_calls[0]
     perm = eacc.coherence_order(o, d, tm)
     o, d, tm = (x[perm][:acc.ray_chunk] for x in (o, d, tm))
     timing = {}
     panel_bytes = {k: p[0].numel() * p.element_size()
                    for k, p in panels.items()}
-    for blk in (32, 64, 128):
-        args = TS.SweepAccelerator(tb, dev, block_rays=blk).prologue(o, d, tm)
-        for arm, kind, cert in [("f32", "f32", False)] + arms:
-            for pipe in (False, True):
-                if blk != 32 and kind != "f32":
-                    continue
-                p = panels[kind]
-                opt = dict(certified=cert, pipeline=pipe)
-                steps = int(sweep_kernel(*args, p, blk, False,
-                                         collect_stats=True, **opt)[2].sum())
-                ms = cuda_ms(lambda: sweep_kernel(*args, p, blk, False, **opt),
-                             10)
-                name = arm + ("_pipelined" if pipe else "")
-                row = dict(ms=ms, steps=steps,
-                           gbs=steps * panel_bytes[kind] / ms / 1e6)
-                if blk == 32 and not pipe:
-                    row["stats_ms"] = cuda_ms(
-                        lambda: sweep_kernel(*args, p, blk, False,
-                                             collect_stats=True, **opt), 10)
-                    row["plain_ms"] = cuda_ms(
-                        lambda: sweep_plain(*args, p, blk, False,
-                                            certified=cert), 2)
-                timing[(name, blk)] = row
-                log(4, t0, f"camera chunk {o.shape[0]} rays, block {blk}, "
-                    f"{name}: kernel {ms:.3f} ms"
-                    + (f" ({row['stats_ms']:.3f} ms with step counts), "
-                       f"plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
-                       else "")
-                    + f", steps {steps}, panel {row['gbs']:.1f} GB/s")
+    blk = TS.KERNEL_BLOCK_RAYS
+    args = TS.SweepAccelerator(tb, dev, block_rays=blk).prologue(o, d, tm)
+    args64 = TS.SweepAccelerator(tb, dev, block_rays=64).prologue(o, d, tm)
+    try:
+        sweep_kernel(*args64, panels["f32"], 64, False)
+        raise AssertionError("the sweep kernel took a block of 64 rays")
+    except ValueError as e:
+        log(4, t0, f"block of 64 rays refused: {e}")
+    del args64
+    for arm, kind, cert in [("f32", "f32", False)] + arms:
+        for pipe in (False, True):
+            p = panels[kind]
+            opt = dict(certified=cert, pipeline=pipe)
+            per_block = sweep_kernel(*args, p, blk, False, collect_stats=True,
+                                     **opt)[2]
+            steps = int(per_block.sum())
+            ms = cuda_ms(lambda: sweep_kernel(*args, p, blk, False, **opt), 10)
+            name = arm + ("_pipelined" if pipe else "")
+            row = dict(ms=ms, steps=steps,
+                       gbs=steps * panel_bytes[kind] / ms / 1e6)
+            row["bound_ms"], row["bound_by"] = sweep_bound(
+                args, per_block, p, blk, cert)
+            if not pipe:
+                row["stats_ms"] = cuda_ms(
+                    lambda: sweep_kernel(*args, p, blk, False,
+                                         collect_stats=True, **opt), 10)
+                row["plain_ms"] = cuda_ms(
+                    lambda: sweep_plain(*args, p, blk, False,
+                                        certified=cert), 2)
+            timing[(name, blk)] = row
+            log(4, t0, f"camera chunk {o.shape[0]} rays, block {blk}, "
+                f"{name}: kernel {ms:.3f} ms"
+                + (f" ({row['stats_ms']:.3f} ms with step counts), "
+                   f"plain {row['plain_ms']:.3f} ms" if "plain_ms" in row
+                   else "")
+                + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+                f"steps {steps}, panel {row['gbs']:.1f} GB/s")
     log(4, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
 
     # -- 5: slice 3 ---------------------------------------------------------
-    del exact, e_calls, e_chunks, calls
+    del exact, e_calls, e_chunks, calls, d_chunks
     torch.cuda.empty_cache()
     s3 = slice3(dev, card, scene, t_all)
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "slice3.json"), "w") as f:
         json.dump(dict(card=card, **s3), f, indent=1)
+    with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
+        json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
+                       per_launch=per_launch,
+                       entry_agreement=[entry_tot, e_entry]), f, indent=1)
 
     def err(arm):
         return max(r["max_abs_err"] for r in arm_res[arm].values())
 
-    def entry(name, replaces, launches, max_abs_err, ms, plain_ms):
-        return {"name": name, "route": "cuda", "source": SWEEP_SRC,
+    def entry(name, replaces, launches, max_abs_err, row, ms_key="ms",
+              source=SWEEP_SRC, plain_key="plain_ms", bound_key="bound"):
+        # No single PyTorch call computes a per-ray running (t, id)
+        # minimum over a data-dependent walk, nor a per-block minimum of
+        # slab entries: library_ms is null.
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms}
+                "max_abs_err": max_abs_err, "ms": row[ms_key],
+                "plain_ms": row[plain_key],
+                "bound_ms": row[bound_key + "_ms"],
+                "bound_by": row[bound_key + "_by"], "library_ms": None}
 
     t32 = lambda k: timing[(k, 32)]
+    cert = t32("certified")
     kernels = [
         entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
-              max(r["max_abs_err"] for r in res.values()),
-              t32("f32")["ms"], t32("f32")["plain_ms"]),
+              max(r["max_abs_err"] for r in res.values()), t32("f32")),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
-              frames["exact_edges"]["launches"], err("certified"),
-              t32("certified")["ms"], t32("certified")["plain_ms"]),
+              frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
-              err("bf16"), t32("bf16")["ms"], t32("bf16")["plain_ms"]),
+              err("bf16"), t32("bf16")),
         entry("sweep_hilo", f"{JAX_SWEEP}:253", frames["hilo"]["launches"],
-              err("hilo"), t32("hilo")["ms"], t32("hilo")["plain_ms"]),
+              err("hilo"), t32("hilo")),
         entry("sweep_certified_bf16", f"{JAX_SWEEP}:69",
               frames["exact_edges+bf16"]["launches"], err("certified_bf16"),
-              t32("certified_bf16")["ms"], t32("certified_bf16")["plain_ms"]),
+              t32("certified_bf16")),
         entry("sweep_certified_hilo", f"{JAX_SWEEP}:69",
               frames["exact_edges+hilo"]["launches"], err("certified_hilo"),
-              t32("certified_hilo")["ms"], t32("certified_hilo")["plain_ms"]),
+              t32("certified_hilo")),
         entry("sweep_stats", f"{JAX_SWEEP}:305",
               frames["exact_edges+stats"]["launches"], err("certified"),
-              t32("certified")["stats_ms"], t32("certified")["plain_ms"]),
+              cert, ms_key="stats_ms"),
         entry("sweep_pipelined", f"{JAX_SWEEP}:313",
               frames["exact_edges+pipeline"]["launches"], err("certified"),
-              t32("certified_pipelined")["ms"], t32("certified")["plain_ms"]),
-        {"name": "intersect", "route": "cuda",
-         "source": "trace_tpu_torch/csrc/intersect.cu",
-         "replaces": "trace_tpu/ops/intersect_pallas.py:94",
-         "launches": frames["fused_5k"]["launches"],
-         "max_abs_err": fused["max_abs_err"], "ms": fused["ms"],
-         "plain_ms": fused["plain_ms"]},
+              dict(t32("certified_pipelined"), plain_ms=cert["plain_ms"])),
+        entry("block_entry", f"{JAX_SWEEP}:527",
+              frames["default"]["entry_launches"],
+              max(entry_tot["max_abs_err"], e_entry["max_abs_err"]),
+              per_launch["default"][0], ms_key="entry_ms",
+              source="trace_tpu_torch/csrc/entry.cu",
+              plain_key="entry_plain_ms", bound_key="entry_bound"),
+        entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
+              frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
+              source="trace_tpu_torch/csrc/intersect.cu"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

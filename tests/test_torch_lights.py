@@ -61,7 +61,7 @@ def scenes():
 
 
 def test_light_tables_match_jax(scenes):
-    built = TC.build_scene()
+    built = TC.build_scene(device="cpu")
     for name, (js, ts) in scenes.items():
         for f in ("kind", "flags", "p", "i", "direction", "w2l", "l2w",
                   "cos_total_width", "cos_falloff_start", "tri_start",
@@ -166,9 +166,9 @@ def test_environment_light_and_instancing_raise():
     b.sphere(TT.translate([0.0, 0.0, 0.0]), 1.0, m)
     b.light(TL.infinite_light())
     with pytest.raises(NotImplementedError):
-        b.build()
+        b.build(device="cpu")
     b = SceneBuilder()
     m = b.material(MatteMaterial())
     b.instanced_mesh(np.zeros((1, 3), np.uint32), np.zeros((3, 3)), [], m)
     with pytest.raises(NotImplementedError):
-        b.build()
+        b.build(device="cpu")

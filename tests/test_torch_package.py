@@ -1,5 +1,6 @@
-"""The port stands alone: it imports torch and numpy, never JAX and never
-the JAX package (the machine with the GPU has no JAX)."""
+"""The port stands alone: it and its scripts (chip_smoke.py, scripts/torch_*)
+import torch and numpy, never JAX and never the JAX package (the machine
+with the GPU has no JAX)."""
 import ast
 import os
 import pkgutil
@@ -22,11 +23,12 @@ def test_every_module_is_listed():
         assert "trace_tpu_torch." + name in MODULES
 
 
-@pytest.mark.parametrize("name", MODULES)
-def test_module_imports_neither_jax_nor_trace_tpu(name):
-    path = os.path.join(REPO, *name.split(".")) + ".py"
-    if not os.path.exists(path):
-        path = os.path.join(REPO, *name.split("."), "__init__.py")
+# The port's scripts outside the package: they run on the GPU machine too.
+SCRIPTS = ["chip_smoke.py", "scripts/torch_sweep_launches.py",
+           "scripts/torch_sweep_warps.py"]
+
+
+def _assert_no_jax_imports(path):
     tree = ast.parse(open(path).read())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -35,7 +37,20 @@ def test_module_imports_neither_jax_nor_trace_tpu(name):
             roots = [node.module.split(".")[0]]
         else:
             continue
-        assert not {"jax", "jaxlib", "trace_tpu"} & set(roots), (name, roots)
+        assert not {"jax", "jaxlib", "trace_tpu"} & set(roots), (path, roots)
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_neither_jax_nor_trace_tpu(name):
+    path = os.path.join(REPO, *name.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(REPO, *name.split("."), "__init__.py")
+    _assert_no_jax_imports(path)
+
+
+@pytest.mark.parametrize("script", SCRIPTS)
+def test_script_imports_neither_jax_nor_trace_tpu(script):
+    _assert_no_jax_imports(os.path.join(REPO, script))
 
 
 def test_package_imports_with_jax_blocked():
@@ -48,3 +63,83 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _default_devices():
+    import inspect
+
+    from trace_tpu_torch.models import _run, cornell, mesh_heavy, spheres
+    from trace_tpu_torch.scene import SceneBuilder
+
+    out = {f"{m.__name__}.build_scene": inspect.signature(
+        m.build_scene).parameters["device"].default
+        for m in (mesh_heavy, spheres, cornell)}
+    out["SceneBuilder.build"] = inspect.signature(
+        SceneBuilder.build).parameters["device"].default
+    out["_run.parser --device"] = _run.parser(
+        "", resolution=8, spp=1, depth=1, output="x.png").get_default("device")
+    return out
+
+
+@pytest.mark.parametrize("entry", sorted(_default_devices()))
+def test_entry_points_default_to_the_card(entry):
+    assert _default_devices()[entry] == "cuda"
+
+
+def _scene_builds_without_a_device(path):
+    """(line, call) of every call in a test file that builds a port scene
+    (``<port module>.build_scene(...)``, or ``.build(...)`` on a name bound
+    to the port's ``SceneBuilder()`` in the same function) and passes no
+    device; and the number of such calls."""
+    tree = ast.parse(open(path).read())
+    mods, builders = set(), set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module.split(".")[0] == "trace_tpu_torch":
+            for a in node.names:
+                (builders if a.name == "SceneBuilder" else mods).add(
+                    a.asname or a.name)
+        elif isinstance(node, ast.Import):
+            mods |= {a.asname for a in node.names
+                     if a.asname and a.name.startswith("trace_tpu_torch.")}
+    bad, n = [], 0
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        made = {t.id for node in ast.walk(fn) if isinstance(node, ast.Assign)
+                and isinstance(node.value, ast.Call)
+                and isinstance(node.value.func, ast.Name)
+                and node.value.func.id in builders
+                for t in node.targets if isinstance(t, ast.Name)}
+        for call in ast.walk(fn):
+            if not (isinstance(call, ast.Call)
+                    and isinstance(call.func, ast.Attribute)
+                    and isinstance(call.func.value, ast.Name)):
+                continue
+            owner, attr = call.func.value.id, call.func.attr
+            kws = {k.arg for k in call.keywords}
+            if attr == "build_scene" and owner in mods:
+                ok = "device" in kws
+            elif attr == "build" and owner in made:
+                ok = "device" in kws or bool(call.args)
+            else:
+                continue
+            n += 1
+            if not ok:
+                bad.append((call.lineno, ast.unparse(call)))
+    return bad, n
+
+
+def test_port_tests_build_scenes_with_an_explicit_device():
+    # The entry points run on the card by default; a test that builds a
+    # scene on the CPU says so.
+    tests = os.path.join(REPO, "tests")
+    bad, total = {}, 0
+    for name in sorted(os.listdir(tests)):
+        if name.startswith("test_torch_") and name.endswith(".py"):
+            b, n = _scene_builds_without_a_device(os.path.join(tests, name))
+            total += n
+            if b:
+                bad[name] = b
+    assert not bad, bad
+    assert total >= 15

@@ -106,7 +106,7 @@ def _render_path(scene, res, spp, seed, depth):
 
 
 def test_cornell48_matches_jax_planar_golden():
-    img, integ = _render_path(TC.build_scene(), 48, 8, 3, 4)
+    img, integ = _render_path(TC.build_scene(device="cpu"), 48, 8, 3, 4)
     golden = np.load(GOLDEN)
     assert img.shape == golden.shape and np.isfinite(img).all()
     assert integ.last_queue_drops == 0 and integ.last_useful_rays > 0
@@ -116,7 +116,7 @@ def test_cornell48_matches_jax_planar_golden():
 
 
 def test_path_depth1_equals_whitted_with_a_delta_light():
-    scene = TSph.build_scene()
+    scene = TSph.build_scene(device="cpu")
     imgs = []
     for cls in (WhittedIntegrator, PathIntegrator):
         cam = TSph.build_camera(24, "unused.png")
@@ -130,7 +130,7 @@ def test_path_through_the_sweep_matches_brute_force():
     """The same Cornell box with its 12 triangles behind the sweep (the
     route of every scene above 64 triangles) renders like the brute-force
     route."""
-    brute = TC.build_scene()
+    brute = TC.build_scene(device="cpu")
     swept = Scene(brute.spheres, brute.triangles, brute.materials,
                   brute.lights, "cpu",
                   sweep_tables=TS.SweepTables(
@@ -159,7 +159,7 @@ def test_path_refuses_what_it_cannot_render():
             [[0, y, 0], [1, y, 0], [1, y, 1], [0, y, 1]], np.float32), m,
             emission=(1.0, 1.0, 1.0))
     with pytest.raises(NotImplementedError):
-        TP.supports(b.build())
+        TP.supports(b.build(device="cpu"))
 
 
 def test_li_matches_op_by_op_jax_on_every_lane(cornell):

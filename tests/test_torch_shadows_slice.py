@@ -44,7 +44,7 @@ def jax_scene():
 
 @pytest.fixture(scope="module")
 def scene():
-    return TSph.build_scene()
+    return TSph.build_scene(device="cpu")
 
 
 def _render(scene, res, spp, seed, depth, **kw):
@@ -146,7 +146,7 @@ def test_exact_edges_close_shared_edges_like_the_packed_jax_path():
         b = SceneBuilder()
         b.triangle_mesh(TT.identity(), tris, verts, b.material(MatteMaterial()))
         b.light(point_light(TT.translate([0.0, 0.0, 6.0]), (50.0,) * 3))
-        sc = b.build(exact_shared_edges=exact)
+        sc = b.build(device="cpu", exact_shared_edges=exact)
         assert sc.accel is None and sc.n_triangles == 50
         jb = JSB()
         jb.triangle_mesh(JT.identity(), tris, verts, jb.material(JMatte()))
@@ -247,6 +247,6 @@ def test_level_caps_equal_uncapped_when_nothing_drops(scene):
 
 
 def test_sweep_scenes_still_take_the_sweep():
-    small = TMH.build_scene(target_tris=200)
+    small = TMH.build_scene(target_tris=200, device="cpu")
     assert small.n_triangles > 64 and isinstance(small.accel,
                                                  TS.SweepAccelerator)

@@ -3,16 +3,25 @@ package (trace_tpu.accel.clusters, trace_tpu.ops.sweep_pallas).
 
 - Cluster build and sweep tables: bit-equal (both build through the same
   C++ source with -ffp-contract=off).
-- Prologue helpers (slab entry distances, coherence sort key): bit-equal.
+- Prologue helpers (slab entry distances, coherence sort key, and the
+  per-block entry table ``block_entry_plain`` against the JAX wrapper's
+  own lines): bit-equal.
+- The kernel's split of a super's columns over W warps, modelled in
+  PyTorch (per-slice (t, k) minima merged by least t, then least k),
+  against ``sweep_plain`` on panels with exact ties planted across slice
+  boundaries: bit-equal, for W = 4, 8 and 16.
 - The sweep on CPU tensors (the plain version) against the JAX Pallas
   kernel in interpret mode, at the same group (4) and block size (128),
   so both visit supers in the same order: hit masks equal; t within
   atol 1e-5 + rtol 1e-5 (the JAX side contracts its K=3 dots through XLA,
   the port rounds every product, so t may differ in the last ulps); ids
   equal on every ray whose winning t is not tied with another triangle.
-- The CUDA kernel, in every arm (certified, bf16 and hi/lo panels, step
-  counts, double-buffered), against the plain version on the card
-  (``cuda`` marker, skipped without a GPU): bit-equal.
+- The CUDA kernels against their plain versions on the card (``cuda``
+  marker, skipped without a GPU): the sweep in every arm (certified, bf16
+  and hi/lo panels, step counts, double-buffered), also on the tie
+  panels, and the block entry kernel: bit-equal. The kernel refuses any
+  block but 32 rays (its CTA of 16 warps would not fit the registers);
+  the Python side's constants match the CUDA source's.
 
 JAX is imported inside the ``jx`` fixture, so the ``cuda`` test also runs
 where JAX is not installed (``pytest --noconftest -m cuda``).
@@ -126,6 +135,156 @@ def test_entry_boxes_and_sort_key_bit_equal(jx):
     np.testing.assert_array_equal(jk.astype(np.int64), tk.numpy())
 
 
+def _entry_rays(nr, seed, lo, hi):
+    """Rays for the entry table: random, plus axis-parallel directions
+    from origins on slab planes (0 * inf), dead lanes (t_max < 0) and
+    finite and infinite t_max."""
+    rng = np.random.default_rng(seed)
+    o, d = _rays(nr, seed)
+    d[:24, 1:] = 0.0                      # along x only
+    o[:24, 1] = lo[:24, 1]                # on a y slab plane
+    d[24:40, :2] = 0.0                    # along z only
+    d[24:40, 2] = 1.0
+    o[24:40, 0] = hi[:16, 0]              # on an x slab plane
+    t_max = rng.uniform(0.0, 20.0, nr).astype(np.float32)
+    t_max[40:90] = np.inf
+    t_max[rng.choice(nr, nr // 8, replace=False)] = -1.0
+    return o, d, t_max
+
+
+@pytest.mark.parametrize("block_rays, n_rays", [(32, 300), (128, 260)])
+def test_block_entry_plain_matches_jax(jx, block_rays, n_rays):
+    # The JAX wrapper's lines (sweep_pallas.py, _traverse_chunk): pad to
+    # whole blocks with dead lanes, _entry_boxes, dead lanes to inf, the
+    # per-block min.
+    jnp = jx.jnp
+    rng = np.random.default_rng(block_rays)
+    lo = rng.uniform(-6, 4, (70, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.0, 3.0, (70, 3)).astype(np.float32)
+    hi[:5] = lo[:5]                       # flat boxes
+    o, d, t_max = _entry_rays(n_rays, 7 + block_rays, lo, hi)
+    b = block_rays
+    pad = (-n_rays) % b
+    t_p = jnp.pad(jnp.where(jnp.isfinite(t_max), t_max, np.float32(3e38)),
+                  (0, pad), constant_values=-1.0)
+    o_p = jnp.pad(jnp.asarray(o), ((0, pad), (0, 0)))
+    d_p = jnp.pad(jnp.asarray(d), ((0, pad), (0, 0)))
+    entry = jx.JC._entry_boxes(jnp.asarray(lo), jnp.asarray(hi), o_p, d_p,
+                               jnp.maximum(t_p, 0.0))
+    entry = jnp.where(t_p[:, None] < 0.0, jnp.inf, entry)
+    je = np.asarray(jnp.min(entry.reshape(-1, b, 70), axis=1))
+
+    tb = TS.SweepTables.from_arrays(np.zeros((70, 16, 128), np.float32),
+                                    np.full(70 * 128, -1, np.int32), lo, hi)
+    acc = TS.SweepAccelerator(tb, "cpu", block_rays=b)
+    o_t, d_t, tp_t = acc.pad_rays(torch.from_numpy(o), torch.from_numpy(d),
+                                  torch.from_numpy(t_max))
+    np.testing.assert_array_equal(tp_t.numpy(), np.asarray(t_p))
+    launches = TS.block_entry_kernel.launches
+    te = TS.block_entry(acc.s_lo, acc.s_hi, o_t, d_t, tp_t, b).numpy()
+    assert TS.block_entry_kernel.launches == launches  # CPU: plain version
+    np.testing.assert_array_equal(je, te)
+    assert np.isfinite(te).any() and np.isinf(te).any()
+
+
+def test_block_entry_wrapper_refuses_cpu_tensors():
+    lo = torch.zeros(3, 3)
+    o = torch.zeros(64, 3)
+    with pytest.raises(ValueError):
+        TS.block_entry_kernel(lo, lo + 1, o, o + 1, torch.ones(64), 32)
+    got = TS.block_entry(lo, lo + 1, o - 1, o + 1, torch.full((64,), 9.0),
+                         32)
+    assert got.shape == (2, 3) and (got == 1.0).all()
+
+
+def _tie_tables(seed):
+    """Sweep tables whose every super holds each triangle twice: columns
+    [GL/2, GL) repeat [0, GL/2) (a slice boundary for W = 2..16), and a
+    few columns repeat their left neighbour inside a slice. Every hit then
+    ties exactly with another column."""
+    idx, verts = _soup_arrays(400, seed)
+    tt = TTri.pack_triangle_mesh(TT.identity(), idx, verts)
+    tb = TS.SweepTables(TC.build_clusters(tt, 16), 4)   # GL 64, padded 128
+    panel = tb.panel.copy()
+    half = tb.gl_pad // 2
+    panel[:, :, 3::8] = panel[:, :, 2::8]               # in-slice twins
+    panel[:, :, half:] = panel[:, :, :half]             # cross-slice twins
+    slot = tb.slot_to_tri.reshape(tb.n_supers, -1).copy()
+    slot[:, 3::8] = slot[:, 2::8]
+    slot[:, half:] = slot[:, :half]
+    return TS.SweepTables.from_arrays(panel, slot.reshape(-1), tb.s_lo,
+                                      tb.s_hi)
+
+
+def _sweep_split(rays, order, suffix, panel, block_rays, any_hit, warps,
+                 certified=False):
+    """sweep_plain with each super's columns split over ``warps`` slices
+    as the kernel splits them: per slice the least t and, among equal t,
+    the lowest column (-1 where none); then per ray the least t over the
+    slices in slice order, strict '<' (the lowest slice among equal t)."""
+    nb, n_supers = order.shape
+    b = int(block_rays)
+    gl = panel.shape[2]
+    err_eps = TS.panel_err_eps(False, False)
+    r = rays.reshape(10, nb, b)
+    t_lim = r[9]
+    best_t = torch.full((nb, b), float("inf"))
+    best_i = torch.full((nb, b), -1, dtype=torch.int32)
+    cols = torch.arange(gl, dtype=torch.int32)
+    bounds = [w * gl // warps for w in range(warps + 1)]
+    live = torch.ones(nb, dtype=torch.bool)
+    for s in range(n_supers):
+        lane_limit = (torch.where(best_t <= t_lim, -float("inf"), t_lim)
+                      if any_hit else torch.minimum(best_t, t_lim))
+        live &= (suffix[:, s, None] < lane_limit).any(dim=1)
+        if not bool(live.any()):
+            break
+        sid = order[:, s].long()
+        ok, t = TS._panel_test(r[:, :, :, None], panel[sid], certified,
+                               err_eps)
+        limit = torch.minimum(best_t, t_lim)[..., None]
+        t = torch.where(ok & (t < limit), t, float("inf"))
+        mt = torch.full((nb, b), float("inf"))
+        mk = torch.full((nb, b), -1, dtype=torch.int32)
+        for w in range(warps):
+            tw = t[..., bounds[w]:bounds[w + 1]]
+            cw = cols[bounds[w]:bounds[w + 1]]
+            tmin = tw.amin(dim=2)
+            kmin = torch.where(tw <= tmin[..., None], cw,
+                               torch.iinfo(torch.int32).max).amin(dim=2)
+            kmin = torch.where(torch.isinf(tmin), -1, kmin)
+            take = tmin < mt
+            mt, mk = torch.where(take, tmin, mt), torch.where(take, kmin, mk)
+        better = live[:, None] & (mt < best_t)
+        best_t = torch.where(better, mt, best_t)
+        best_i = torch.where(better, sid[:, None].to(torch.int32) * gl + mk,
+                             best_i)
+    return best_t.reshape(-1), best_i.reshape(-1)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize("warps", [4, 8, 16])
+def test_warp_split_merge_matches_plain_on_ties(warps, any_hit):
+    tb = _tie_tables(51)
+    acc = TS.SweepAccelerator(tb, "cpu", block_rays=32)
+    o, d = _rays(300, seed=52)
+    t_max = np.full(300, 6.0 if any_hit else np.inf, np.float32)
+    t_max[::7] = -1.0                                    # dead lanes
+    ot, dt, tm = (torch.from_numpy(x) for x in (o, d, t_max))
+    perm = acc.coherence_order(ot, dt, tm)
+    args = acc.prologue(ot[perm], dt[perm], tm[perm])
+    for certified in (False, True):
+        pt, pi = TS.sweep_plain(*args, acc.panel, 32, any_hit,
+                                certified=certified)
+        st, si = _sweep_split(*args, acc.panel, 32, any_hit, warps,
+                              certified=certified)
+        assert torch.equal(st, pt) and torch.equal(si, pi)
+        found = pi >= 0
+        assert int(found.sum()) > (5 if any_hit else 20)
+        # Every hit had an exact twin in another slice: the lower wins.
+        assert bool((pi[found] % tb.gl_pad < tb.gl_pad // 2).all())
+
+
 def _untied(tt, o, d, t_max, t_win):
     """Rays whose winning t belongs to exactly one triangle (watertight
     brute force over the whole soup, relative band 1e-5)."""
@@ -221,6 +380,41 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert (i == -1).all() and torch.isinf(t).all()
 
 
+def test_kernel_constants_match_the_cuda_source():
+    # The Python guard's block size and warp count are the ones the kernel
+    # is compiled with, and the scenes build accelerators of that block.
+    import os
+    import re
+
+    from trace_tpu_torch import scene as TSc
+
+    src = open(os.path.join(os.path.dirname(TS.__file__), os.pardir, "csrc",
+                            "sweep.cu")).read()
+    consts = dict(re.findall(r"constexpr int (kWarps|kBlockRays) = (\d+);",
+                             src))
+    assert int(consts["kWarps"]) == TS.SWEEP_WARPS
+    assert int(consts["kBlockRays"]) == TS.KERNEL_BLOCK_RAYS
+    assert TSc.BLOCK_RAYS == TS.KERNEL_BLOCK_RAYS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_rays", [64, 128])
+def test_cuda_kernel_refuses_other_block_sizes(block_rays):
+    # A CTA of 16 warps serves 32 rays; a larger block would not fit an
+    # SM's registers, so the wrapper refuses it before any launch.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rays = torch.zeros(10, block_rays, device=dev)
+    order = torch.zeros(1, 2, dtype=torch.int32, device=dev)
+    suffix = torch.zeros(1, 2, device=dev)
+    panel = torch.zeros(2, 16, 128, device=dev)
+    launches = TS.sweep_kernel.launches
+    with pytest.raises(ValueError, match="blocks of 32 rays"):
+        TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
+    assert TS.sweep_kernel.launches == launches
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
@@ -289,6 +483,55 @@ def test_cuda_kernel_arms_match_plain(kind):
                 assert (ki >= 0).sum() > 100
                 for a, b in ((kt, pt), (ki, pi), (ks, ps), (nt, pt),
                              (ni, pi)):
+                    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_block_entry_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from trace_tpu_torch.models import mesh_heavy
+
+    dev = torch.device("cuda")
+    acc = mesh_heavy.build_scene(20_000, device=dev).accel
+    lo, hi = acc.tables.s_lo, acc.tables.s_hi
+    o, d, t_max = _entry_rays(3000, 43, lo, hi)
+    o_p, d_p, t_p = acc.pad_rays(*(torch.from_numpy(x).to(dev)
+                                   for x in (o, d, t_max)))
+    launches = TS.block_entry_kernel.launches
+    k = TS.block_entry_kernel(acc.s_lo, acc.s_hi, o_p, d_p, t_p, 32)
+    p = TS.block_entry_plain(acc.s_lo, acc.s_hi, o_p, d_p, t_p, 32)
+    torch.cuda.synchronize()
+    assert TS.block_entry_kernel.launches == launches + 1
+    assert torch.isfinite(p).any() and torch.isinf(p).any()
+    assert torch.equal(k, p)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_ties_matches_plain():
+    # Exact twins across the warps' column slices and inside one slice.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    acc = TS.SweepAccelerator(_tie_tables(51), dev, block_rays=32)
+    o, d = _rays(3000, seed=53)
+    t_max = np.full(3000, np.inf, np.float32)
+    t_max[::7] = -1.0
+    ot, dt, tm = (torch.from_numpy(x).to(dev) for x in (o, d, t_max))
+    perm = acc.coherence_order(ot, dt, tm)
+    args = acc.prologue(ot[perm], dt[perm], tm[perm])
+    for any_hit in (False, True):
+        for certified in (False, True):
+            pt, pi, ps = TS.sweep_plain(*args, acc.panel, 32, any_hit,
+                                        certified=certified,
+                                        collect_stats=True)
+            for pipeline in (False, True):
+                kt, ki, ks = TS.sweep_kernel(
+                    *args, acc.panel, 32, any_hit, certified=certified,
+                    collect_stats=True, pipeline=pipeline)
+                torch.cuda.synchronize()
+                assert (ki >= 0).sum() > 100
+                for a, b in ((kt, pt), (ki, pi), (ks, ps)):
                     assert torch.equal(a, b)
 
 

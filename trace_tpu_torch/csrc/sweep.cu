@@ -8,22 +8,32 @@
 // layout (8-sublane order/suffix rows, 16-row ray packing, 8-row
 // broadcast outputs) is not carried over.
 //
-// Work: one CTA per block of B rays, one thread per ray. The CTA walks
-// its own demand-ordered list of super-clusters (order[b, :], built by
-// ops/sweep.py). Each step copies one super's Moller-Trumbore panel,
-// 16 rows x GL columns (32 KB of f32 at G=8 clusters x L=64 triangles;
-// 16 KB as bf16; 32 KB as hi/lo bf16 pairs), into shared memory; each
-// thread then tests its ray against all GL triangles:
+// Work: one CTA per block of B rays, made of kWarps column groups of B
+// threads each: thread (w, r) holds ray r of the block and tests it
+// against columns [w*GL/kWarps, (w+1)*GL/kWarps) of the staged super.
+// The CTA walks its own demand-ordered list of super-clusters (order[b,
+// :], built by ops/sweep.py). Each step copies one super's
+// Moller-Trumbore panel, 16 rows x GL columns (32 KB of f32 at G=8
+// clusters x L=64 triangles; 16 KB as bf16; 32 KB as hi/lo bf16 pairs),
+// into shared memory with every thread of the CTA, then each thread tests
+// its ray against its column slice:
 //   det   = -d.n          u*det = m.e2 - d.w      (m = o x d)
 //   v*det = -m.e1 - d.q   t*det = o.n - v0.n
-// with the sign-folded epilogue of trace_tpu/accel/mxu.py::mt_epilogue,
-// keeping a per-lane running minimum t and, among equal t, the lowest
-// slot (strict '<' both within a super and across supers, so the
-// earliest-visited super wins a tie across supers, as in the TPU kernel).
-// The CTA leaves the loop when no live lane can still improve:
-// __syncthreads_or(suffix[b, s] < lane_limit), where suffix is the
-// suffix-min of the block's entry distances. Any-hit retires a lane at
-// its first hit (lane_limit = -inf once best_t <= t_lim).
+// with the sign-folded epilogue of trace_tpu/accel/mxu.py::mt_epilogue.
+// t = tn / |det| is divided out only for a pair that passed every other
+// test (the division is the costliest operation, and most pairs miss).
+// Each thread keeps the least t of its slice and, among equal t, the
+// lowest column (strict '<' in column order). The slices' (t, k) then
+// meet in a [kWarps][B] shared scratch, and every thread merges its ray's
+// kWarps entries: the least t, and among equal t the lowest group, which
+// holds the lower columns -- the plain version's rule, so the result is
+// the same bit for bit. Across supers the rule is strict '<' (the
+// earliest-visited super wins a tie, as in the TPU kernel). Every group
+// holds the merged best t of its ray, so the stop test
+// __syncthreads_or(suffix[b, s] < lane_limit) -- suffix is the suffix-min
+// of the block's entry distances -- leaves the loop in every group at
+// once. Any-hit retires a lane at its first hit (lane_limit = -inf once
+// best_t <= t_lim).
 //
 // Arms (template parameters, one instantiation each):
 //   CERT   the certified epilogue (mxu.py::mt_epilogue_certified): every
@@ -33,7 +43,8 @@
 //          once per ray, in registers.
 //   KIND   the panel type: f32, bf16 (upcast = bits << 16, exact), or
 //          hi/lo (32 rows; f32(hi) + f32(lo), one rounding).
-//   STATS  write the number of supers the CTA swept (steps[b]).
+//   STATS  write the number of supers the CTA swept (steps[b]): one count
+//          per ray block, not per group.
 //   PIPE   double-buffer the panel: while super s is tested, super s+1's
 //          panel is already in flight into the other shared slot, by
 //          cp.async (16 bytes per thread and instruction, through L2
@@ -43,17 +54,29 @@
 //          and commit/wait groups need no barrier object in shared
 //          memory. The order rows are not padded, so the prefetch is
 //          guarded (s+1 < S); an empty group keeps the wait count
-//          uniform. Two slots of 32 KB cut residency from 7 to 3 CTAs
-//          per SM at f32.
+//          uniform.
 //
-// What bounds it on this card: FP32 ALU work on the dense (ray x
-// triangle) tests -- about 40 FP32 operations per pair (some 90 when
-// certified), every ray against every triangle of every super its block
-// enters -- plus re-reading panels from L2 (a 1M-triangle f32 panel is
-// ~86 MB, more than the 50 MB L2). The design keeps the panel in shared
-// memory so each byte loaded from L2/HBM feeds B ray tests, reads it
-// there with broadcast loads (all lanes read the same word), and keeps
-// per-lane state in registers.
+// kWarps = 16 (ops/sweep.py's SWEEP_WARPS mirrors it).
+// scripts/sweep_warps.py builds copies of this file at 4, 8 and 16 and
+// times them on the 1M-triangle frames' chunks; 16 was the fastest on an
+// H100 (PERF.md). The block is B = 32 rays, so a CTA has 512 threads; at
+// 16 warps ptxas gives 72-96 registers a thread, so registers, not the
+// 32-64 KB of shared memory, hold an SM to one CTA. A block of 64 rays
+// (1024 threads) would need more registers than an SM has: launch()
+// refuses any B but 32.
+//
+// What bounds it on this card: the busiest block's serial steps. The
+// work is FP32 ALU tests on the dense (ray x triangle) pairs -- about 40
+// FP32 operations per pair (some 90 when certified), every ray against
+// every triangle of every super its block enters -- but a launch lasts as
+// long as its longest walk, and a block's steps run one after another
+// (stage the panel, test, merge), so the time of one step on one CTA is
+// what counts. A CTA of one warp took ~110 us a step: it walked 512
+// columns alone, with nothing to hide its shared-memory loads or its
+// divisions. Splitting the columns over kWarps groups divides that walk,
+// keeps several warps per scheduler, and leaves the panel in shared
+// memory, read with broadcast loads (all lanes of a warp read the same
+// word), so each byte loaded from L2/HBM feeds B ray tests.
 //
 // Rounding: built with --fmad=false, so every product and sum rounds
 // separately in the association order of the plain PyTorch version
@@ -73,6 +96,9 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int kWarps = 16;
+constexpr int kBlockRays = 32;
 
 enum PanelKind { kF32 = 0, kBF16 = 1, kHiLo = 2 };
 
@@ -131,6 +157,11 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+template <int KIND>
+__host__ __device__ constexpr int panel_bytes_per_col() {
+  return Panel<KIND>::kRows * Panel<KIND>::kElemBytes;
+}
+
 template <bool CERT, int KIND, bool STATS, bool PIPE>
 __global__ void sweep_kernel(const float *__restrict__ rays,
                              const int32_t *__restrict__ order,
@@ -139,14 +170,22 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
                              float *__restrict__ out_t,
                              int32_t *__restrict__ out_i,
                              int32_t *__restrict__ out_steps, int n_supers,
-                             int gl, int any_hit, float err_eps) {
+                             int gl, int block_rays, int any_hit,
+                             float err_eps) {
   using P = Panel<KIND>;
   extern __shared__ uint4 smem[];
-  const int n16 = P::kRows * gl * P::kElemBytes / 16;  // 16-byte chunks
+  const int n16 = gl * panel_bytes_per_col<KIND>() / 16;  // 16-byte chunks
+  // The merge scratch sits after the panel slot(s): [kWarps][B] t, then k.
+  float *sc_t = reinterpret_cast<float *>(smem + (PIPE ? 2 : 1) * n16);
+  int32_t *sc_k = reinterpret_cast<int32_t *>(sc_t + kWarps * block_rays);
 
   const int b = blockIdx.x;
-  const int n_lanes = gridDim.x * blockDim.x;
-  const int lane = b * blockDim.x + threadIdx.x;
+  const int w = threadIdx.x / block_rays;  // column group (whole warps)
+  const int r = threadIdx.x - w * block_rays;
+  const int n_lanes = gridDim.x * block_rays;
+  const int lane = b * block_rays + r;
+  const int k0 = w * gl / kWarps;
+  const int k1 = (w + 1) * gl / kWarps;
 
   const float ox = rays[0 * n_lanes + lane];
   const float oy = rays[1 * n_lanes + lane];
@@ -169,16 +208,26 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
   const int32_t *ord = order + (int64_t)b * n_supers;
   const float *suf = suffix + (int64_t)b * n_supers;
 
-  // Copy super sid's panel into shared slot ``slot``.
+  // Copy super sid's panel into shared slot ``slot``, four 16-byte loads
+  // in flight per thread.
   auto stage = [&](int slot, int sid) {
     const uint4 *src = panel + (int64_t)sid * n16;
     uint4 *dst = smem + slot * n16;
+    const int nt = blockDim.x;
+    int j = threadIdx.x;
     if (PIPE) {
-      for (int j = threadIdx.x; j < n16; j += blockDim.x)
-        cp_async16(dst + j, src + j);
+      for (; j < n16; j += nt) cp_async16(dst + j, src + j);
       cp_async_commit();
     } else {
-      for (int j = threadIdx.x; j < n16; j += blockDim.x) dst[j] = src[j];
+      for (; j + 3 * nt < n16; j += 4 * nt) {
+        const uint4 a0 = src[j], a1 = src[j + nt], a2 = src[j + 2 * nt],
+                    a3 = src[j + 3 * nt];
+        dst[j] = a0;
+        dst[j + nt] = a1;
+        dst[j + 2 * nt] = a2;
+        dst[j + 3 * nt] = a3;
+      }
+      for (; j < n16; j += nt) dst[j] = src[j];
     }
   };
 
@@ -195,7 +244,7 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
       lane_limit = fminf(best_t, t_lim);
     }
     // Also the barrier that ends every thread's reads of the last panel
-    // (so its slot may be overwritten below).
+    // and of the merge scratch (so both may be overwritten below).
     if (!__syncthreads_or(suf[s] < lane_limit)) break;
 
     const int sid = ord[s];
@@ -215,7 +264,7 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
     const float limit = fminf(best_t, t_lim);
     float cur_t = CUDART_INF_F;
     int cur_k = -1;
-    for (int k = 0; k < gl; ++k) {
+    for (int k = k0; k < k1; ++k) {
 #define ROW(r) P::at(sp, gl, r, k)
       const float nx = ROW(0), ny = ROW(1), nz = ROW(2);
       const float e1x = ROW(3), e1y = ROW(4), e1z = ROW(5);
@@ -235,8 +284,7 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
       const float u = u_det * sign;
       const float v = v_det * sign;
       const float tn = t_det * sign;
-      bool ok;
-      float t;
+      bool inside;
       if (CERT) {
         const float err_det =
             err_eps * ((dax * fabsf(nx) + day * fabsf(ny)) + daz * fabsf(nz));
@@ -254,30 +302,45 @@ __global__ void sweep_kernel(const float *__restrict__ rays,
              fabsf(v0n));
         // torch.clamp_min(err_det, 1e-12): NaN stays NaN.
         const float floor_det = err_det < 1e-12f ? 1e-12f : err_det;
-        const bool live = adet > floor_det;
-        t = tn / (live ? adet : 1.0f);
-        ok = live && u >= -err_u && v >= -err_v &&
-             u + v <= ((adet + err_u) + err_v) + err_det && tn > -err_t &&
-             t < limit;
+        inside = adet > floor_det && u >= -err_u && v >= -err_v &&
+                 u + v <= ((adet + err_u) + err_v) + err_det && tn > -err_t;
       } else {
-        const bool live = adet > 1e-12f;
-        t = tn / (live ? adet : 1.0f);
-        ok = live && u >= 0.0f && v >= 0.0f && u + v <= adet && tn > 0.0f &&
-             t < limit;
+        inside = adet > 1e-12f && u >= 0.0f && v >= 0.0f && u + v <= adet &&
+                 tn > 0.0f;
       }
-      if (ok && t < cur_t) {
-        cur_t = t;
-        cur_k = k;
+      if (inside) {
+        const float t = tn / adet;
+        if (t < limit && t < cur_t) {
+          cur_t = t;
+          cur_k = k;
+        }
       }
     }
-    if (cur_t < best_t) {
-      best_t = cur_t;
-      best_i = sid * gl + cur_k;
+    sc_t[w * block_rays + r] = cur_t;
+    sc_k[w * block_rays + r] = cur_k;
+    __syncthreads();
+    // Least t over the groups; among equal t the lowest group (lower
+    // columns): strict '<' in group order.
+    float mt = sc_t[r];
+    int mk = sc_k[r];
+#pragma unroll
+    for (int g = 1; g < kWarps; ++g) {
+      const float tg = sc_t[g * block_rays + r];
+      if (tg < mt) {
+        mt = tg;
+        mk = sc_k[g * block_rays + r];
+      }
+    }
+    if (mt < best_t) {
+      best_t = mt;
+      best_i = sid * gl + mk;
     }
   }
   if (PIPE) cp_async_wait<0>();  // the prefetch past the last step
-  out_t[lane] = best_t;
-  out_i[lane] = best_i;
+  if (w == 0) {
+    out_t[lane] = best_t;
+    out_i[lane] = best_i;
+  }
   if (STATS && threadIdx.x == 0) out_steps[b] = s;
 }
 
@@ -297,17 +360,19 @@ struct Args {
 template <bool CERT, int KIND, bool STATS, bool PIPE>
 int launch(const Args &a) {
   auto fn = sweep_kernel<CERT, KIND, STATS, PIPE>;
-  const size_t smem = (PIPE ? 2 : 1) * (size_t)Panel<KIND>::kRows * a.gl *
-                      Panel<KIND>::kElemBytes;
+  if (a.block_rays != kBlockRays) return (int)cudaErrorInvalidValue;
+  const int threads = kBlockRays * kWarps;
+  const size_t smem =
+      (PIPE ? 2 : 1) * (size_t)a.gl * panel_bytes_per_col<KIND>() +
+      (size_t)kWarps * a.block_rays * (sizeof(float) + sizeof(int32_t));
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  sweep_kernel<CERT, KIND, STATS, PIPE><<<a.n_blocks, a.block_rays, smem,
-                                          a.stream>>>(
+  fn<<<a.n_blocks, threads, smem, a.stream>>>(
       a.rays, a.order, a.suffix, a.panel, a.out_t, a.out_i, a.out_steps,
-      a.n_supers, a.gl, a.any_hit, a.err_eps);
+      a.n_supers, a.gl, a.block_rays, a.any_hit, a.err_eps);
   return (int)cudaGetLastError();
 }
 
@@ -335,9 +400,9 @@ int launch_k(const Args &a, int kind, bool stats, bool pipe) {
 
 }  // namespace
 
-// Launches on ``stream``; returns cudaGetLastError() of the launch.
-// ``out_steps`` may be null (then no step counts are written).
-// panel_kind: 0 f32, 1 bf16, 2 hi/lo.
+// Launches on ``stream``; returns cudaGetLastError() of the launch, or
+// cudaErrorInvalidValue when block_rays is not 32. ``out_steps`` may be null
+// (then no step counts are written). panel_kind: 0 f32, 1 bf16, 2 hi/lo.
 extern "C" int sweep_launch(const float *rays, const int32_t *order,
                             const float *suffix, const void *panel,
                             float *out_t, int32_t *out_i, int32_t *out_steps,

@@ -7,15 +7,22 @@ import argparse
 import time
 
 
-def _main(doc, build_scene, build_camera, make_integrator, *, resolution,
-          spp, depth, output):
+def parser(doc, *, resolution, spp, depth, output) -> argparse.ArgumentParser:
+    """The scene scripts' arguments; ``--device`` is the card unless the
+    caller asks for the CPU (``--device cpu``)."""
     ap = argparse.ArgumentParser(description=doc)
     ap.add_argument("--resolution", type=int, default=resolution)
     ap.add_argument("--output", default=output)
     ap.add_argument("--spp", type=int, default=spp)
     ap.add_argument("--depth", type=int, default=depth)
-    ap.add_argument("--device", default="cpu")
-    a = ap.parse_args()
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+def _main(doc, build_scene, build_camera, make_integrator, *, resolution,
+          spp, depth, output):
+    a = parser(doc, resolution=resolution, spp=spp, depth=depth,
+               output=output).parse_args()
     from ..sampler.uniform import UniformSampler
 
     t0 = time.perf_counter()

@@ -3,7 +3,7 @@
 and a ceiling area light, for the MIS path tracer.
 
     python -m trace_tpu_torch.models.cornell --resolution 512 --spp 4 \
-        --depth 5 --device cuda
+        --depth 5
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ def _quad(b, verts, material, emission=None):
                     material, emission=emission)
 
 
-def build_scene(device="cpu", **build_kw) -> Scene:
+def build_scene(device="cuda", **build_kw) -> Scene:
     """``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
     b = SceneBuilder()
     white = b.material(MatteMaterial(Kd=(0.73, 0.73, 0.73)))

@@ -3,7 +3,7 @@ procedural heightfield of ~``target_tris`` triangles with a matte
 Oren-Nayar ground (sigma 20), one smooth glass sphere and a point light.
 
     python -m trace_tpu_torch.models.mesh_heavy --resolution 256 --spp 1 \
-        --depth 2 --device cuda
+        --depth 2
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ def heightfield(n: int):
     return verts, tris.astype(np.uint32)
 
 
-def build_scene(target_tris: int = 1_000_000, device="cpu",
+def build_scene(target_tris: int = 1_000_000, device="cuda",
                 **build_kw) -> Scene:
     """``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
     n = int(np.sqrt(target_tris / 2)) + 1

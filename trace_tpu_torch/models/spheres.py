@@ -3,7 +3,7 @@ trace_tpu/models/spheres.py): four spheres (glass, matte blue, mirror,
 matte red) over a mirror floor and a white back wall, one point light.
 
     python -m trace_tpu_torch.models.spheres --resolution 256 --spp 4 \
-        --depth 5 --device cuda
+        --depth 5
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from ..scene import Scene, SceneBuilder
 LEVEL_CAPS = (0.5, 0.25, 0.1875, 0.125)
 
 
-def build_scene(device="cpu", **build_kw) -> Scene:
+def build_scene(device="cuda", **build_kw) -> Scene:
     """``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
     b = SceneBuilder()
     red = b.material(MatteMaterial(Kd=(0.796, 0.235, 0.2), sigma=0.0))

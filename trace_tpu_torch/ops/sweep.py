@@ -7,8 +7,10 @@ of every super it visits with the matmul-factored Moller-Trumbore test;
 it stops once the suffix-min of the remaining entry distances passes
 every live lane's limit. The sweep itself is ``csrc/sweep.cu`` on CUDA
 tensors and :func:`sweep_plain` on CPU tensors; ``sweep`` picks by device
-and never falls back from one to the other. The prologue (entry
-distances, per-block order and suffix) and the ray sort stay PyTorch.
+and never falls back from one to the other. So does the prologue's
+block entry table (:func:`block_entry`: ``csrc/entry.cu`` or
+:func:`block_entry_plain`); the demand order, the suffix-min and the ray
+sort stay PyTorch.
 
 Options, as in the JAX package (all off by default):
 
@@ -43,6 +45,13 @@ INF = float("inf")
 # silhouettes.
 BF16_PANEL_ERR_EPS = 1.25 * 2.0 ** -9
 HILO_PANEL_ERR_EPS = 2.0 ** -17
+
+# The CUDA kernel's CTA: SWEEP_WARPS warps serve one block of
+# KERNEL_BLOCK_RAYS rays (csrc/sweep.cu's kWarps and kBlockRays). A larger
+# block would need more registers than an SM has, so the kernel serves
+# this block size only; the plain version takes any.
+SWEEP_WARPS = 16
+KERNEL_BLOCK_RAYS = 32
 
 
 def bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -319,9 +328,13 @@ class SweepKernel:
             (rays, F32, (10, nb * b)), (order, torch.int32, (nb, n_supers)),
             (suffix, F32, (nb, n_supers)),
             (panel, panel.dtype, (n_supers, panel.shape[1], gl))))
-        if dev.type != "cuda" or not 32 <= b <= 1024 or b % 32 or gl % 8:
-            raise ValueError("sweep kernel: CUDA tensors, 32 <= block_rays "
-                             "<= 1024 (a multiple of 32), GL % 8 == 0")
+        if dev.type != "cuda" or gl % 8:
+            raise ValueError("sweep kernel: CUDA tensors, GL % 8 == 0")
+        if b != KERNEL_BLOCK_RAYS:
+            raise ValueError(
+                f"sweep kernel: block_rays {b}; the kernel serves blocks of "
+                f"{KERNEL_BLOCK_RAYS} rays ({SWEEP_WARPS} warps a block, "
+                f"more would not fit an SM's registers)")
         launch = self.lib.load()
         best_t = torch.empty(nb * b, dtype=F32, device=dev)
         best_i = torch.empty(nb * b, dtype=torch.int32, device=dev)
@@ -365,6 +378,73 @@ def sweep(rays, order, suffix, panel, block_rays: int, any_hit: bool,
 
 
 # ---------------------------------------------------------------------------
+# The prologue's block entry table: plain PyTorch version and CUDA kernel.
+# ---------------------------------------------------------------------------
+
+
+def block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+    """Least slab entry distance over each block's rays, per super: f32
+    [NB, S], +inf where no live ray of the block enters the box.
+
+    s_lo, s_hi [S, 3]; o_p, d_p [NB*B, 3]; t_p [NB*B] (t_lim; < 0 dead).
+    Builds the [NB*B, S] table of :func:`entry_boxes` and reduces it."""
+    entry = entry_boxes(s_lo, s_hi, o_p, d_p, t_p.clamp_min(0.0))
+    entry = torch.where(t_p[:, None] < 0.0, INF, entry)
+    return entry.reshape(-1, int(block_rays), s_lo.shape[0]).amin(dim=1)
+
+
+class BlockEntryKernel:
+    """ctypes binding of csrc/entry.cu, built at the first launch: the
+    same function as :func:`block_entry_plain` on CUDA tensors, without
+    the [NB*B, S] table. ``launches`` counts kernel launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self.lib = CudaLibrary("entry", "entry_launch",
+                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                               + [ctypes.c_void_p])
+
+    def reset_counts(self) -> None:
+        self.launches = 0
+
+    def __call__(self, s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+        b = int(block_rays)
+        n, s = o_p.shape[0], s_lo.shape[0]
+        dev = o_p.device
+        check_tensors("block entry kernel", dev, (
+            (s_lo, F32, (s, 3)), (s_hi, F32, (s, 3)), (o_p, F32, (n, 3)),
+            (d_p, F32, (n, 3)), (t_p, F32, (n,))))
+        if dev.type != "cuda" or b < 1 or n % b:
+            raise ValueError("block entry kernel: CUDA tensors, rays a "
+                             "multiple of block_rays")
+        launch = self.lib.load()
+        out = torch.empty((n // b, s), dtype=F32, device=dev)
+        if n == 0 or s == 0:
+            return out
+        err = launch(s_lo.data_ptr(), s_hi.data_ptr(), o_p.data_ptr(),
+                     d_p.data_ptr(), t_p.data_ptr(), out.data_ptr(), n // b,
+                     b, s, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"block entry kernel launch failed: CUDA "
+                               f"error {err}")
+        self.launches += 1
+        return out
+
+
+block_entry_kernel = BlockEntryKernel()
+
+
+def block_entry(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+    """The block entry table: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if o_p.device.type == "cuda":
+        return block_entry_kernel(s_lo, s_hi, o_p, d_p, t_p, block_rays)
+    if o_p.device.type == "cpu":
+        return block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays)
+    raise ValueError(f"block_entry: unsupported device {o_p.device}")
+
+
+# ---------------------------------------------------------------------------
 # The accelerator around it
 # ---------------------------------------------------------------------------
 
@@ -373,8 +453,9 @@ class SweepAccelerator:
     """Triangle closest-hit / any-hit through the sweep. Tables are device
     tensors built once per scene.
 
-    ``block_rays``: rays per kernel block (one CTA). ``ray_chunk``: rays
-    per launch; the [chunk, S] entry table bounds its memory.
+    ``block_rays``: rays per kernel block (one CTA); the CUDA kernel
+    serves ``KERNEL_BLOCK_RAYS`` only, the plain version any size.
+    ``ray_chunk``: rays per launch.
     ``certified``, ``pipeline``, ``collect_stats``: the sweep's options
     (module docstring); with ``collect_stats`` every launch appends its
     per-block step counts [NB] to ``last_steps``."""
@@ -401,24 +482,24 @@ class SweepAccelerator:
         self.world_inv_extent = torch.from_numpy(
             (1.0 / np.maximum(hi - lo, 1e-12)).astype(np.float32)).to(dev)
 
-    def prologue(self, o, d, t_max):
-        """One chunk's kernel inputs: (rays [10, NB*B], order i32 [NB, S],
-        suffix [NB, S]). Padding lanes are dead (t_lim = -1); t_max = inf
-        becomes 3e38."""
-        b = self.block_rays
-        n = o.shape[0]
-        pad = (-n) % b
-        nb = (n + pad) // b
-        dev = o.device
+    def pad_rays(self, o, d, t_max):
+        """(o_p, d_p, t_p): the chunk padded to whole blocks. Padding lanes
+        are dead (t_lim = -1); t_max = inf becomes 3e38."""
+        pad = (-o.shape[0]) % self.block_rays
         o_p = torch.cat([o, o.new_zeros((pad, 3))])
         d_p = torch.cat([d, d.new_zeros((pad, 3))])
         t_p = torch.cat([torch.where(torch.isfinite(t_max), t_max, 3e38),
-                         torch.full((pad,), -1.0, dtype=F32, device=dev)])
+                         torch.full((pad,), -1.0, dtype=F32,
+                                    device=o.device)])
+        return o_p, d_p, t_p
+
+    def prologue(self, o, d, t_max):
+        """One chunk's kernel inputs: (rays [10, NB*B], order i32 [NB, S],
+        suffix [NB, S])."""
+        o_p, d_p, t_p = self.pad_rays(o, d, t_max)
         # Per-block demand order + suffix-min over super entry distances.
-        entry = entry_boxes(self.s_lo, self.s_hi, o_p, d_p, t_p.clamp_min(0.0))
-        entry = torch.where(t_p[:, None] < 0.0, INF, entry)
-        entry_b = entry.reshape(nb, b, self.tables.n_supers).amin(dim=1)
-        del entry
+        entry_b = block_entry(self.s_lo, self.s_hi, o_p, d_p, t_p,
+                              self.block_rays)
         order = torch.argsort(entry_b, dim=1, stable=True)
         entry_o = torch.gather(entry_b, 1, order)
         suffix = torch.flip(torch.cummin(torch.flip(entry_o, [1]), 1).values,

@@ -3,7 +3,7 @@ trace_tpu/scene.py).
 
 ``SceneBuilder.build(device)`` packs the spheres, triangles, lights and
 materials on the host and moves every table the render reads onto
-``device`` once. Above 64 triangles (the JAX package's ``use_bvh``
+``device`` once: the card unless the caller asks for the CPU. Above 64 triangles (the JAX package's ``use_bvh``
 threshold) it attaches the sparse sweep (ops/sweep.py): the CUDA kernel
 for a CUDA device, its plain PyTorch version on the CPU. Scenes of 1-64
 triangles intersect them by brute force over the [rays, triangles] grid
@@ -29,12 +29,12 @@ from .wavefront import lights as WL
 from .wavefront import materials as WM
 
 # Sweep geometry: leaf 64 x group 8 = 512 triangles per super (the JAX
-# package's kernel tuning). One CTA of 32 rays per block: on an H100
-# (700 W), one call, the kernel took 7.7 ms on a 1M-triangle frame's
-# 65536 camera rays at 32 rays a block, 9.8 at 64, 15.0 at 128 and 21.7
-# at 256 -- a smaller block enters fewer supers, which outweighs the
-# lower occupancy (32 KB of shared memory per CTA). Up to 65536 rays per
-# launch; the [chunk, supers] entry table is then ~0.7 GB at 1M triangles.
+# package's kernel tuning). 32 rays per block: on an H100 (700 W), one
+# call, the one-warp kernel took 7.7 ms on a 1M-triangle frame's 65536
+# camera rays at 32 rays a block, 9.8 at 64, 15.0 at 128 and 21.7 at 256
+# -- a smaller block enters fewer supers. The kernel now runs 16 warps
+# per 32 rays (csrc/sweep.cu) and serves that block only: a CTA of 64
+# rays would not fit an SM's registers. Up to 65536 rays per launch.
 LEAF_TRIS = 64
 GROUP = 8
 BLOCK_RAYS = 32
@@ -91,7 +91,7 @@ class SceneBuilder:
     def light(self, entry: dict) -> None:
         self._lights.append(entry)
 
-    def build(self, device="cpu", exact_shared_edges: bool = False
+    def build(self, device="cuda", exact_shared_edges: bool = False
               ) -> "Scene":
         if self._instanced:
             raise NotImplementedError("instanced geometry is not ported")
