@@ -60,11 +60,35 @@ Phases (each prints lines with its seconds; any failure raises):
         with kernel ms, plain ms, bound ms, steps, the busiest block's
         steps and the us per busiest-block step per launch, and the block
         entry kernel bit-equal and timed on every chunk; the frame timed.
+  6. slice 5, SPPM (details in chiprun_out/slice5.json):
+     a. goldens on the card: the 5k-triangle mesh_heavy at 32^2 through the
+        sweep (2 iterations, 16384 photons, depth 8, radius 1.0, seed 0)
+        against tests/goldens/sppm_mesh5k_32.npy, and shadows at 16^2 (2
+        iterations, 1024 photons, depth 4, radius 0.25, seed 1) against
+        sppm_shadows16.npy, MSE < 5e-4 each;
+     b. every sweep launch of one SPPM iteration on the 1M-triangle mesh
+        at 256^2 (65536 photons, depth 8, radius 0.3): camera closest-hit
+        and shadow any-hit, photon closest-hit, each against sweep_plain
+        (hits, ids, t within T_RTOL, the same steps), the block entry
+        kernel bit-equal on every chunk, each launch timed as in 5d;
+     c. the full-width run, bench config 3's settings on the 1M mesh:
+        1024^2, 262144 photons an iteration, depth 8, radius 0.075, seed 0;
+        one warm iteration and three timed, each with its phases' ms (CUDA
+        events: camera pass, grid, photon walk, pair pass, update, the
+        last with the counters' host reads), visible points, occupied
+        cells, pairs, splat records, sweep and block entry launches; peak
+        memory; the pair reduction's ms; the device-busy share of one more
+        iteration (torch.profiler); a finite image with photons gathered,
+        its PNG in TMPDIR;
+     d. the first 1024^2 iteration run twice gives the same bits; at 256^2,
+        two iterations straight give the same bits as one, a checkpoint
+        and one resumed.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
-bounds it), the card's name and power limit, and {"ok": true, "device":
-{...}}. Without a CUDA device, or outside a checkout of the repository,
-it exits non-zero and prints no result.
+bounds it; sweep and block_entry also with their launches in one
+full-width SPPM iteration), the card's name and power limit, and
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
 """
 import json
 import os
@@ -82,6 +106,10 @@ GOLDEN = os.path.join(REPO, "tests", "goldens", "mesh_heavy5k_32.npy")
 SHADOWS_GOLDEN = os.path.join(REPO, "tests", "goldens", "shadows16.npy")
 CORNELL_GOLDEN = os.path.join(REPO, "tests", "goldens",
                               "cornell48_planar.npy")
+SPPM_MESH_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                                "sppm_mesh5k_32.npy")
+SPPM_SHADOWS_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                                   "sppm_shadows16.npy")
 MSE_GATE = 5e-4
 # Kernel vs plain: built with --fmad=false in the plain version's
 # association order, so the two should agree bit for bit; the stated
@@ -503,6 +531,314 @@ def slice3(dev, card, scene, t_all):
     return out
 
 
+SPPM_PHASES = ("_camera_pass_all", "_build_grid", "_photon_walk_all",
+               "_pair_loop", "_update_pixels")
+
+
+def time_phases(integ, marks):
+    """Wrap the integrator's phase methods so each records a CUDA event in
+    ``marks`` when its work is issued; nothing else changes."""
+    import torch
+
+    for name in SPPM_PHASES:
+        fn = getattr(integ, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            out = _fn(*a, **k)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((_name.strip("_"), ev))
+            return out
+
+        setattr(integ, name, wrapped)
+
+
+def states_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, k), getattr(b, k))
+               for k in ("ld", "tau", "radius", "n", "phi", "m"))
+
+
+def slice5(dev, card, scene, t_all):
+    """Phase 6: SPPM (module docstring)."""
+    import torch
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.models import mesh_heavy, spheres
+    from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
+                                           sweep_plain)
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.utils.checkpoint import load_pytree
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 6a: goldens on the card --------------------------------------------
+    t0 = time.perf_counter()
+    for label, mod, res, path, kw in (
+            ("mesh5k", mesh_heavy, 32, SPPM_MESH_GOLDEN,
+             dict(initial_search_radius=1.0, max_depth=8, n_iterations=2,
+                  photons_per_iteration=16384, seed=0)),
+            ("shadows", spheres, 16, SPPM_SHADOWS_GOLDEN,
+             dict(initial_search_radius=0.25, max_depth=4, n_iterations=2,
+                  photons_per_iteration=1024, seed=1))):
+        sc = (mod.build_scene(5000, device=dev) if label == "mesh5k"
+              else mod.build_scene(device=dev))
+        integ = SPPMIntegrator(mod.build_camera(res, os.path.join(
+            tmp, f"chip_smoke_sppm_{label}.png")), device=dev, **kw)
+        sweep_kernel.reset_counts()
+        st = integ.render(sc)
+        img = integ.to_image(st, 2).cpu().numpy()
+        golden = np.load(path)
+        mse = float(np.mean((img - golden) ** 2))
+        log("6a", t0, f"golden sppm {label} {res}^2: MSE {mse:.3e} (gate "
+            f"{MSE_GATE}), max abs {float(np.abs(img - golden).max()):.4f}, "
+            f"pixels with tau > 0: {int((st.tau.sum(-1) > 0).sum())}, "
+            f"sweep launches {sweep_kernel.launches}")
+        if not (img.shape == golden.shape and np.isfinite(img).all()
+                and mse < MSE_GATE):
+            raise AssertionError(f"SPPM golden mismatch ({label}): MSE {mse}")
+        if (sweep_kernel.launches > 0) != (label == "mesh5k"):
+            raise AssertionError(f"{label}: sweep launches "
+                                 f"{sweep_kernel.launches}")
+        out[f"golden_{label}_mse"] = mse
+
+    # -- 6b: every sweep launch of one 256^2 iteration on the 1M mesh -------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    acc = scene.accel
+    kw256 = dict(initial_search_radius=0.3, max_depth=8,
+                 photons_per_iteration=65536, seed=0)
+    cam256 = mesh_heavy.build_camera(256, os.path.join(tmp, "chip_smoke_"
+                                                       "sppm_256.png"))
+    integ = SPPMIntegrator(cam256, n_iterations=1, device=dev, **kw256)
+    phase = ["camera"]
+    for name, label in (("_camera_pass_all", "camera"),
+                        ("_photon_walk_all", "photon")):
+        def tagged(*a, _fn=getattr(integ, name), _label=label, **k):
+            phase[0] = _label
+            return _fn(*a, **k)
+        setattr(integ, name, tagged)
+    calls, tags = [], []
+    traced = acc.intersect
+
+    def record(o, d, t_max, any_hit):
+        calls.append((o.clone(), d.clone(), t_max.clone(), any_hit))
+        tags.append(phase[0])
+        return traced(o, d, t_max, any_hit)
+
+    acc.intersect = record
+    try:
+        integ.render(scene)
+    finally:
+        del acc.intersect
+    labels, depth = [], {"camera": 0, "photon": 0}
+    for (*_, anyh), ph in zip(calls, tags):
+        if not anyh:
+            depth[ph] += 1
+        labels.append(f"{ph} {'shadow' if anyh else 'depth'} {depth[ph]}")
+    entry_tot, agree = {}, {}
+    chunks = sweep_chunks(acc, calls, entry_tot)
+    b = acc.block_rays
+    for (name, anyh, ch), label in zip(chunks, labels + ["camera_any_hit"]):
+        tot = {}
+        for args in ch:
+            kt, ki = sweep_kernel(*args, acc.panel, b, anyh)
+            st_, si, ks = sweep_kernel(*args, acc.panel, b, anyh,
+                                       collect_stats=True)
+            pt, pi, ps = sweep_plain(*args, acc.panel, b, anyh,
+                                     collect_stats=True)
+            torch.cuda.synchronize()
+            accumulate(tot, compare(kt, ki, pt, pi))
+            tot["steps_differ"] = tot.get("steps_differ", 0) + int(
+                (ks != ps).sum())
+            tot["stats_arm_differs"] = tot.get("stats_arm_differs", 0) + int(
+                not (torch.equal(st_, kt) and torch.equal(si, ki)))
+        agree[label] = tot
+        if disagrees(tot) or tot["steps_differ"] or tot["stats_arm_differs"]:
+            raise AssertionError(f"kernel disagrees with plain: {label} "
+                                 f"{tot}")
+    log("6b", t0, f"{len(calls)} sweep calls of one 256^2 SPPM iteration "
+        f"({', '.join(labels)}): every launch bit-equal to sweep_plain with "
+        f"the same steps; block entry vs plain: {entry_tot}")
+    if entry_tot["entry_mismatch"]:
+        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
+    if not any(t == "photon" for t in tags) or not any(
+            a for *_, a in calls):
+        raise AssertionError("the iteration did not trace photons and "
+                             "shadow rays through the sweep")
+    launches = time_launches("6b", t0, acc, calls, chunks, acc.panel, False,
+                             card, labels)
+    del chunks, calls
+    out["launches_256"] = launches
+    out["agreement_256"] = agree
+    out["entry_agreement_256"] = entry_tot
+
+    # -- 6c: the full-width run ----------------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    png = os.path.join(tmp, "chip_smoke_sppm_1024.png")
+    cam = mesh_heavy.build_camera(1024, png)
+    n_timed = 3
+    integ = SPPMIntegrator(cam, initial_search_radius=0.075, max_depth=8,
+                           n_iterations=1 + n_timed,
+                           photons_per_iteration=262144, seed=0, device=dev)
+    integ.check_scene(scene)
+    marks = []
+    time_phases(integ, marks)
+    captured = []
+    scatter = SP._scatter_add
+
+    def capture(dst, idx, val):
+        if not captured and dst.dtype == torch.float32:
+            captured.append((dst.clone(), idx.clone(), val.clone()))
+        return scatter(dst, idx, val)
+
+    SP._scatter_add = capture
+    pixels = integ._pixel_grid(dev)
+    key = U.key(integ.seed, dev)
+    cdf, pmf = integ.light_distribution(scene)
+    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                             dev)
+    iters = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for it in range(1, 2 + n_timed):
+            integ.stats = {}
+            marks.clear()
+            sweep_kernel.reset_counts()
+            block_entry_kernel.reset_counts()
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state = integ.step(scene, state, it, pixels, key, cdf, pmf)
+            z = torch.cuda.Event(enable_timing=True)
+            z.record()
+            torch.cuda.synchronize()
+            row = dict(iteration=it, ms=a.elapsed_time(z),
+                       sweep_launches=sweep_kernel.launches,
+                       entry_launches=block_entry_kernel.launches,
+                       **integ.stats)
+            prev = a
+            for name, ev in marks:
+                row[f"{name}_ms"] = prev.elapsed_time(ev)
+                prev = ev
+            iters.append(row)
+            if it == 1:
+                state1 = SP.SPPMState(*[x.clone() for x in (
+                    state.ld, state.tau, state.radius, state.n, state.phi,
+                    state.m)])
+            log("6c", t0, f"iteration {it}{' (warm)' if it == 1 else ''}: "
+                f"{row['ms']:.2f} ms; " + ", ".join(
+                    f"{n.strip('_')} {row[n.strip('_') + '_ms']:.2f}"
+                    for n in SPPM_PHASES) + f" ms; visible points "
+                f"{row['visible_points']}, occupied cells "
+                f"{row['grid_cells_occupied']}, pairs "
+                f"{row['photon_vp_pairs']}, splat records with candidates "
+                f"{row['splat_records']}, sweep launches "
+                f"{row['sweep_launches']}, block entry "
+                f"{row['entry_launches']}; card {card}")
+            if row["sweep_launches"] <= 0 or row["entry_launches"] \
+                    != row["sweep_launches"] \
+                    or sweep_kernel.arm_launches["f32"] \
+                    != row["sweep_launches"]:
+                raise AssertionError("the SPPM iteration did not run through "
+                                     "the sweep and the block entry kernel")
+    finally:
+        SP._scatter_add = scatter
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    timed = iters[1:]
+    img = integ.to_image(state, 1 + n_timed)
+    gathered = int((state.tau.sum(-1) > 0).sum())
+    finite = bool(torch.isfinite(img).all())
+    integ.save(state, 1 + n_timed)
+    log("6c", t0, f"1024^2, 262144 photons, depth 8, r0 0.075: timed "
+        f"iterations {[round(r['ms'], 2) for r in timed]} ms, mean "
+        f"{np.mean([r['ms'] for r in timed]):.2f} ms; peak memory "
+        f"{peak:.2f} GiB; pixels with tau > 0: {gathered}; finite {finite}; "
+        f"PNG {png}; card {card}")
+    if not finite or gathered <= 0:
+        raise AssertionError(f"bad SPPM image: finite {finite}, pixels with "
+                             f"tau > 0 {gathered}")
+
+    # The pair reduction alone: one pair chunk's scatter-add, the
+    # deterministic one against index_add_ (atomics).
+    dst, idx, val = captured[0]
+    red = dict(pairs=int(idx.shape[0]),
+               ms=cuda_ms(lambda: scatter(dst.clone(), idx, val), 5),
+               index_add_ms=cuda_ms(
+                   lambda: dst.clone().index_add_(0, idx, val), 5),
+               clone_ms=cuda_ms(lambda: dst.clone(), 5))
+    log("6c", t0, f"pair reduction, {red['pairs']} pairs into "
+        f"{dst.shape[0]} pixels: deterministic scatter {red['ms']:.3f} ms, "
+        f"index_add_ {red['index_add_ms']:.3f} ms (each with a "
+        f"{red['clone_ms']:.3f} ms copy)")
+    del captured, dst, idx, val
+
+    # Device-busy share of one more iteration.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name in SPPM_PHASES:
+        delattr(integ, name)
+    integ.stats = None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        integ.step(scene, state, 2 + n_timed, pixels, key, cdf, pmf)
+        z = torch.cuda.Event(enable_timing=True)
+        z.record()
+        torch.cuda.synchronize()
+    wall = a.elapsed_time(z)
+    ev = prof.key_averages()
+    on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    busy = dict(profiled_ms=wall, device_ms=dev_ms,
+                share=dev_ms / wall,
+                share_of_unprofiled=dev_ms / np.mean([r["ms"] for r in timed]),
+                kernels=int(sum(e.count for e in on_dev)),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+    log("6c", t0, f"profiled iteration {wall:.2f} ms, device busy "
+        f"{dev_ms:.2f} ms ({100 * busy['share']:.1f}%, "
+        f"{100 * busy['share_of_unprofiled']:.1f}% of the unprofiled mean) "
+        f"in {busy['kernels']} kernels; top {busy['top']}")
+    if dev_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+
+    # -- 6d: determinism and resume ------------------------------------------
+    t0 = time.perf_counter()
+    again = integ.step(scene, SP.initial_state(integ.n_pixels, 0.075, dev),
+                       1, pixels, key, cdf, pmf)
+    same = states_equal(again, state1)
+    del again, state1, state
+    torch.cuda.empty_cache()
+    integ2 = SPPMIntegrator(cam256, n_iterations=2, device=dev, **kw256)
+    full = integ2.render(scene)
+    ckpt = os.path.join(tmp, "chip_smoke_sppm_state.npz")
+    st1 = integ2.render(scene, n_iterations=1, checkpoint_path=ckpt)
+    resumed = integ2.render(scene, state=load_pytree(ckpt, st1),
+                            start_iteration=2)
+    resume_ok = states_equal(full, resumed)
+    log("6d", t0, f"1024^2 iteration 1 twice: same bits {same}; 256^2 two "
+        f"iterations straight vs 1 + checkpoint + 1 resumed: same bits "
+        f"{resume_ok} (pairs in iteration 2 > 0: "
+        f"{bool((full.tau.sum(-1) > 0).any())})")
+    if not (same and resume_ok):
+        raise AssertionError(f"SPPM not deterministic: rerun {same}, resume "
+                             f"{resume_ok}")
+    out.update(iterations=iters, peak_gib=peak, pixels_gathered=gathered,
+               reduction=red, busy=busy, rerun_same_bits=same,
+               resume_same_bits=resume_ok,
+               chunks=dict(pixel_chunk=integ.pixel_chunk,
+                           pair_chunk=integ.pair_chunk))
+    log(6, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -897,6 +1233,13 @@ def main() -> int:
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "slice3.json"), "w") as f:
         json.dump(dict(card=card, **s3), f, indent=1)
+
+    # -- 6: slice 5, SPPM ---------------------------------------------------
+    torch.cuda.empty_cache()
+    s5 = slice5(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice5.json"), "w") as f:
+        json.dump(dict(card=card, **s5), f, indent=1)
+    sppm_launches = s5["iterations"][1]
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch,
@@ -920,8 +1263,9 @@ def main() -> int:
     t32 = lambda k: timing[(k, 32)]
     cert = t32("certified")
     kernels = [
-        entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
-              max(r["max_abs_err"] for r in res.values()), t32("f32")),
+        dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
+                   max(r["max_abs_err"] for r in res.values()), t32("f32")),
+             sppm_launches=sppm_launches["sweep_launches"]),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -940,12 +1284,13 @@ def main() -> int:
         entry("sweep_pipelined", f"{JAX_SWEEP}:313",
               frames["exact_edges+pipeline"]["launches"], err("certified"),
               dict(t32("certified_pipelined"), plain_ms=cert["plain_ms"])),
-        entry("block_entry", f"{JAX_SWEEP}:527",
-              frames["default"]["entry_launches"],
-              max(entry_tot["max_abs_err"], e_entry["max_abs_err"]),
-              per_launch["default"][0], ms_key="entry_ms",
-              source="trace_tpu_torch/csrc/entry.cu",
-              plain_key="entry_plain_ms", bound_key="entry_bound"),
+        dict(entry("block_entry", f"{JAX_SWEEP}:527",
+                   frames["default"]["entry_launches"],
+                   max(entry_tot["max_abs_err"], e_entry["max_abs_err"]),
+                   per_launch["default"][0], ms_key="entry_ms",
+                   source="trace_tpu_torch/csrc/entry.cu",
+                   plain_key="entry_plain_ms", bound_key="entry_bound"),
+             sppm_launches=sppm_launches["entry_launches"]),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

@@ -19,7 +19,10 @@ MODULES = sorted(m.name for m in pkgutil.walk_packages([PKG_DIR],
 
 def test_every_module_is_listed():
     for name in ("accel.mxu", "ops.sweep", "ops.intersect",
-                 "wavefront.whitted"):
+                 "wavefront.whitted", "sampler.halton", "integrators.common",
+                 "integrators.sppm", "wavefront.sppm_camera",
+                 "wavefront.sppm_photon", "utils.checkpoint", "io.ply",
+                 "models.sphere", "models.caustic_glass"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -68,16 +71,23 @@ def test_package_imports_with_jax_blocked():
 def _default_devices():
     import inspect
 
-    from trace_tpu_torch.models import _run, cornell, mesh_heavy, spheres
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator, initial_state
+    from trace_tpu_torch.models import (_run, caustic_glass, cornell,
+                                        mesh_heavy, sphere, spheres)
     from trace_tpu_torch.scene import SceneBuilder
 
-    out = {f"{m.__name__}.build_scene": inspect.signature(
-        m.build_scene).parameters["device"].default
-        for m in (mesh_heavy, spheres, cornell)}
-    out["SceneBuilder.build"] = inspect.signature(
-        SceneBuilder.build).parameters["device"].default
+    dflt = lambda f: inspect.signature(f).parameters["device"].default
+    out = {f"{m.__name__}.build_scene": dflt(m.build_scene)
+           for m in (mesh_heavy, spheres, cornell, sphere, caustic_glass)}
+    out["models.sphere.render"] = dflt(sphere.render)
+    out["SceneBuilder.build"] = dflt(SceneBuilder.build)
+    out["SPPMIntegrator"] = dflt(SPPMIntegrator)
+    out["sppm.initial_state"] = dflt(initial_state)
     out["_run.parser --device"] = _run.parser(
         "", resolution=8, spp=1, depth=1, output="x.png").get_default("device")
+    out["_run.sppm_main --device"] = _run.sppm_parser(
+        "", resolution=8, iterations=1, depth=1,
+        output="x.png").get_default("device")
     return out
 
 

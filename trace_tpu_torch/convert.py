@@ -20,12 +20,16 @@ identical data. Keys (all numpy):
 - ``exact_edges`` (optional): the scene's exact_shared_edges switch;
 - ``fused_b`` (optional): ops/intersect_pallas.py::pack_tris' B; the scene
   then intersects through the fused brute-force accelerator.
+
+``sppm_state_from_numpy`` carries an SPPM state across the same way, so a
+run of the JAX package resumes in the port.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 from .lights import lights as light_mod
 from .materials import materials as M
@@ -76,6 +80,28 @@ def _lights(arrays, tris) -> light_mod.Lights:
         arrays["light_kind"], arrays["light_p"], arrays["light_i"], tris,
         **{f: arrays["light_" + f] for f in names
            if "light_" + f in arrays})
+
+
+def sppm_state_from_numpy(src, device):
+    """The JAX package's SPPMState -> the port's SPPMState on ``device``.
+    ``src`` is an object or dict holding the six fields (ld, tau, radius,
+    n, phi, m) as arrays, or the path of a checkpoint that
+    trace_tpu.utils.checkpoint.save_pytree wrote (leaves in field
+    order)."""
+    from .integrators.sppm import SPPMState
+
+    names = [f.name for f in dataclasses.fields(SPPMState)]
+    if isinstance(src, str):
+        with np.load(src) as data:
+            vals = [data[f"leaf_{i}"] for i in range(len(names))]
+    elif isinstance(src, dict):
+        vals = [src[k] for k in names]
+    else:
+        vals = [getattr(src, k) for k in names]
+    dtypes = {"m": np.int32}
+    return SPPMState(**{
+        k: torch.from_numpy(np.array(v, dtypes.get(k, np.float32))).to(
+            device) for k, v in zip(names, vals)})
 
 
 def scene_from_numpy(arrays: dict, device) -> Scene:

@@ -52,6 +52,26 @@ def compose_ref(t1: Transform, t2: Transform) -> Transform:
     )
 
 
+def dir_to_z(d) -> Transform:
+    """World-to-local frame that maps direction ``d`` onto +z (the spot
+    light aiming frame of the reference scenes); rows from the
+    coordinate_system branch, the inverse is the transpose."""
+    d = np.asarray(d, np.float32)
+    d = d / np.linalg.norm(d)
+    if abs(d[0]) > abs(d[1]):
+        du = np.array([-d[2], 0.0, d[0]], np.float32)
+        du /= np.sqrt(d[0] * d[0] + d[2] * d[2])
+    else:
+        du = np.array([0.0, d[2], -d[1]], np.float32)
+        du /= np.sqrt(d[1] * d[1] + d[2] * d[2])
+    dv = np.cross(d, du)
+    mat = np.eye(4, dtype=np.float32)
+    mat[0, :3] = du
+    mat[1, :3] = dv
+    mat[2, :3] = d
+    return Transform(mat, mat.T.copy())
+
+
 def translate(delta) -> Transform:
     d = np.asarray(delta, np.float32)
     mat = np.eye(4, dtype=np.float32)

@@ -187,6 +187,20 @@ def cosine_sample_hemisphere(u1, u2) -> V3:
     return V3(dx, dy, z)
 
 
+def uniform_sample_sphere(u1, u2) -> V3:
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt((1.0 - z * z).clamp_min(0.0))
+    phi = 2.0 * PI * u2
+    return V3(r * torch.cos(phi), r * torch.sin(phi), z)
+
+
+def uniform_sample_cone(u1, u2, cos_t_max) -> V3:
+    cos_t = 1.0 - u1 + u1 * cos_t_max
+    sin_t = torch.sqrt((1.0 - cos_t * cos_t).clamp_min(0.0))
+    phi = u2 * 2.0 * PI
+    return V3(torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t)
+
+
 # Shading-frame trig on local-frame vectors (normal = +z).
 
 def cos_theta(w: V3):

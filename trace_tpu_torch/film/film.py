@@ -130,6 +130,13 @@ class Film:
 
         return FilmState(torch.stack([acc_x, acc_y, acc_z], dim=-1), acc_w)
 
+    def set_image(self, rgb_image: torch.Tensor) -> FilmState:
+        """A film holding a whole RGB image [H, W, 3] at unit weight (the
+        SPPM path)."""
+        return FilmState(spec.rgb_to_xyz(rgb_image),
+                         torch.ones((self.height, self.width), dtype=F32,
+                                    device=rgb_image.device))
+
     def to_image(self, state: FilmState):
         """Weight-normalized, clamped RGB [H, W, 3] (not flipped)."""
         rgb = spec.xyz_to_rgb(state.xyz)

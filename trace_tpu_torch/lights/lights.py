@@ -160,3 +160,25 @@ def preprocess(lights: Lights, world_center, world_radius) -> Lights:
 
 def num_lights(lights: Lights) -> int:
     return lights.kind.shape[0]
+
+
+def power(lights: Lights) -> np.ndarray:
+    """Per-light total power [L, 3], float32 on the host, in the JAX
+    twin's operation order (point 4 pi I; spot I 2 pi (1 - (cfs + ctw) /
+    2); distant pi r^2 I over the scene's bounding disk; area L A pi,
+    twice that if two-sided)."""
+    pi = np.float32(3.1415926535897932)
+    i = lights.i.astype(np.float32)
+    p_point = 4.0 * pi * i
+    p_spot = i * (2.0 * pi * (1.0 - 0.5 * (lights.cos_falloff_start
+                                            + lights.cos_total_width))
+                  )[..., None]
+    wr = np.float32(lights.world_radius)
+    p_dist = i * (pi * (wr * wr))
+    p_area = i * (lights.total_area * pi
+                  * np.where(lights.two_sided, np.float32(2.0),
+                             np.float32(1.0)))[..., None]
+    out = np.where((lights.kind == SPOT)[:, None], p_spot, p_point)
+    out = np.where((lights.kind == DISTANT)[:, None], p_dist, out)
+    return np.where((lights.kind == AREA)[:, None], p_area,
+                    out).astype(np.float32)

@@ -93,6 +93,74 @@ def sample_li_static(scene, j: int, p_ref: V3, u0, u1):
     raise NotImplementedError(f"light kind {kind} is not ported")
 
 
+def sample_le_static(scene, j: int, u0x, u0y, u1x, u1y, time):
+    """Photon emission from static light ``j`` -> (le V3, o V3, d V3,
+    n_light V3, pdf_pos [N], pdf_dir [N]). ``time`` is unused (static
+    lights)."""
+    lights = scene.lights
+    kind = kind_of(scene, j)
+    n = u0x.shape[0]
+    dev = u0x.device
+    i_v = _full3(n, lights.i[j], dev)
+    ones = torch.ones((n,), dtype=F32, device=dev)
+
+    if kind == L.POINT:
+        d = V.uniform_sample_sphere(u0x, u0y)
+        o = _full3(n, lights.p[j], dev)
+        pdf_dir = ones * float(np.float32(1.0 / (4.0 * np.pi)))
+        return i_v, o, d, d, ones, pdf_dir
+
+    if kind == L.SPOT:
+        ctw = np.float32(lights.cos_total_width[j])
+        cfs = np.float32(lights.cos_falloff_start[j])
+        d_cone = V.uniform_sample_cone(u0x, u0y, float(ctw))
+        l2w = lights.l2w[j]
+        r = [[float(l2w[a, c]) for c in range(3)] for a in range(3)]
+        d = V.mat3_apply(r, d_cone).normalize()
+        o = _full3(n, lights.p[j], dev)
+        le = i_v * _spot_falloff(lights.w2l[j], ctw, cfs, d)
+        pdf = np.float32(1.0) / (np.float32(2.0) * np.float32(np.pi)
+                                 * (np.float32(1.0) - ctw))
+        return le, o, d, d, ones, torch.full((n,), float(pdf), dtype=F32,
+                                             device=dev)
+
+    if kind == L.DISTANT:
+        dv = _full3(n, lights.direction[j], dev)
+        wr = float(np.float32(lights.world_radius))
+        _, v1, v2 = V.coordinate_system(dv)
+        cdx, cdy = V.concentric_sample_disk(u0x, u0y)
+        o = _full3(n, lights.world_center, dev) + (v1 * cdx + v2 * cdy) * wr \
+            + dv * wr
+        pi = np.float32(np.pi)
+        wr32 = np.float32(lights.world_radius)
+        pdf_pos = np.float32(1.0) / max(pi * wr32 * wr32, np.float32(1e-20))
+        return i_v, o, -dv, -dv, ones * float(pdf_pos), ones
+
+    if kind == L.AREA:
+        total_area = float(lights.total_area[j])
+        two = bool(lights.two_sided[j])
+        p_a, n_a = _sample_area_point_static(
+            scene, int(lights.tri_start[j]), int(lights.tri_count[j]),
+            u0x, u0y)
+        if two:
+            back = u1x < 0.5
+            u1x_r = torch.where(back, u1x * 2.0, (u1x - 0.5) * 2.0
+                                ).clamp_max(float(np.float32(1.0 - 1e-7)))
+        else:
+            back = torch.zeros((n,), dtype=torch.bool, device=dev)
+            u1x_r = u1x
+        w_local = V.cosine_sample_hemisphere(u1x_r, u1y)
+        wz = torch.where(back, -w_local.z, w_local.z)
+        _, t1, t2 = V.coordinate_system(n_a)
+        d = t1 * w_local.x + t2 * w_local.y + n_a * wz
+        pdf_pos = ones * float(np.float32(1.0 / max(total_area, 1e-20)))
+        pdf_dir = wz.abs() * float(np.float32(1.0 / np.pi)) * (
+            0.5 if two else 1.0)
+        return i_v, p_a, d, n_a, pdf_pos, pdf_dir
+
+    raise NotImplementedError(f"light kind {kind} is not ported")
+
+
 def area_cdf(tris, tri_start: int, tri_count: int) -> np.ndarray:
     """Host float32 area CDF over one light's triangle window."""
     areas = L.triangle_areas(tris)[tri_start:tri_start + tri_count]

@@ -61,6 +61,10 @@ def material_slots(mat: M.Material) -> int:
     return 2 if isinstance(mat, (M.GlassMaterial, M.PlasticMaterial)) else 1
 
 
+def scene_slot_count(materials) -> int:
+    return max((material_slots(m) for m in materials), default=1)
+
+
 def _is_zero(tex) -> bool:
     return bool(np.all(np.asarray(tex.value) == 0))
 
@@ -69,7 +73,7 @@ def lobe_kinds(materials, allow_multiple_lobes=False) -> tuple:
     """Per slot, the lobe and Fresnel kinds compute_scattering can write
     for these materials (S.SlotKinds). A superset: a parameter is read only
     where it is exactly zero (a matte sigma, a glass roughness)."""
-    n_slots = max((material_slots(m) for m in materials), default=1)
+    n_slots = scene_slot_count(materials)
     lobes = [{S.NONE} for _ in range(n_slots)]
     fresnels = [{S.FRESNEL_NOOP} for _ in range(n_slots)]
     for mat in materials:
@@ -109,7 +113,7 @@ def compute_scattering(materials, hit: HitP, allow_multiple_lobes=False,
     """Lobes for every lane. ``allow_multiple_lobes``: smooth glass is one
     Fresnel-specular slot (the path tracer) instead of separate
     reflection and transmission slots (Whitted's two branches)."""
-    n_slots = max((material_slots(m) for m in materials), default=1)
+    n_slots = scene_slot_count(materials)
     lo = S.from_hit(hit, n_slots)
     slots = lo.slots
     eta = lo.eta
