@@ -5,23 +5,25 @@
 
 Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep, block entry and intersect kernels (one nvcc each,
+  1. build: the sweep, prologue and intersect kernels (one nvcc each,
      in parallel, sm_90a) with ptxas's registers and spills per kernel
      arm, the sweep's warps per CTA, and the SAH builder (g++);
   2. kernel vs plain, on the main paths' own launches:
      a. the 1M-triangle mesh_heavy scene: every sweep launch of one 256^2
         depth-2 frame (camera, shadow and specular rays, in the frame's
-        own 65536-ray chunks), plus the camera rays as any-hit; and the
-        block entry kernel against its plain version on every chunk
-        (bit-equal);
+        own 65536-ray chunks that hold a live lane), plus the camera rays
+        as any-hit; the prologue kernel's (order, suffix) against its plain
+        version on every launched chunk (bit-equal), and every skipped
+        chunk checked to hold no live lane;
      b. the same scene with exact_shared_edges=True: every sweep launch of
         its frame, through the certified kernel and the bf16, hi/lo,
         certified-bf16 and certified-hi/lo arms, each against its plain
         version, with step counts; the double-buffered kernel against the
         single-buffered one; certified hit masks against the plain f32 ones;
-        the block entry kernel on every chunk, bit-equal;
+        the prologue kernel on every launched chunk, bit-equal;
      c. the fused brute-force kernel against its plain version on every
-        launch of the 5k-triangle scene's 256^2 frame;
+        launch of the 5k-triangle scene's 256^2 frame (bit-equal), timed
+        on the camera rays;
   3. correctness of the images and of the edges:
      a. 65536 rays aimed at points on the shared quad diagonals of the 1M
         heightfield: misses with exact edges off and on (on: must be 0);
@@ -35,12 +37,14 @@ Phases (each prints lines with its seconds; any failure raises):
      (bf16 and hi/lo panels, with and without exact edges; the
      double-buffered copy; step counts) and the fused accelerator on the
      5k-triangle scene, each driven as its own frame with the launch
-     counts set to 0 before it and read after it (the block entry kernel
-     must launch once per sweep launch); then every sweep launch of the
-     default and exact-edge frames: kernel ms, plain ms, bound ms and its
-     share, steps, the busiest block's steps and the us per busiest-block
-     step, and the block entry kernel's ms against its plain version (the
-     old [N, S] prologue) and its bound; then the camera chunk's kernel
+     counts set to 0 before it and read after it (the prologue kernel
+     must launch once per sweep launch; chunks skipped are counted); then
+     every sweep launch of the default and exact-edge frames: kernel ms,
+     plain ms, bound ms and its share, steps, the busiest block's steps
+     and the us per busiest-block step, and the prologue kernel's ms
+     against the torch route's (the entry table kernel, torch.argsort and
+     a reverse cummin), the plain version's and its bound; the same on
+     the camera chunk with every lane dead; then the camera chunk's kernel
      time per arm (block of 32 rays) against the plain version, with
      steps, bound and panel GB/s per launch; a block of 64 rays must be
      refused (ValueError: the kernel serves 32-ray blocks only);
@@ -58,8 +62,9 @@ Phases (each prints lines with its seconds; any failure raises):
         3): every sweep launch of one frame (camera, diffuse bounces and
         shadow rays, in the frame's own chunks) against the plain version,
         with kernel ms, plain ms, bound ms, steps, the busiest block's
-        steps and the us per busiest-block step per launch, and the block
-        entry kernel bit-equal and timed on every chunk; the frame timed.
+        steps and the us per busiest-block step per launch, and the
+        prologue kernel bit-equal and timed on every launched chunk; the
+        frame timed.
   6. slice 5, SPPM (details in chiprun_out/slice5.json):
      a. goldens on the card: the 5k-triangle mesh_heavy at 32^2 through the
         sweep (2 iterations, 16384 photons, depth 8, radius 1.0, seed 0)
@@ -69,24 +74,33 @@ Phases (each prints lines with its seconds; any failure raises):
      b. every sweep launch of one SPPM iteration on the 1M-triangle mesh
         at 256^2 (65536 photons, depth 8, radius 0.3): camera closest-hit
         and shadow any-hit, photon closest-hit, each against sweep_plain
-        (hits, ids, t within T_RTOL, the same steps), the block entry
-        kernel bit-equal on every chunk, each launch timed as in 5d;
+        (hits, ids, t within T_RTOL, the same steps), the prologue kernel
+        bit-equal on every launched chunk, each launch timed as in 5d; and
+        the prologue kernel on the mesh packed at group 1 (one cluster a
+        super) on the photon depth-1 chunk, at its shared-memory key
+        capacity and at half the median row's finite entries (rows with
+        more sort in the global workspace), bit-equal to the plain version
+        and timed;
      c. the full-width run, bench config 3's settings on the 1M mesh:
         1024^2, 262144 photons an iteration, depth 8, radius 0.075, seed 0;
         one warm iteration and three timed, each with its phases' ms (CUDA
         events: camera pass, grid, photon walk, pair pass, update, the
         last with the counters' host reads), visible points, occupied
-        cells, pairs, splat records, sweep and block entry launches; peak
+        cells, pairs, splat records, sweep and prologue launches, chunks
+        skipped; peak
         memory; the pair reduction's ms; the device-busy share of one more
-        iteration (torch.profiler); a finite image with photons gathered,
+        iteration (torch.profiler), with the prologue kernel's and the
+        sweep's device time; a finite image with photons gathered,
         its PNG in TMPDIR;
      d. the first 1024^2 iteration run twice gives the same bits; at 256^2,
         two iterations straight give the same bits as one, a checkpoint
         and one resumed.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
-bounds it; sweep and block_entry also with their launches in one
-full-width SPPM iteration), the card's name and power limit, and
+bounds it, and the library call's ms: for the prologue, the torch
+route's; sweep and prologue also with their launches in one full-width
+SPPM iteration, the prologue with the chunks skipped there), the card's
+name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -117,12 +131,16 @@ MSE_GATE = 5e-4
 T_RTOL = 1e-6
 SWEEP_SRC = "trace_tpu_torch/csrc/sweep.cu"
 JAX_SWEEP = "trace_tpu/ops/sweep_pallas.py"
-# Bounds (H100 SXM peaks): FP32 outside the tensor cores, and HBM.
-PEAK_F32 = 67e12
+# Bounds (H100 SXM): HBM, and FP32 instructions outside the tensor cores.
+# Every kernel is built with --fmad=false (ops/nvcc.py) to match its plain
+# version bit for bit, so each multiply and each add is an instruction of
+# its own: the rate is 132 SMs x 128 FP32 lanes x 1.98 GHz = 33.5e12
+# instructions/s, not the 67e12 "FLOP/s" that counts an FMA as two.
+PEAK_F32 = 132 * 128 * 1.98e9
 PEAK_HBM = 3.35e12
 # FP32 operations per (ray, triangle) pair of the sweep (plain, certified;
-# csrc/sweep.cu's note) and of the fused kernel, and per (ray, box) pair
-# of the block entry kernel (csrc/entry.cu's note).
+# csrc/sweep.cu's note) and of the fused kernel, and per (live ray, box)
+# pair of the prologue kernel (csrc/entry.cu's note).
 SWEEP_OPS = {False: 40, True: 90}
 INTERSECT_OPS = 40
 ENTRY_OPS = 30
@@ -197,35 +215,58 @@ def sweep_bound(args, per_block, panel, block_rays, certified):
     return bound(ops, nbytes)
 
 
-def entry_bound(t_p, n_supers, block_rays):
-    """The block entry kernel's bound: the live rays' box tests, and the
-    bytes of the rays (o, d, t_lim), the boxes and the [NB, S] output."""
-    n = t_p.numel()
-    ops = int((t_p >= 0).sum()) * n_supers * ENTRY_OPS
-    return bound(ops, n * 28 + n_supers * 24 + n // block_rays * n_supers * 4)
+def prologue_bound(t_p, suffix, block_rays):
+    """The prologue kernel's bound: the live rays' box tests plus ~log2(k)^2
+    compare-exchanges for each of a row's k finite entries (one operation
+    each), or the bytes of the rays (o, d, t_lim), the boxes and the two
+    [NB, S] outputs, whichever is larger."""
+    import torch
+
+    n, (nb, s) = t_p.numel(), suffix.shape
+    k = torch.isfinite(suffix).sum(dim=1).double()
+    sort = float((k * torch.log2(k.clamp_min(1.0)).ceil() ** 2).sum())
+    ops = int((t_p >= 0).sum()) * s * ENTRY_OPS + sort
+    return bound(ops, n * 28 + s * 24 + nb * s * 8)
 
 
-def check_entry(acc, o, d, tm, tot, timed=None):
-    """The block entry kernel against its plain version on one chunk:
-    mismatching entries added to ``tot``; with ``timed`` (a dict), also
-    the kernel's and the plain version's ms and the bound."""
+def check_prologue(acc, o, d, tm, tot, timed=None, **kw):
+    """The prologue kernel against its plain version on one chunk: order
+    and suffix bit for bit, mismatches added to ``tot`` (``kw`` goes to the
+    kernel: ``key_capacity``); with ``timed`` (a dict), also the kernel's
+    ms, the torch route's (the entry table kernel, torch.argsort and a
+    reverse cummin, the route the prologue kernel replaced), the plain
+    version's and the bound.
+    Returns the plain (order, suffix)."""
     import torch
     from trace_tpu_torch.ops.sweep import (block_entry_kernel,
-                                           block_entry_plain)
+                                           prologue_plain, prologue_torch)
 
     a = (acc.s_lo, acc.s_hi, *acc.pad_rays(o, d, tm), acc.block_rays)
-    k, p = block_entry_kernel(*a), block_entry_plain(*a)
+    ko, ks = block_entry_kernel(*a, **kw)
+    po, ps = prologue_plain(*a)
     torch.cuda.synchronize()
-    tot["entry_chunks"] = tot.get("entry_chunks", 0) + 1
-    tot["entry_mismatch"] = tot.get("entry_mismatch", 0) + int((k != p).sum())
-    both = torch.isfinite(k) & torch.isfinite(p)
+    tot["prologue_chunks"] = tot.get("prologue_chunks", 0) + 1
+    tot["order_mismatch"] = tot.get("order_mismatch", 0) + int(
+        (ko != po).sum())
+    tot["suffix_bits_mismatch"] = tot.get("suffix_bits_mismatch", 0) + int(
+        (ks.view(torch.int32) != ps.view(torch.int32)).sum())
+    fin = torch.isfinite(ps)
     tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), float(
-        (k - p)[both].abs().max()) if bool(both.any()) else 0.0)
+        (ks - ps)[fin].abs().max()) if bool(fin.any()) else 0.0)
+    tot["max_finite_in_row"] = max(tot.get("max_finite_in_row", 0),
+                                   int(fin.sum(dim=1).max()))
     if timed is not None:
-        timed["entry_ms"] = cuda_ms(lambda: block_entry_kernel(*a), 5)
-        timed["entry_plain_ms"] = cuda_ms(lambda: block_entry_plain(*a), 1)
-        timed["entry_bound_ms"], timed["entry_bound_by"] = entry_bound(
-            a[4], acc.tables.n_supers, acc.block_rays)
+        timed["prologue_ms"] = cuda_ms(lambda: block_entry_kernel(*a, **kw), 5)
+        timed["prologue_torch_ms"] = cuda_ms(lambda: prologue_torch(*a), 5)
+        timed["prologue_plain_ms"] = cuda_ms(lambda: prologue_plain(*a), 1)
+        timed["prologue_bound_ms"], timed["prologue_bound_by"] = \
+            prologue_bound(a[4], ps, acc.block_rays)
+    return po, ps
+
+
+def prologue_disagrees(tot) -> bool:
+    return bool(tot["order_mismatch"] or tot["suffix_bits_mismatch"]
+                or tot.get("skipped_live", 0))
 
 
 def accumulate(tot, cmp):
@@ -235,8 +276,8 @@ def accumulate(tot, cmp):
 
 
 def disagrees(tot) -> bool:
-    return bool(tot["hit_mismatch"] or tot["t_beyond_tol"]
-                or tot["id_mismatch_untied_t"])
+    return bool(tot.get("hit_mismatch") or tot.get("t_beyond_tol")
+                or tot.get("id_mismatch_untied_t"))
 
 
 def ptxas_summary(logtext: str) -> list:
@@ -255,8 +296,10 @@ def ptxas_summary(logtext: str) -> list:
                                 p == "1", s == "1")
             elif "intersect_kernel" in name:
                 name = "intersect"
+            elif "prologue_kernel" in name:
+                name = "prologue"
             elif "entry_kernel" in name:
-                name = "block_entry"
+                name = "block_entry_table"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -286,11 +329,14 @@ def record_calls(integ, scene):
     return calls
 
 
-def sweep_chunks(acc, calls, entry_tot):
-    """[(case name, [kernel args of each chunk, as the accelerator launches
-    them])] for the recorded calls, plus the camera rays as any-hit. The
-    block entry kernel is held against its plain version on every chunk
-    (mismatches added to ``entry_tot``)."""
+def sweep_chunks(acc, calls, pro_tot):
+    """[(case name, any_hit, [(chunk start, kernel args) of each chunk the
+    accelerator launches])] for the recorded calls, plus the camera rays as
+    any-hit. The prologue kernel is held against its plain version on every
+    launched chunk, and every chunk the accelerator skips must hold no lane
+    the kernels treat as live (mismatches and skips added to ``pro_tot``)."""
+    import torch
+
     cases = [(f"call{i}_{'any_hit' if a else 'closest'}", o, d, tm, a)
              for i, (o, d, tm, a) in enumerate(calls)]
     # The camera rays once more as any-hit: nearly every lane is occluded,
@@ -302,20 +348,31 @@ def sweep_chunks(acc, calls, entry_tot):
         perm = acc.coherence_order(o, d, tm)
         o, d, tm = o[perm], d[perm], tm[perm]
         n, c = o.shape[0], acc.ray_chunk
+        live = acc.live_chunks(tm)
         chunks = []
         for s in range(0, n, c):
-            check_entry(acc, o[s:s + c], d[s:s + c], tm[s:s + c], entry_tot)
-            chunks.append(acc.prologue(o[s:s + c], d[s:s + c], tm[s:s + c]))
+            if s not in live:
+                pro_tot["skipped"] = pro_tot.get("skipped", 0) + 1
+                pro_tot["skipped_live"] = pro_tot.get("skipped_live", 0) + \
+                    int((acc.pad_rays(o[s:s + c], d[s:s + c],
+                                      tm[s:s + c])[2] >= 0).sum())
+                continue
+            check_prologue(acc, o[s:s + c], d[s:s + c], tm[s:s + c],
+                           pro_tot)
+            chunks.append((s, acc.prologue(o[s:s + c], d[s:s + c],
+                                           tm[s:s + c])))
+        torch.cuda.synchronize()
         out.append((name, anyh, chunks))
     return out
 
 
 def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
                   labels):
-    """Every sweep launch of one frame (the recorded calls' chunks): kernel
-    ms, plain ms, bound, steps, the busiest block's steps and the us per
-    busiest-block step, and the block entry kernel's ms against its plain
-    version. ``labels`` names each call's launches. Returns the rows."""
+    """Every sweep launch of one frame (the recorded calls' launched
+    chunks): kernel ms, plain ms, bound, steps, the busiest block's steps
+    and the us per busiest-block step, and the prologue kernel's ms
+    against the torch route's and the plain version's, and its bound.
+    ``labels`` names each call's launches. Returns the rows."""
     from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
 
     rows = []
@@ -325,8 +382,8 @@ def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
         o, d, tm, _ = calls[i]
         perm = acc.coherence_order(o, d, tm)
         o, d, tm = o[perm], d[perm], tm[perm]
-        for c, args in enumerate(ch):
-            sl = slice(c * acc.ray_chunk, (c + 1) * acc.ray_chunk)
+        for c, (start, args) in enumerate(ch):
+            sl = slice(start, start + acc.ray_chunk)
             opt = dict(certified=certified)
             per_block = sweep_kernel(*args, panel, b, anyh, collect_stats=True,
                                      **opt)[2]
@@ -342,7 +399,7 @@ def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
                        max_block_steps=int(per_block.max()))
             row["us_per_busiest_step"] = 1e3 * k_ms / max(
                 row["max_block_steps"], 1)
-            check_entry(acc, o[sl], d[sl], tm[sl], {}, row)
+            check_prologue(acc, o[sl], d[sl], tm[sl], {}, row)
             rows.append(row)
             log(phase, t0, f"{name} chunk {c}: {row['lanes']} lanes "
                 f"({row['live']} live), kernel {k_ms:.3f} ms, plain "
@@ -350,10 +407,11 @@ def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
                 f"{100 * b_ms / k_ms:.2f}% of it), steps {row['steps']}, "
                 f"busiest block {row['max_block_steps']} steps, "
                 f"{row['us_per_busiest_step']:.2f} us a busiest-block step; "
-                f"block entry {row['entry_ms']:.3f} ms vs plain "
-                f"{row['entry_plain_ms']:.3f} ms, bound "
-                f"{row['entry_bound_ms']:.4f} ms ({row['entry_bound_by']}); "
-                f"card {card}")
+                f"prologue kernel {row['prologue_ms']:.3f} ms vs torch route "
+                f"{row['prologue_torch_ms']:.3f} ms, plain "
+                f"{row['prologue_plain_ms']:.3f} ms, bound "
+                f"{row['prologue_bound_ms']:.4f} ms "
+                f"({row['prologue_bound_by']}); card {card}")
     return rows
 
 
@@ -419,6 +477,8 @@ def slice3(dev, card, scene, t_all):
         torch.cuda.reset_peak_memory_stats()
         sweep_kernel.reset_counts()
         block_entry_kernel.reset_counts()
+        if sc.accel is not None:
+            sc.accel.skipped_chunks = 0
         times, state = timed_frames(integ, sc)
         ms = float(np.mean(times))
         img = image(integ, state)
@@ -429,11 +489,14 @@ def slice3(dev, card, scene, t_all):
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    launches=sweep_kernel.launches,
                    entry_launches=block_entry_kernel.launches,
+                   skipped_chunks=getattr(sc.accel, "skipped_chunks", 0),
                    nonzero=float((img > 0).any(-1).mean()))
         log(label, t0, f"frames {[round(x, 3) for x in times]} ms, mean "
             f"{ms:.2f} ms, workload {row['mrays']:.3f} Mrays/s, useful "
             f"{row['useful_mrays']:.3f} Mrays/s ({row['useful']} rays), "
             f"queue_drops {row['drops']}, sweep launches {row['launches']}, "
+            f"prologue launches {row['entry_launches']}, chunks skipped "
+            f"{row['skipped_chunks']}, "
             f"non-zero pixels {row['nonzero']:.3f}, peak mem "
             f"{row['peak_gib']:.2f} GiB; card {card}")
         if not np.isfinite(img).all() or row["nonzero"] < 0.05:
@@ -490,8 +553,8 @@ def slice3(dev, card, scene, t_all):
     calls = record_calls(path, scene)
     if len(calls) != 2 * depth:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
-    tot_all, entry_tot = {}, {}
-    chunks_1m = sweep_chunks(acc, calls, entry_tot)
+    tot_all, pro_tot = {}, {}
+    chunks_1m = sweep_chunks(acc, calls, pro_tot)
     labels = []
     for i, (name, anyh, chunks) in enumerate(chunks_1m):
         bounce = i // 2
@@ -499,7 +562,7 @@ def slice3(dev, card, scene, t_all):
                 else f"shadow {bounce}" if anyh
                 else "camera" if i == 0 else f"bounce {bounce}")
         labels.append(kind)
-        for c, args in enumerate(chunks):
+        for c, (_, args) in enumerate(chunks):
             kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
             pt, pi = sweep_plain(*args, acc.panel, acc.block_rays, anyh)
             torch.cuda.synchronize()
@@ -510,9 +573,9 @@ def slice3(dev, card, scene, t_all):
             if disagrees(cmp):
                 raise AssertionError(f"kernel disagrees with plain: {kind} "
                                      f"chunk {c}: {cmp}")
-    log("5d", t0, f"block entry kernel vs plain: {entry_tot}")
-    if entry_tot["entry_mismatch"]:
-        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
+    log("5d", t0, f"prologue kernel vs plain: {pro_tot}")
+    if prologue_disagrees(pro_tot):
+        raise AssertionError(f"prologue kernel disagrees: {pro_tot}")
     # A block's steps run one after another: the block with the most steps
     # bounds the launch.
     launches = time_launches("5d", t0, acc, calls, chunks_1m, acc.panel,
@@ -524,10 +587,73 @@ def slice3(dev, card, scene, t_all):
     if row["launches"] <= 0 or sweep_kernel.arm_launches["f32"] \
             != row["launches"] or row["entry_launches"] != row["launches"]:
         raise AssertionError("the path frame did not run through the sweep "
-                             "and the block entry kernel")
+                             "and the prologue kernel")
     out["path_1m"] = dict(row, per_launch=launches, agreement=tot_all,
-                          entry_agreement=entry_tot)
+                          prologue_agreement=pro_tot)
     log(5, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def workspace_case(dev, card, scene, acc, call):
+    """The prologue kernel's global-workspace sort on the 1M mesh packed at
+    group 1 (one cluster a super), on the first chunk of the photon depth-1
+    call: at the default key capacity and at half the median row's finite
+    entries, where most rows sort in the workspace; each bit-equal to the
+    plain version (computed 256 blocks at a time: the [N, S] table of a
+    whole chunk would not fit)."""
+    import torch
+    from trace_tpu_torch import scene as SC
+    from trace_tpu_torch.accel import clusters as TC
+    from trace_tpu_torch.ops import sweep as TS
+
+    t0 = time.perf_counter()
+    g1 = TS.SweepAccelerator(TS.SweepTables(TC.build_clusters(
+        scene.triangles, SC.LEAF_TRIS, SC.MAX_PRIMS_PER_LEAF), 1), dev)
+    build_s = time.perf_counter() - t0
+    o, d, tm, _ = call
+    perm = g1.coherence_order(o, d, tm)
+    o, d, tm = (x[perm][:g1.ray_chunk] for x in (o, d, tm))
+    a = (g1.s_lo, g1.s_hi, *g1.pad_rays(o, d, tm), g1.block_rays)
+    step = 256 * g1.block_rays
+    parts = [TS.prologue_plain(g1.s_lo, g1.s_hi, a[2][i:i + step],
+                               a[3][i:i + step], a[4][i:i + step],
+                               g1.block_rays)
+             for i in range(0, a[2].shape[0], step)]
+    po, ps = (torch.cat(x) for x in zip(*parts))
+    del parts
+    k = torch.isfinite(ps).sum(dim=1)
+    s_count = g1.tables.n_supers
+    out = dict(n_supers=s_count, lanes=int(a[4].numel()),
+               live=int((a[4] >= 0).sum()), max_finite_in_row=int(k.max()),
+               mean_finite_in_row=float(k.double().mean()),
+               torch_route_ms=cuda_ms(lambda: TS.prologue_torch(*a), 3),
+               bound=prologue_bound(a[4], ps, g1.block_rays))
+    small = max(1, int(k.median()) // 2)
+    out["small_capacity"] = small
+    for cap in (TS.PROLOGUE_KEYS, small):
+        ko, ks = TS.block_entry_kernel(*a, key_capacity=cap)
+        torch.cuda.synchronize()
+        row = dict(rows_in_workspace=int((k > min(cap, s_count)).sum()),
+                   order_mismatch=int((ko != po).sum()),
+                   suffix_bits_mismatch=int(
+                       (ks.view(torch.int32) != ps.view(torch.int32)).sum()),
+                   ms=cuda_ms(lambda: TS.block_entry_kernel(
+                       *a, key_capacity=cap), 3))
+        out[f"capacity_{cap}"] = row
+        if row["order_mismatch"] or row["suffix_bits_mismatch"]:
+            raise AssertionError(f"prologue kernel disagrees at group 1, "
+                                 f"{cap} keys: {row}")
+    log("6b", t0, f"group-1 tables ({s_count} supers, built in "
+        f"{build_s:.2f} s), photon depth-1 chunk ({out['live']} live of "
+        f"{out['lanes']} lanes; finite entries a row: max "
+        f"{out['max_finite_in_row']}, mean {out['mean_finite_in_row']:.1f}): "
+        f"prologue kernel bit-equal to plain at {TS.PROLOGUE_KEYS} keys "
+        f"({out[f'capacity_{TS.PROLOGUE_KEYS}']}) and at {small} keys "
+        f"({out[f'capacity_{small}']}); torch route "
+        f"{out['torch_route_ms']:.3f} ms, bound {out['bound'][0]:.4f} ms "
+        f"({out['bound'][1]}); card {card}")
+    if out[f"capacity_{small}"]["rows_in_workspace"] == 0:
+        raise AssertionError("no row sorted in the workspace")
     return out
 
 
@@ -637,12 +763,12 @@ def slice5(dev, card, scene, t_all):
         if not anyh:
             depth[ph] += 1
         labels.append(f"{ph} {'shadow' if anyh else 'depth'} {depth[ph]}")
-    entry_tot, agree = {}, {}
-    chunks = sweep_chunks(acc, calls, entry_tot)
+    pro_tot, agree = {}, {}
+    chunks = sweep_chunks(acc, calls, pro_tot)
     b = acc.block_rays
     for (name, anyh, ch), label in zip(chunks, labels + ["camera_any_hit"]):
         tot = {}
-        for args in ch:
+        for _, args in ch:
             kt, ki = sweep_kernel(*args, acc.panel, b, anyh)
             st_, si, ks = sweep_kernel(*args, acc.panel, b, anyh,
                                        collect_stats=True)
@@ -660,19 +786,22 @@ def slice5(dev, card, scene, t_all):
                                  f"{tot}")
     log("6b", t0, f"{len(calls)} sweep calls of one 256^2 SPPM iteration "
         f"({', '.join(labels)}): every launch bit-equal to sweep_plain with "
-        f"the same steps; block entry vs plain: {entry_tot}")
-    if entry_tot["entry_mismatch"]:
-        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
+        f"the same steps; prologue kernel vs plain: {pro_tot}")
+    if prologue_disagrees(pro_tot):
+        raise AssertionError(f"prologue kernel disagrees: {pro_tot}")
     if not any(t == "photon" for t in tags) or not any(
             a for *_, a in calls):
         raise AssertionError("the iteration did not trace photons and "
                              "shadow rays through the sweep")
     launches = time_launches("6b", t0, acc, calls, chunks, acc.panel, False,
                              card, labels)
-    del chunks, calls
+    del chunks
     out["launches_256"] = launches
     out["agreement_256"] = agree
-    out["entry_agreement_256"] = entry_tot
+    out["prologue_agreement_256"] = pro_tot
+    out["workspace"] = workspace_case(dev, card, scene, acc, calls[
+        labels.index("photon depth 1")])
+    del calls
 
     # -- 6c: the full-width run ----------------------------------------------
     t0 = time.perf_counter()
@@ -709,6 +838,7 @@ def slice5(dev, card, scene, t_all):
             marks.clear()
             sweep_kernel.reset_counts()
             block_entry_kernel.reset_counts()
+            scene.accel.skipped_chunks = 0
             a = torch.cuda.Event(enable_timing=True)
             a.record()
             state = integ.step(scene, state, it, pixels, key, cdf, pmf)
@@ -718,6 +848,7 @@ def slice5(dev, card, scene, t_all):
             row = dict(iteration=it, ms=a.elapsed_time(z),
                        sweep_launches=sweep_kernel.launches,
                        entry_launches=block_entry_kernel.launches,
+                       skipped_chunks=scene.accel.skipped_chunks,
                        **integ.stats)
             prev = a
             for name, ev in marks:
@@ -736,14 +867,15 @@ def slice5(dev, card, scene, t_all):
                 f"{row['grid_cells_occupied']}, pairs "
                 f"{row['photon_vp_pairs']}, splat records with candidates "
                 f"{row['splat_records']}, sweep launches "
-                f"{row['sweep_launches']}, block entry "
-                f"{row['entry_launches']}; card {card}")
+                f"{row['sweep_launches']}, prologue "
+                f"{row['entry_launches']}, chunks skipped "
+                f"{row['skipped_chunks']}; card {card}")
             if row["sweep_launches"] <= 0 or row["entry_launches"] \
                     != row["sweep_launches"] \
                     or sweep_kernel.arm_launches["f32"] \
                     != row["sweep_launches"]:
                 raise AssertionError("the SPPM iteration did not run through "
-                                     "the sweep and the block entry kernel")
+                                     "the sweep and the prologue kernel")
     finally:
         SP._scatter_add = scatter
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -802,10 +934,18 @@ def slice5(dev, card, scene, t_all):
                 kernels=int(sum(e.count for e in on_dev)),
                 top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                      for e in top])
+    for name in ("prologue_kernel", "sweep_kernel"):
+        mine = [e for e in on_dev if name in e.key]
+        busy[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                      int(sum(e.count for e in mine)))
     log("6c", t0, f"profiled iteration {wall:.2f} ms, device busy "
         f"{dev_ms:.2f} ms ({100 * busy['share']:.1f}%, "
         f"{100 * busy['share_of_unprofiled']:.1f}% of the unprofiled mean) "
-        f"in {busy['kernels']} kernels; top {busy['top']}")
+        f"in {busy['kernels']} kernels; prologue kernel "
+        f"{busy['prologue_kernel'][0]:.2f} ms in "
+        f"{busy['prologue_kernel'][1]} launches, sweep "
+        f"{busy['sweep_kernel'][0]:.2f} ms in {busy['sweep_kernel'][1]}; "
+        f"top {busy['top']}; card {card}")
     if dev_ms <= 0:
         raise AssertionError("the profiler saw no device time")
 
@@ -881,7 +1021,7 @@ def main() -> int:
     t_nvcc = time.perf_counter() - t0
     native.load()
     regs = ptxas_summary("".join(k.lib.build_log for k in libs))
-    log(1, t0, f"built sweep, block entry and intersect kernels (nvcc "
+    log(1, t0, f"built sweep, prologue and intersect kernels (nvcc "
         f"{t_nvcc:.2f} s, in parallel) and SAH builder; sweep CTA: "
         f"{TS.SWEEP_WARPS} warps per {TS.KERNEL_BLOCK_RAYS} rays; "
         f"registers/spill "
@@ -905,26 +1045,26 @@ def main() -> int:
     calls = record_calls(integ, scene)
     if [a for *_, a in calls] != [False, True, False, True]:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
-    res, entry_tot = {}, {}
-    d_chunks = sweep_chunks(acc, calls, entry_tot)
+    res, pro_tot = {}, {}
+    d_chunks = sweep_chunks(acc, calls, pro_tot)
     for name, anyh, chunks in d_chunks:
         tot = {}
-        for args in chunks:
+        for _, args in chunks:
             kt, ki = sweep_kernel(*args, acc.panel, acc.block_rays, anyh)
             pt, pi = sweep_plain(*args, acc.panel, acc.block_rays, anyh)
             torch.cuda.synchronize()
             accumulate(tot, compare(kt, ki, pt, pi))
         res[name] = tot
-        log("2a", t0, f"{name}: {[a[0].shape[1] for a in chunks]} lanes, "
+        log("2a", t0, f"{name}: {[a[0].shape[1] for _, a in chunks]} lanes, "
             f"{tot}")
         if disagrees(tot):
             raise AssertionError(f"kernel disagrees with plain: {name} {tot}")
     if res["call0_closest"]["n_found"] <= 0 \
             or res["camera_any_hit"]["n_found"] < 1000:
         raise AssertionError("too few hits to exercise the kernel")
-    log("2a", t0, f"block entry kernel vs plain: {entry_tot}")
-    if entry_tot["entry_mismatch"]:
-        raise AssertionError(f"block entry kernel disagrees: {entry_tot}")
+    log("2a", t0, f"prologue kernel vs plain: {pro_tot}")
+    if prologue_disagrees(pro_tot):
+        raise AssertionError(f"prologue kernel disagrees: {pro_tot}")
 
     # -- 2b: the exact-edge scene, every arm, on its frame's launches -------
     t0 = time.perf_counter()
@@ -937,11 +1077,11 @@ def main() -> int:
     integ_e = WhittedIntegrator(cam_e, U.UniformSampler(1, seed=0),
                                 max_depth=2)
     e_calls = record_calls(integ_e, exact)
-    e_entry = {}
-    e_chunks = sweep_chunks(eacc, e_calls, e_entry)
-    log("2b", t0, f"block entry kernel vs plain: {e_entry}")
-    if e_entry["entry_mismatch"]:
-        raise AssertionError(f"block entry kernel disagrees: {e_entry}")
+    e_pro = {}
+    e_chunks = sweep_chunks(eacc, e_calls, e_pro)
+    log("2b", t0, f"prologue kernel vs plain: {e_pro}")
+    if prologue_disagrees(e_pro):
+        raise AssertionError(f"prologue kernel disagrees: {e_pro}")
     panels = {k: TS.panel_tensor(TS.cast_panel(tb.panel, k == "bf16",
                                                k == "hilo"), dev)
               for k in ("f32", "bf16", "hilo")}
@@ -951,7 +1091,7 @@ def main() -> int:
     arm_res = {a: {} for a, _, _ in arms}
     b = eacc.block_rays
     for name, anyh, chunks in e_chunks:
-        for args in chunks:
+        for _, args in chunks:
             ut, ui = sweep_plain(*args, panels["f32"], b, anyh)
             for arm, kind, cert in arms:
                 p = panels[kind]
@@ -979,6 +1119,8 @@ def main() -> int:
                 tot["plain_f32_hits_lost"] = tot.get(
                     "plain_f32_hits_lost", 0) + lost
         for arm, kind, cert in arms:
+            if name not in arm_res[arm]:   # no chunk launched
+                continue
             tot = arm_res[arm][name]
             log("2b", t0, f"{arm} {name}: {tot}")
             lost_gated = cert and (kind == "f32" or not anyh)
@@ -1023,7 +1165,10 @@ def main() -> int:
                 lambda: TI.intersect_plain(rays, fa.tris, fa.ids), 2)
             log("2c", t0, f"fused camera rays ({rays.shape[1]} lanes x "
                 f"{small.n_triangles} triangles): kernel {fused['ms']:.3f} "
-                f"ms, plain {fused['plain_ms']:.3f} ms")
+                f"ms, plain {fused['plain_ms']:.3f} ms, bound "
+                f"{fused['bound_ms']:.4f} ms ({fused['bound_by']}, "
+                f"{100 * fused['bound_ms'] / fused['ms']:.1f}% of it); card "
+                f"{card}")
     if len(f_calls) < 2:
         raise AssertionError("the fused frame made too few calls")
 
@@ -1128,6 +1273,8 @@ def main() -> int:
         sweep_kernel.reset_counts()
         block_entry_kernel.reset_counts()
         TI.intersect_kernel.reset_counts()
+        if hasattr(sc.accel, "skipped_chunks"):
+            sc.accel.skipped_chunks = 0
         times, state = timed_frames(it, sc)
         launches = (TI.intersect_kernel.launches if arm == "intersect"
                     else sweep_kernel.arm_launches[arm])
@@ -1143,20 +1290,23 @@ def main() -> int:
                      f"{'...' if len(steps) > 8 else ''}")
             sc.accel.last_steps = []
         entry_launches = block_entry_kernel.launches
+        skipped = getattr(sc.accel, "skipped_chunks", 0)
         frames[run] = dict(ms=ms, times=times, launches=launches,
                            entry_launches=entry_launches,
+                           skipped_chunks=skipped,
                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         log(4, t0, f"{run}: frames {[round(x, 3) for x in times]} ms, mean "
             f"{ms:.2f} ms, {rays_per_frame / ms / 1e3:.3f} Mrays/s, "
-            f"{arm} launches {launches} (other sweep arms {others}), block "
-            f"entry launches {entry_launches}, queue_drops "
+            f"{arm} launches {launches} (other sweep arms {others}), "
+            f"prologue launches {entry_launches}, chunks skipped {skipped}, "
+            f"queue_drops "
             f"{it.last_queue_drops}, useful_rays {it.last_useful_rays}, "
             f"non-zero pixels {nonzero:.3f}, peak mem "
             f"{frames[run]['peak_gib']:.2f} GiB{extra}")
         if launches <= 0 or others or it.last_queue_drops != 0:
             raise AssertionError(f"{run} did not run through {arm} cleanly")
         if entry_launches != sweep_kernel.launches:
-            raise AssertionError(f"{run}: {entry_launches} block entry "
+            raise AssertionError(f"{run}: {entry_launches} prologue "
                                  f"launches for {sweep_kernel.launches} "
                                  f"sweep launches")
         if not (np.isfinite(img).all() and nonzero > 0.05):
@@ -1196,6 +1346,19 @@ def main() -> int:
     except ValueError as e:
         log(4, t0, f"block of 64 rays refused: {e}")
     del args64
+    # The prologue on the same chunk with every lane dead: the accelerator
+    # skips such chunks, so only this timing launches the kernel on one.
+    dead_chunk = {}
+    dead_tot = {}
+    check_prologue(acc, o, d, torch.full_like(tm, -1.0), dead_tot, dead_chunk)
+    log(4, t0, f"all-dead chunk of {o.shape[0]} rays: prologue kernel "
+        f"{dead_chunk['prologue_ms']:.4f} ms vs torch route "
+        f"{dead_chunk['prologue_torch_ms']:.4f} ms, plain "
+        f"{dead_chunk['prologue_plain_ms']:.3f} ms, bound "
+        f"{dead_chunk['prologue_bound_ms']:.4f} ms "
+        f"({dead_chunk['prologue_bound_by']}); {dead_tot}; card {card}")
+    if prologue_disagrees(dead_tot):
+        raise AssertionError(f"prologue kernel disagrees: {dead_tot}")
     for arm, kind, cert in [("f32", "f32", False)] + arms:
         for pipe in (False, True):
             p = panels[kind]
@@ -1242,23 +1405,26 @@ def main() -> int:
     sppm_launches = s5["iterations"][1]
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
-                       per_launch=per_launch,
-                       entry_agreement=[entry_tot, e_entry]), f, indent=1)
+                       per_launch=per_launch, dead_chunk=dead_chunk,
+                       prologue_agreement=[pro_tot, e_pro]), f, indent=1)
 
     def err(arm):
         return max(r["max_abs_err"] for r in arm_res[arm].values())
 
     def entry(name, replaces, launches, max_abs_err, row, ms_key="ms",
-              source=SWEEP_SRC, plain_key="plain_ms", bound_key="bound"):
+              source=SWEEP_SRC, plain_key="plain_ms", bound_key="bound",
+              library_key=None):
         # No single PyTorch call computes a per-ray running (t, id)
-        # minimum over a data-dependent walk, nor a per-block minimum of
-        # slab entries: library_ms is null.
+        # minimum over a data-dependent walk: library_ms is null but for
+        # the prologue, whose yardstick is the torch route (the entry table
+        # kernel, torch.argsort and a reverse cummin).
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": row[ms_key],
                 "plain_ms": row[plain_key],
                 "bound_ms": row[bound_key + "_ms"],
-                "bound_by": row[bound_key + "_by"], "library_ms": None}
+                "bound_by": row[bound_key + "_by"],
+                "library_ms": row[library_key] if library_key else None}
 
     t32 = lambda k: timing[(k, 32)]
     cert = t32("certified")
@@ -1284,13 +1450,15 @@ def main() -> int:
         entry("sweep_pipelined", f"{JAX_SWEEP}:313",
               frames["exact_edges+pipeline"]["launches"], err("certified"),
               dict(t32("certified_pipelined"), plain_ms=cert["plain_ms"])),
-        dict(entry("block_entry", f"{JAX_SWEEP}:527",
+        dict(entry("prologue", f"{JAX_SWEEP}:527",
                    frames["default"]["entry_launches"],
-                   max(entry_tot["max_abs_err"], e_entry["max_abs_err"]),
-                   per_launch["default"][0], ms_key="entry_ms",
+                   max(pro_tot["max_abs_err"], e_pro["max_abs_err"]),
+                   per_launch["default"][0], ms_key="prologue_ms",
                    source="trace_tpu_torch/csrc/entry.cu",
-                   plain_key="entry_plain_ms", bound_key="entry_bound"),
-             sppm_launches=sppm_launches["entry_launches"]),
+                   plain_key="prologue_plain_ms", bound_key="prologue_bound",
+                   library_key="prologue_torch_ms"),
+             sppm_launches=sppm_launches["entry_launches"],
+             sppm_skipped_chunks=sppm_launches["skipped_chunks"]),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

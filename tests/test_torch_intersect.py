@@ -120,6 +120,66 @@ def test_plain_matches_jax_fused_interpret_kernel(jx, t_max):
     assert np.isinf(tt[~th]).all()
 
 
+def _kernel_filter(rays, panel):
+    """csrc/intersect.cu::passes in numpy float32 (every operation one
+    rounding, as the kernel's --fmad=false build): rays [10, N], panel
+    [NT, 16, 128] -> bool [N, NT*128]."""
+    f, u32 = np.float32, np.uint32
+    p = panel.transpose(1, 0, 2).reshape(16, -1)[:, None, :]
+    o0, o1, o2, d0, d1, d2, m0, m1, m2 = (rays[i][None].T for i in range(9))
+
+    def dot(a0, a1, a2, r):
+        return (a0 * p[r] + a1 * p[r + 1]) + a2 * p[r + 2]
+
+    dd = dot(d0, d1, d2, 0)
+    u_det = dot(m0, m1, m2, 6) - dot(d0, d1, d2, 9)
+    v_sum = dot(m0, m1, m2, 3) + dot(d0, d1, d2, 12)
+    t_det = dot(o0, o1, o2, 0) - p[15]
+    neg = ~dd.view(u32) & u32(0x80000000)
+    u = (u_det.view(u32) ^ neg).view(f)
+    v = (v_sum.view(u32) ^ neg ^ u32(0x80000000)).view(f)
+    tn = (t_det.view(u32) ^ neg).view(f)
+    adet = np.abs(dd)
+    return ((adet > f(1e-12)) & (u >= 0) & (v >= 0) & (u + v <= adet)
+            & (tn > 0))
+
+
+def test_kernel_filter_passes_exactly_the_epilogue_ok():
+    # The kernel tests each pair branch-free with sign-bit flips and only
+    # then divides; its filter must pass exactly the pairs that
+    # mt_epilogue's ok (before t < t_max and the id) passes. Rays through
+    # vertices and along edges give u, v = +-0; rays in a triangle's plane
+    # give det = 0; a zero triangle (padding) gives det = +-0.
+    with np.errstate(all="ignore"):
+        v0, v1, v2 = _soup(250, seed=17)
+        v1[:10], v2[:10] = v0[:10] + [1, 0, 0], v0[:10] + [0, 0, 1]  # flat
+        o, d = _rays(300, seed=18)
+        o[:40] = v0[:40] + [0.0, 3.0, 0.0]                 # at vertices
+        d[:40] = [0.0, -1.0, 0.0]
+        e = (v1[40:80] + v2[40:80]) * np.float32(0.5)       # at edges
+        o[40:80] = e + [0.0, 2.0, 0.0]
+        d[40:80] = (e - o[40:80]) / np.linalg.norm(e - o[40:80], axis=1,
+                                                   keepdims=True)
+        o[80:90] = v0[:10] + [-2.0, 0.0, 0.0]               # in the plane
+        d[80:90] = [1.0, 0.0, 0.0]
+        panel, _ = TI.pack_tris(v0, v1, v2)
+        rays, _ = TI.pack_rays(torch.from_numpy(o), torch.from_numpy(d),
+                               torch.full((300,), np.inf))
+        got = _kernel_filter(rays.numpy(), panel)
+        r = rays[:, :, None]
+        pt = torch.from_numpy(panel).permute(1, 0, 2).reshape(16, -1)[:, None]
+        dot = TI._dot3
+        ok, _ = TI.mt_epilogue(
+            -dot(r[3], r[4], r[5], pt[:, 0], 0),
+            dot(r[6], r[7], r[8], pt[:, 0], 6)
+            - dot(r[3], r[4], r[5], pt[:, 0], 9),
+            -dot(r[6], r[7], r[8], pt[:, 0], 3)
+            - dot(r[3], r[4], r[5], pt[:, 0], 12),
+            dot(r[0], r[1], r[2], pt[:, 0], 0) - pt[15, 0])
+    np.testing.assert_array_equal(got, ok.numpy())
+    assert 100 < got.sum() < got.size // 10
+
+
 def test_ties_go_to_the_lowest_id_and_misses_are_minus_one():
     # Triangles 5, 9 (same block) and 200 (a later block) are one
     # triangle, far from the rest of the soup. The ray that hits it must

@@ -498,13 +498,17 @@ def test_cuda_block_entry_matches_plain():
     o, d, t_max = _entry_rays(3000, 43, lo, hi)
     o_p, d_p, t_p = acc.pad_rays(*(torch.from_numpy(x).to(dev)
                                    for x in (o, d, t_max)))
+    args = (acc.s_lo, acc.s_hi, o_p, d_p, t_p, 32)
     launches = TS.block_entry_kernel.launches
-    k = TS.block_entry_kernel(acc.s_lo, acc.s_hi, o_p, d_p, t_p, 32)
-    p = TS.block_entry_plain(acc.s_lo, acc.s_hi, o_p, d_p, t_p, 32)
+    k = TS.block_entry_kernel.table(*args)
+    p = TS.block_entry_plain(*args)
+    ko, ks = TS.block_entry_kernel(*args)   # the prologue kernel
+    po, ps = TS.prologue_plain(*args)
     torch.cuda.synchronize()
     assert TS.block_entry_kernel.launches == launches + 1
     assert torch.isfinite(p).any() and torch.isinf(p).any()
     assert torch.equal(k, p)
+    assert torch.equal(ko, po) and torch.equal(ks, ps)
 
 
 @pytest.mark.cuda

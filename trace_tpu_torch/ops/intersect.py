@@ -28,7 +28,7 @@ from .nvcc import CudaLibrary, check_tensors
 
 F32 = torch.float32
 INF = float("inf")
-RAY_BLOCK = 128     # rays per CTA (the TPU kernel's block was 1024)
+RAY_BLOCK = 128     # rays per CTA, 2 a thread (the TPU kernel: 1024)
 TRI_BLOCK = 128     # triangles per staged block, as in the TPU kernel
 GROUPS = 5          # the JAX B layout: det, u, v, t, id
 
@@ -159,9 +159,10 @@ class IntersectKernel:
         check_tensors("intersect kernel", dev, (
             (rays, F32, (10, n)), (tris, F32, (nt, 16, TRI_BLOCK)),
             (ids, torch.int32, (nt * TRI_BLOCK,))))
-        if dev.type != "cuda" or n % RAY_BLOCK:
+        if dev.type != "cuda" or n % RAY_BLOCK or any(
+                t.data_ptr() % 16 for t in (tris, ids)):
             raise ValueError(f"intersect kernel: CUDA tensors, N a multiple "
-                             f"of {RAY_BLOCK}")
+                             f"of {RAY_BLOCK}, tris and ids 16-byte aligned")
         launch = self.lib.load()
         best_t = torch.empty(n, dtype=F32, device=dev)
         best_i = torch.empty(n, dtype=torch.int32, device=dev)

@@ -25,7 +25,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class CudaLibrary:
     """One csrc/<name>.cu built into build/lib<name>.so; ``load()``
     returns the C function ``symbol`` with ``argtypes`` set and restype
-    int (the launch's cudaGetLastError())."""
+    int (the launch's cudaGetLastError()); ``function`` another C function
+    of the same library."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.source = os.path.join(CSRC, name + ".cu")
@@ -33,20 +34,26 @@ class CudaLibrary:
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.build_log = ""
-        self._fn = None
+        self._dll = None
+        self._fns = {}
         self._lock = threading.Lock()
 
     def load(self):
+        return self.function(self.symbol, self.argtypes)
+
+    def function(self, symbol: str, argtypes):
         with self._lock:
-            if self._fn is None:
+            if self._dll is None:
                 if not (os.path.exists(self.path) and os.path.getmtime(
                         self.path) >= os.path.getmtime(self.source)):
                     self.build_log = self._build()
-                fn = getattr(ctypes.CDLL(self.path), self.symbol)
+                self._dll = ctypes.CDLL(self.path)
+            if symbol not in self._fns:
+                fn = getattr(self._dll, symbol)
                 fn.restype = ctypes.c_int
-                fn.argtypes = self.argtypes
-                self._fn = fn
-            return self._fn
+                fn.argtypes = list(argtypes)
+                self._fns[symbol] = fn
+            return self._fns[symbol]
 
     def _build(self) -> str:
         os.makedirs(BUILD_DIR, exist_ok=True)

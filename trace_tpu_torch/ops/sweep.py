@@ -7,10 +7,10 @@ of every super it visits with the matmul-factored Moller-Trumbore test;
 it stops once the suffix-min of the remaining entry distances passes
 every live lane's limit. The sweep itself is ``csrc/sweep.cu`` on CUDA
 tensors and :func:`sweep_plain` on CPU tensors; ``sweep`` picks by device
-and never falls back from one to the other. So does the prologue's
-block entry table (:func:`block_entry`: ``csrc/entry.cu`` or
-:func:`block_entry_plain`); the demand order, the suffix-min and the ray
-sort stay PyTorch.
+and never falls back from one to the other. So does the prologue, from a
+chunk's rays to each block's demand order and suffix-min
+(:func:`prologue`: ``csrc/entry.cu`` or :func:`prologue_plain`); the ray
+sort stays PyTorch.
 
 Options, as in the JAX package (all off by default):
 
@@ -378,8 +378,13 @@ def sweep(rays, order, suffix, panel, block_rays: int, any_hit: bool,
 
 
 # ---------------------------------------------------------------------------
-# The prologue's block entry table: plain PyTorch version and CUDA kernel.
+# The prologue: plain PyTorch version and CUDA kernel (csrc/entry.cu).
 # ---------------------------------------------------------------------------
+
+# Keys the prologue kernel sorts in shared memory (32 KB: the 1M mesh's
+# 2760 supers fit whole); a row with more finite entries sorts in a global
+# workspace.
+PROLOGUE_KEYS = 4096
 
 
 def block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
@@ -393,22 +398,47 @@ def block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
     return entry.reshape(-1, int(block_rays), s_lo.shape[0]).amin(dim=1)
 
 
+def order_suffix(entry_b: torch.Tensor):
+    """Per row of an entry table [NB, S]: the demand order (stable argsort,
+    i32) and the suffix-min of the ordered entries."""
+    order = torch.argsort(entry_b, dim=1, stable=True)
+    entry_o = torch.gather(entry_b, 1, order)
+    suffix = torch.flip(torch.cummin(torch.flip(entry_o, [1]), 1).values,
+                        [1]).contiguous()
+    return order.to(torch.int32).contiguous(), suffix
+
+
+def prologue_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+    """Plain PyTorch version of the prologue kernel: (order i32 [NB, S],
+    suffix f32 [NB, S]) from the entry table of :func:`block_entry_plain`,
+    as the JAX wrapper computes them (sweep_pallas.py:527-536)."""
+    return order_suffix(block_entry_plain(s_lo, s_hi, o_p, d_p, t_p,
+                                          block_rays))
+
+
 class BlockEntryKernel:
-    """ctypes binding of csrc/entry.cu, built at the first launch: the
-    same function as :func:`block_entry_plain` on CUDA tensors, without
-    the [NB*B, S] table. ``launches`` counts kernel launches."""
+    """ctypes binding of csrc/entry.cu, built at the first launch.
+
+    Calling it launches the prologue kernel: the same (order, suffix) as
+    :func:`prologue_plain` on CUDA tensors, without the [NB*B, S] table or
+    the [NB, S] entry table; ``launches`` counts its launches.
+    :meth:`table` launches the entry table kernel alone (the same as
+    :func:`block_entry_plain`) for :func:`prologue_torch`, a yardstick no
+    render path takes; ``table_launches`` counts those."""
 
     def __init__(self):
         self.launches = 0
-        self.lib = CudaLibrary("entry", "entry_launch",
-                               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        self.table_launches = 0
+        self.lib = CudaLibrary("entry", "prologue_launch",
+                               [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
                                + [ctypes.c_void_p])
 
     def reset_counts(self) -> None:
         self.launches = 0
+        self.table_launches = 0
 
-    def __call__(self, s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
-        b = int(block_rays)
+    @staticmethod
+    def _check(s_lo, s_hi, o_p, d_p, t_p, b):
         n, s = o_p.shape[0], s_lo.shape[0]
         dev = o_p.device
         check_tensors("block entry kernel", dev, (
@@ -417,17 +447,53 @@ class BlockEntryKernel:
         if dev.type != "cuda" or b < 1 or n % b:
             raise ValueError("block entry kernel: CUDA tensors, rays a "
                              "multiple of block_rays")
+        return n // b, s, dev
+
+    def __call__(self, s_lo, s_hi, o_p, d_p, t_p, block_rays: int,
+                 key_capacity: int = PROLOGUE_KEYS):
+        """(order i32 [NB, S], suffix f32 [NB, S]). ``key_capacity``: the
+        keys a row may sort in shared memory (1..PROLOGUE_KEYS); a smaller
+        value sends more rows through the workspace, which the tests use
+        to reach it on small scenes."""
+        b = int(block_rays)
+        nb, s, dev = self._check(s_lo, s_hi, o_p, d_p, t_p, b)
+        if not 1 <= key_capacity <= PROLOGUE_KEYS:
+            raise ValueError(f"key_capacity {key_capacity}: 1.."
+                             f"{PROLOGUE_KEYS}")
         launch = self.lib.load()
-        out = torch.empty((n // b, s), dtype=F32, device=dev)
-        if n == 0 or s == 0:
+        order = torch.empty((nb, s), dtype=torch.int32, device=dev)
+        suffix = torch.empty((nb, s), dtype=F32, device=dev)
+        if nb == 0 or s == 0:
+            return order, suffix
+        cap = min(int(key_capacity), s)
+        ws = (torch.empty((nb, s), dtype=torch.int64, device=dev)
+              if cap < s else None)
+        err = launch(s_lo.data_ptr(), s_hi.data_ptr(), o_p.data_ptr(),
+                     d_p.data_ptr(), t_p.data_ptr(), order.data_ptr(),
+                     suffix.data_ptr(), None if ws is None else ws.data_ptr(),
+                     nb, b, s, cap, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"prologue kernel launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1
+        return order, suffix
+
+    def table(self, s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+        """The entry table f32 [NB, S] (:func:`block_entry_plain`)."""
+        b = int(block_rays)
+        nb, s, dev = self._check(s_lo, s_hi, o_p, d_p, t_p, b)
+        launch = self.lib.function("entry_launch", [ctypes.c_void_p] * 6
+                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        out = torch.empty((nb, s), dtype=F32, device=dev)
+        if nb == 0 or s == 0:
             return out
         err = launch(s_lo.data_ptr(), s_hi.data_ptr(), o_p.data_ptr(),
-                     d_p.data_ptr(), t_p.data_ptr(), out.data_ptr(), n // b,
-                     b, s, torch.cuda.current_stream(dev).cuda_stream)
+                     d_p.data_ptr(), t_p.data_ptr(), out.data_ptr(), nb, b, s,
+                     torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"block entry kernel launch failed: CUDA "
                                f"error {err}")
-        self.launches += 1
+        self.table_launches += 1
         return out
 
 
@@ -435,13 +501,30 @@ block_entry_kernel = BlockEntryKernel()
 
 
 def block_entry(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
-    """The block entry table: the CUDA kernel for CUDA tensors, the plain
+    """The block entry table: the table kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if o_p.device.type == "cuda":
+        return block_entry_kernel.table(s_lo, s_hi, o_p, d_p, t_p, block_rays)
+    if o_p.device.type == "cpu":
+        return block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays)
+    raise ValueError(f"block_entry: unsupported device {o_p.device}")
+
+
+def prologue_torch(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+    """The prologue the kernel replaced on the card -- the entry table
+    kernel, torch.argsort and a reverse cummin -- kept as the prologue
+    kernel's yardstick; no render path calls it."""
+    return order_suffix(block_entry(s_lo, s_hi, o_p, d_p, t_p, block_rays))
+
+
+def prologue(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
+    """(order, suffix): the prologue kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if o_p.device.type == "cuda":
         return block_entry_kernel(s_lo, s_hi, o_p, d_p, t_p, block_rays)
     if o_p.device.type == "cpu":
-        return block_entry_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays)
-    raise ValueError(f"block_entry: unsupported device {o_p.device}")
+        return prologue_plain(s_lo, s_hi, o_p, d_p, t_p, block_rays)
+    raise ValueError(f"prologue: unsupported device {o_p.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +541,9 @@ class SweepAccelerator:
     ``ray_chunk``: rays per launch.
     ``certified``, ``pipeline``, ``collect_stats``: the sweep's options
     (module docstring); with ``collect_stats`` every launch appends its
-    per-block step counts [NB] to ``last_steps``."""
+    per-block step counts [NB] to ``last_steps``. ``skipped_chunks``
+    counts the chunks :meth:`intersect` gave the miss result without a
+    launch (no live lane)."""
 
     def __init__(self, tables: SweepTables, device, block_rays: int = 32,
                  ray_chunk: int = 65536, certified: bool = False,
@@ -471,6 +556,7 @@ class SweepAccelerator:
         self.pipeline = bool(pipeline)
         self.collect_stats = bool(collect_stats)
         self.last_steps = []
+        self.skipped_chunks = 0
         self.panel = panel_tensor(tables.panel, dev)
         self.slot_to_tri = torch.from_numpy(
             tables.slot_to_tri.astype(np.int64)).to(dev)
@@ -498,17 +584,13 @@ class SweepAccelerator:
         suffix [NB, S])."""
         o_p, d_p, t_p = self.pad_rays(o, d, t_max)
         # Per-block demand order + suffix-min over super entry distances.
-        entry_b = block_entry(self.s_lo, self.s_hi, o_p, d_p, t_p,
-                              self.block_rays)
-        order = torch.argsort(entry_b, dim=1, stable=True)
-        entry_o = torch.gather(entry_b, 1, order)
-        suffix = torch.flip(torch.cummin(torch.flip(entry_o, [1]), 1).values,
-                            [1]).contiguous()
+        order, suffix = prologue(self.s_lo, self.s_hi, o_p, d_p, t_p,
+                                 self.block_rays)
         m = torch.stack([o_p[:, 1] * d_p[:, 2] - o_p[:, 2] * d_p[:, 1],
                          o_p[:, 2] * d_p[:, 0] - o_p[:, 0] * d_p[:, 2],
                          o_p[:, 0] * d_p[:, 1] - o_p[:, 1] * d_p[:, 0]], 1)
         rays = torch.cat([o_p.T, d_p.T, m.T, t_p[None]], 0).contiguous()
-        return rays, order.to(torch.int32).contiguous(), suffix
+        return rays, order, suffix
 
     def _traverse_chunk(self, o, d, t_max, any_hit: bool):
         n = o.shape[0]
@@ -531,20 +613,40 @@ class SweepAccelerator:
         key = sort_key(o, d, self.world_lo, self.world_inv_extent)
         return torch.argsort(key | ((t_max < 0).long() << 24), stable=True)
 
+    def live_chunks(self, t_max) -> list:
+        """The starts of the chunks of ``t_max`` (in launch order) that hold
+        a lane the kernels treat as live: t_max >= 0, +-inf or NaN (pad_rays
+        sends every non-finite limit to 3e38). One host read."""
+        live = (t_max >= 0) | ~torch.isfinite(t_max)
+        n, c = t_max.shape[0], self.ray_chunk
+        pad = (-n) % c
+        if pad:
+            live = torch.cat([live, live.new_zeros(pad)])
+        flags = live.reshape(-1, c).any(dim=1).tolist()
+        return [i * c for i, f in enumerate(flags) if f]
+
     def intersect(self, o, d, t_max, any_hit: bool):
         """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32).
 
         Rays are coherence-sorted first (direction octant, then Morton
         order of the origin) so each block enters few supers; lanes with
-        t_max < 0 are dead and sort last, so their blocks exit at once."""
+        t_max < 0 are dead and sort last. Only the chunks that hold a live
+        lane run the prologue and the sweep (``live_chunks``); the others
+        get what the sweep gives a dead lane -- hit false, t +inf and the
+        triangle of slot 0 -- and count in ``skipped_chunks``."""
         n = o.shape[0]
         perm = self.coherence_order(o, d, t_max)
         o, d, t_max = o[perm], d[perm], t_max[perm]
         inv = torch.empty_like(perm)
         inv[perm] = torch.arange(n, device=perm.device)
-        outs = [self._traverse_chunk(o[s:s + self.ray_chunk],
-                                     d[s:s + self.ray_chunk],
-                                     t_max[s:s + self.ray_chunk], any_hit)
-                for s in range(0, n, self.ray_chunk)]
-        hit, t, idx = (torch.cat(x) for x in zip(*outs))
+        c = self.ray_chunk
+        hit = torch.zeros(n, dtype=torch.bool, device=o.device)
+        t = torch.full((n,), INF, dtype=F32, device=o.device)
+        idx = self.slot_to_tri[0].clamp_min(0).to(torch.int32).expand(
+            n).clone()
+        starts = self.live_chunks(t_max)
+        self.skipped_chunks += -(-n // c) - len(starts)
+        for s in starts:
+            hit[s:s + c], t[s:s + c], idx[s:s + c] = self._traverse_chunk(
+                o[s:s + c], d[s:s + c], t_max[s:s + c], any_hit)
         return hit[inv], t[inv], idx[inv]
