@@ -95,12 +95,42 @@ Phases (each prints lines with its seconds; any failure raises):
      d. the first 1024^2 iteration run twice gives the same bits; at 256^2,
         two iterations straight give the same bits as one, a checkpoint
         and one resumed.
+  7. animated geometry (details in chiprun_out/slice7.json):
+     a. the 1M mesh, resident on the card, moved (translate, rotate_y)
+        and rebuilt there (transform, Morton clusters of 64, supers of 8):
+        ms (CUDA events, median of 5 after a warm one), clusters, supers
+        and peak memory; the device-packed tables bit-equal to the host
+        packing of the same clusters, and the whole build bit-equal to
+        the same build on the CPU; the scene's SAH tables refit to the
+        moved mesh (super boxes equal to the moved vertices' own) and
+        back (equal to the static tables);
+     b. the animated 1M Whitted frame (256^2, 1 spp, depth 2,
+        render(geometry=base, geometry_transform=...)), driven with the
+        counts set to 0 before it: every sweep launch against sweep_plain
+        (hits, ids, t within T_RTOL, the same steps) and the prologue
+        kernel bit-equal on every launched chunk; the frame against the
+        scene built with the moved terrain (SAH tables), MSE < 5e-4, with
+        the lanes whose hit or triangle differs; the sweep's steps, the
+        busiest block's steps and kernel ms on Morton supers against the
+        SAH supers for the same rays; frames timed (one warm, three);
+     c. bench config 5's settings on a stand-in (caustic_glass's floor,
+        camera, materials and moving lights around an 88,208-triangle UV
+        sphere in place of the absent PLY): 128^2, 2 SPPM iterations a
+        frame, 65536 photons, depth 5, radius 0.055, set_frame_lights and
+        a translation of the whole scene a frame; after a warm frame,
+        four frames each with its rebuild, view and per-phase ms, sweep
+        and prologue launches, chunks skipped and pixels with photons
+        (> 0, finite); the device-busy share of one more frame; every
+        sweep launch of one frame against sweep_plain; render_frames'
+        frame k bit-equal to the render of frame k, and pre-moved
+        triangles bit-equal to the same frame moved on the card.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
 route's; sweep and prologue also with their launches in one full-width
-SPPM iteration, the prologue with the chunks skipped there), the card's
-name and power limit, and
+SPPM iteration, the prologue with the chunks skipped there, and both with
+their launches in the animated 1M frame and in each config-5 frame), the
+card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -415,18 +445,19 @@ def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
     return rows
 
 
-def timed_frames(integ, scene, n=3):
-    """One warm frame, then ``n`` frames timed with CUDA events (ms)."""
+def timed_frames(integ, scene, n=3, **render_kw):
+    """One warm frame, then ``n`` frames timed with CUDA events (ms);
+    ``render_kw`` goes to each render (animated geometry)."""
     import torch
 
-    integ.render(scene)
+    integ.render(scene, **render_kw)
     torch.cuda.synchronize()
     times, state = [], None
     for _ in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        state = integ.render(scene)
+        state = integ.render(scene, **render_kw)
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
@@ -679,6 +710,51 @@ def time_phases(integ, marks):
         setattr(integ, name, wrapped)
 
 
+def device_busy(phase, t0, card, what, run, unprofiled_ms):
+    """Profile one ``run()`` (torch.profiler, CPU and CUDA): its wall ms
+    (CUDA events), the device's busy ms and share, the kernels launched,
+    the top kernels by device time, and the prologue's and the sweep's
+    device ms and launches. Raises if the profiler saw no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        z = torch.cuda.Event(enable_timing=True)
+        z.record()
+        torch.cuda.synchronize()
+    wall = a.elapsed_time(z)
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
+    busy = dict(profiled_ms=wall, device_ms=dev_ms, share=dev_ms / wall,
+                share_of_unprofiled=dev_ms / unprofiled_ms,
+                kernels=int(sum(e.count for e in on_dev)),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top])
+    for name in ("prologue_kernel", "sweep_kernel"):
+        mine = [e for e in on_dev if name in e.key]
+        busy[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                      int(sum(e.count for e in mine)))
+    log(phase, t0, f"profiled {what} {wall:.2f} ms, device busy "
+        f"{dev_ms:.2f} ms ({100 * busy['share']:.1f}%, "
+        f"{100 * busy['share_of_unprofiled']:.1f}% of the unprofiled mean) "
+        f"in {busy['kernels']} kernels; prologue kernel "
+        f"{busy['prologue_kernel'][0]:.2f} ms in "
+        f"{busy['prologue_kernel'][1]} launches, sweep "
+        f"{busy['sweep_kernel'][0]:.2f} ms in {busy['sweep_kernel'][1]}; "
+        f"top {busy['top']}; card {card}")
+    if dev_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return busy
+
+
 def states_equal(a, b) -> bool:
     import torch
 
@@ -692,8 +768,7 @@ def slice5(dev, card, scene, t_all):
     from trace_tpu_torch.integrators import sppm as SP
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
     from trace_tpu_torch.models import mesh_heavy, spheres
-    from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
-                                           sweep_plain)
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
     from trace_tpu_torch.utils.checkpoint import load_pytree
 
@@ -763,32 +838,11 @@ def slice5(dev, card, scene, t_all):
         if not anyh:
             depth[ph] += 1
         labels.append(f"{ph} {'shadow' if anyh else 'depth'} {depth[ph]}")
-    pro_tot, agree = {}, {}
-    chunks = sweep_chunks(acc, calls, pro_tot)
-    b = acc.block_rays
-    for (name, anyh, ch), label in zip(chunks, labels + ["camera_any_hit"]):
-        tot = {}
-        for _, args in ch:
-            kt, ki = sweep_kernel(*args, acc.panel, b, anyh)
-            st_, si, ks = sweep_kernel(*args, acc.panel, b, anyh,
-                                       collect_stats=True)
-            pt, pi, ps = sweep_plain(*args, acc.panel, b, anyh,
-                                     collect_stats=True)
-            torch.cuda.synchronize()
-            accumulate(tot, compare(kt, ki, pt, pi))
-            tot["steps_differ"] = tot.get("steps_differ", 0) + int(
-                (ks != ps).sum())
-            tot["stats_arm_differs"] = tot.get("stats_arm_differs", 0) + int(
-                not (torch.equal(st_, kt) and torch.equal(si, ki)))
-        agree[label] = tot
-        if disagrees(tot) or tot["steps_differ"] or tot["stats_arm_differs"]:
-            raise AssertionError(f"kernel disagrees with plain: {label} "
-                                 f"{tot}")
+    by_call, pro_tot, chunks = check_launches("6b", acc, calls)
+    agree = dict(zip(labels + ["camera_any_hit"], by_call.values()))
     log("6b", t0, f"{len(calls)} sweep calls of one 256^2 SPPM iteration "
         f"({', '.join(labels)}): every launch bit-equal to sweep_plain with "
         f"the same steps; prologue kernel vs plain: {pro_tot}")
-    if prologue_disagrees(pro_tot):
-        raise AssertionError(f"prologue kernel disagrees: {pro_tot}")
     if not any(t == "photon" for t in tags) or not any(
             a for *_, a in calls):
         raise AssertionError("the iteration did not trace photons and "
@@ -908,46 +962,12 @@ def slice5(dev, card, scene, t_all):
     del captured, dst, idx, val
 
     # Device-busy share of one more iteration.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for name in SPPM_PHASES:
         delattr(integ, name)
     integ.stats = None
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        a = torch.cuda.Event(enable_timing=True)
-        a.record()
-        integ.step(scene, state, 2 + n_timed, pixels, key, cdf, pmf)
-        z = torch.cuda.Event(enable_timing=True)
-        z.record()
-        torch.cuda.synchronize()
-    wall = a.elapsed_time(z)
-    ev = prof.key_averages()
-    on_dev = [e for e in ev if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
-    top = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:8]
-    busy = dict(profiled_ms=wall, device_ms=dev_ms,
-                share=dev_ms / wall,
-                share_of_unprofiled=dev_ms / np.mean([r["ms"] for r in timed]),
-                kernels=int(sum(e.count for e in on_dev)),
-                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
-                     for e in top])
-    for name in ("prologue_kernel", "sweep_kernel"):
-        mine = [e for e in on_dev if name in e.key]
-        busy[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
-                      int(sum(e.count for e in mine)))
-    log("6c", t0, f"profiled iteration {wall:.2f} ms, device busy "
-        f"{dev_ms:.2f} ms ({100 * busy['share']:.1f}%, "
-        f"{100 * busy['share_of_unprofiled']:.1f}% of the unprofiled mean) "
-        f"in {busy['kernels']} kernels; prologue kernel "
-        f"{busy['prologue_kernel'][0]:.2f} ms in "
-        f"{busy['prologue_kernel'][1]} launches, sweep "
-        f"{busy['sweep_kernel'][0]:.2f} ms in {busy['sweep_kernel'][1]}; "
-        f"top {busy['top']}; card {card}")
-    if dev_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
+    busy = device_busy("6c", t0, card, "iteration", lambda: integ.step(
+        scene, state, 2 + n_timed, pixels, key, cdf, pmf),
+        np.mean([r["ms"] for r in timed]))
 
     # -- 6d: determinism and resume ------------------------------------------
     t0 = time.perf_counter()
@@ -976,6 +996,433 @@ def slice5(dev, card, scene, t_all):
                chunks=dict(pixel_chunk=integ.pixel_chunk,
                            pair_chunk=integ.pair_chunk))
     log(6, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def median_ms(fn, n):
+    """``fn`` warm once, then each of ``n`` calls timed alone with CUDA
+    events: (median ms, every ms)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times)), times
+
+
+def record_sweep_calls(render, *args, **kw):
+    """Run ``render(*args, **kw)``; return (its result, [(o, d, t_max,
+    any_hit)] of every sweep call, the accelerator of each call). An
+    animated frame makes its accelerator inside the render, so the class's
+    method is wrapped for the call and restored after."""
+    from trace_tpu_torch.ops.sweep import SweepAccelerator
+
+    calls, accs = [], []
+    traced = SweepAccelerator.intersect
+
+    def record(self, o, d, t_max, any_hit):
+        calls.append((o.clone(), d.clone(), t_max.clone(), any_hit))
+        accs.append(self)
+        return traced(self, o, d, t_max, any_hit)
+
+    SweepAccelerator.intersect = record
+    try:
+        out = render(*args, **kw)
+    finally:
+        SweepAccelerator.intersect = traced
+    return out, calls, accs
+
+
+def check_launches(phase, acc, calls):
+    """Every sweep launch of the recorded calls (and the camera rays as
+    any-hit) against sweep_plain: hits, ids and t within T_RTOL, the same
+    steps, and the step-counting arm's results equal to the default arm's;
+    the prologue kernel bit-equal to its plain version on every launched
+    chunk, and no live lane in a skipped chunk. Returns (the agreement per
+    call, the prologue's, sweep_chunks' launches)."""
+    import torch
+    from trace_tpu_torch.ops.sweep import sweep_kernel, sweep_plain
+
+    pro_tot, agree = {}, {}
+    b = acc.block_rays
+    chunks = sweep_chunks(acc, calls, pro_tot)
+    for name, anyh, ch in chunks:
+        tot = {}
+        for _, args in ch:
+            kt, ki = sweep_kernel(*args, acc.panel, b, anyh)
+            st, si, ks = sweep_kernel(*args, acc.panel, b, anyh,
+                                      collect_stats=True)
+            pt, pi, ps = sweep_plain(*args, acc.panel, b, anyh,
+                                     collect_stats=True)
+            torch.cuda.synchronize()
+            accumulate(tot, compare(kt, ki, pt, pi))
+            tot["steps_differ"] = tot.get("steps_differ", 0) + int(
+                (ks != ps).sum())
+            tot["stats_arm_differs"] = tot.get("stats_arm_differs", 0) + int(
+                not (torch.equal(st, kt) and torch.equal(si, ki)))
+            tot["launches"] = tot.get("launches", 0) + 1
+        agree[name] = tot
+        if disagrees(tot) or tot.get("steps_differ") \
+                or tot.get("stats_arm_differs"):
+            raise AssertionError(f"[{phase}] kernel disagrees with plain: "
+                                 f"{name} {tot}")
+    if prologue_disagrees(pro_tot):
+        raise AssertionError(f"[{phase}] prologue kernel disagrees: "
+                             f"{pro_tot}")
+    return agree, pro_tot, chunks
+
+
+def walk_stats(acc, calls):
+    """Per recorded call, through ``acc``'s tables (in its own ray order):
+    launches, the sweep's steps, the busiest block's steps and the kernel's
+    ms (3 launches each, summed over the call's chunks)."""
+    from trace_tpu_torch.ops.sweep import sweep_kernel
+
+    rows = []
+    for o, d, tm, anyh in calls:
+        perm = acc.coherence_order(o, d, tm)
+        o, d, tm = o[perm], d[perm], tm[perm]
+        row = dict(launches=0, steps=0, busiest=0, ms=0.0)
+        for s in acc.live_chunks(tm):
+            sl = slice(s, s + acc.ray_chunk)
+            args = acc.prologue(o[sl], d[sl], tm[sl])
+            steps = sweep_kernel(*args, acc.panel, acc.block_rays, anyh,
+                                 collect_stats=True)[2]
+            row["launches"] += 1
+            row["steps"] += int(steps.sum())
+            row["busiest"] = max(row["busiest"], int(steps.max()))
+            row["ms"] += cuda_ms(lambda: sweep_kernel(
+                *args, acc.panel, acc.block_rays, anyh), 3)
+        rows.append(row)
+    return rows
+
+
+def tables_differ(a, b) -> list:
+    """The fields in which two SweepTables (host or device) differ."""
+    import torch
+
+    def host(x):
+        return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+    return [f for f in ("panel", "slot_to_tri", "s_lo", "s_hi")
+            if not np.array_equal(host(getattr(a, f)), host(getattr(b, f)))]
+
+
+def glass_standin(nu=296, nv=150) -> dict:
+    """Bench config 5's stand-in for the caustic glass, whose PLY is not in
+    the repository: a closed UV sphere of radius 1 at the caustic mesh's box
+    centre in the PLY's frame, (-3.75, 2.5, 2.425) (world (1.25, 1.01,
+    -97.575), in the moving spot's cone above the floor), 2 nu (nv - 1) =
+    88,208 triangles wound outward, with smooth normals, as load_ply's
+    dict."""
+    centre = np.array([-3.75, 2.5, 2.425], np.float32)
+    th = np.linspace(0.0, np.pi, nv + 1)[1:-1]
+    ph = np.arange(nu) * (2.0 * np.pi / nu)
+    ring = np.stack([np.outer(np.sin(th), np.cos(ph)),
+                     np.repeat(np.cos(th)[:, None], nu, 1),
+                     np.outer(np.sin(th), np.sin(ph))], -1).reshape(-1, 3)
+    unit = np.concatenate([[[0.0, 1.0, 0.0]], ring,
+                           [[0.0, -1.0, 0.0]]]).astype(np.float32)
+    j = np.arange(nu)[None]
+    a = 1 + np.arange(nv - 1)[:, None] * nu + j     # ring i, column j
+    b = 1 + np.arange(nv - 1)[:, None] * nu + (j + 1) % nu
+    last = unit.shape[0] - 1
+    idx = np.concatenate([
+        np.stack([np.zeros(nu, np.int64), a[0], b[0]], -1),
+        np.stack([a[:-1], a[1:], b[:-1]], -1).reshape(-1, 3),
+        np.stack([b[:-1], a[1:], b[1:]], -1).reshape(-1, 3),
+        np.stack([np.full(nu, last), b[-1], a[-1]], -1)])
+    verts = unit + centre
+    p = verts[idx]
+    inward = (np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+              * (p.mean(1) - centre)).sum(-1) < 0
+    idx[inward] = idx[inward][:, [0, 2, 1]]
+    return dict(indices=idx.astype(np.uint32), vertices=verts,
+                normals=unit, uv=None)
+
+
+# Phase 7's motions: the 1M terrain's frame (7b), and bench config 5's
+# per-frame translation of the whole scene (bench.py:1059-1063), over the
+# frames it times (shifts 0.1, 0.2, ...; shift 0 warms).
+ANIM_XF = (0.0, 0.05, 0.0), 2.0
+ANIM_SHIFTS = (0.1, 0.2, 0.3, 0.4)
+
+
+def slice7(dev, card, scene, t_all):
+    """Phase 7: animated geometry (module docstring)."""
+    import torch
+    from trace_tpu_torch.accel import clusters as TC
+    from trace_tpu_torch.accel.morton import build_clusters_device
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.integrators import common as IC
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import caustic_glass, caustic_moving, \
+        mesh_heavy
+    from trace_tpu_torch.ops import sweep as TS
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.scene import GROUP, LEAF_TRIS
+    from trace_tpu_torch.shapes import triangle as tri_mod
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 7a: the device rebuild of the 1M mesh against the host packing ----
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    xf = T.compose(T.translate(ANIM_XF[0]), T.rotate_y(ANIM_XF[1]))
+    base = tri_mod.to_device(scene.triangles, dev)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tris, tables = IC.prepare_geometry(scene, base, xf)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+    rebuild_ms, rebuild_all = median_ms(
+        lambda: IC.prepare_geometry(scene, base, xf), 5)
+    clusters = build_clusters_device(tris, LEAF_TRIS)
+    host = TC.ClusterAccel(*(x.cpu().numpy() for x in clusters[:4]),
+                           LEAF_TRIS)
+    packing = tables_differ(tables, TS.SweepTables(host, GROUP))
+    # The same transform and build on the host's CPU: the same bits.
+    cpu_tris = tri_mod.transform_triangles(
+        tri_mod.to_device(scene.triangles, "cpu"), xf)
+    cpu_cl = build_clusters_device(cpu_tris, LEAF_TRIS)
+    cpu_differ = [f for f in tri_mod.Triangles._fields if not torch.equal(
+        getattr(tris, f).cpu(), getattr(cpu_tris, f))] + [
+        f for f in ("c_lo", "c_hi", "packed_mt", "tri_id") if not
+        torch.equal(getattr(clusters, f).cpu(), getattr(cpu_cl, f))]
+    del host, cpu_tris, cpu_cl
+    # Refit the scene's SAH tables to the moved mesh: super boxes against
+    # the moved vertices' own, and back to the base mesh: the static
+    # tables, bit for bit.
+    sah = scene.accel.tables
+    racc = scene.sweep(sah)
+    t1 = time.perf_counter()
+    racc.refit(tris.v0, tris.v1, tris.v2)
+    refit_s = time.perf_counter() - t1
+    slot = racc.slot_to_tri.reshape(sah.n_supers, -1)
+    ok = (slot >= 0)[..., None]
+    vlo = torch.minimum(torch.minimum(tris.v0, tris.v1), tris.v2)
+    vhi = torch.maximum(torch.maximum(tris.v0, tris.v1), tris.v2)
+    s_lo = torch.where(ok, vlo[slot.clamp_min(0)], float("inf")).amin(1)
+    s_hi = torch.where(ok, vhi[slot.clamp_min(0)], -float("inf")).amax(1)
+    boxes_ok = torch.equal(s_lo, racc.s_lo) and torch.equal(s_hi, racc.s_hi)
+    racc.refit(base.v0, base.v1, base.v2)
+    refit_back = tables_differ(racc.tables, sah)
+    del racc, slot, ok, vlo, vhi, s_lo, s_hi
+    out["a"] = dict(n_triangles=scene.n_triangles, rebuild_ms=rebuild_ms,
+                    rebuild_all_ms=rebuild_all, peak_gib=peak,
+                    morton_supers=tables.n_supers, sah_supers=sah.n_supers,
+                    clusters=int(clusters.tri_id.shape[0]), refit_s=refit_s,
+                    packing_differs=packing, cpu_build_differs=cpu_differ,
+                    refit_boxes_equal=boxes_ok, refit_back_differs=refit_back)
+    log("7a", t0, f"1M mesh ({scene.n_triangles} triangles) moved and "
+        f"rebuilt on the card: {rebuild_ms:.3f} ms (median of 5: "
+        f"{[round(x, 3) for x in rebuild_all]}), {out['a']['clusters']} "
+        f"Morton clusters in {tables.n_supers} supers (SAH: "
+        f"{sah.n_supers}), peak {peak:.3f} GiB over the resident mesh; "
+        f"device tables vs host packing of the same clusters: differ in "
+        f"{packing or 'nothing'}; vs the same build on the CPU: differ in "
+        f"{cpu_differ or 'nothing'}; refit of the SAH tables {refit_s:.2f} "
+        f"s (host), super boxes equal the moved vertices' {boxes_ok}, "
+        f"refit back to the base mesh differs from the static build in "
+        f"{refit_back or 'nothing'}; card {card}")
+    if packing or cpu_differ or refit_back or not boxes_ok:
+        raise AssertionError(f"device rebuild or refit mismatch: {out['a']}")
+    del clusters, tables, tris
+
+    # -- 7b: the animated 1M Whitted frame ------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    png = os.path.join(tmp, "chip_smoke_anim_1m.png")
+    integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
+                              U.UniformSampler(1, seed=0), max_depth=2)
+    kw = dict(geometry=base, geometry_transform=xf)
+    sweep_kernel.reset_counts()
+    block_entry_kernel.reset_counts()
+    state, calls, accs = record_sweep_calls(integ.render, scene, **kw)
+    acc = accs[0]
+    launches = dict(sweep=sweep_kernel.launches,
+                    f32=sweep_kernel.arm_launches["f32"],
+                    prologue=block_entry_kernel.launches,
+                    skipped=acc.skipped_chunks)
+    img = image(integ, state)
+    integ.camera.film.save_png(state)
+    if launches["sweep"] <= 0 or launches["f32"] != launches["sweep"] \
+            or launches["prologue"] != launches["sweep"] \
+            or any(a is not acc for a in accs) or acc is scene.accel \
+            or not torch.is_tensor(acc.tables.panel):
+        raise AssertionError(f"the animated frame did not run the kernels "
+                             f"on device-built tables: {launches}")
+    agree, pro, _ = check_launches("7b", acc, calls)
+    rebuilt = mesh_heavy.build_scene(1_000_000, device=dev,
+                                     terrain_to_world=xf)
+    ref_img = image(integ, integ.render(rebuilt))
+    mse = float(np.mean((img - ref_img) ** 2))
+    lanes_differ = []
+    for o, d, tm, anyh in calls:
+        h1, _, i1 = acc.intersect(o, d, tm, anyh)
+        h2, _, i2 = rebuilt.accel.intersect(o, d, tm, anyh)
+        diff = h1 != h2
+        if not anyh:
+            diff |= h1 & (i1 != i2)
+        lanes_differ.append(int(diff.sum()))
+    walks = dict(morton=walk_stats(acc, calls),
+                 sah=walk_stats(rebuilt.accel, calls))
+    times, _ = timed_frames(integ, scene, **kw)
+    static_times, _ = timed_frames(integ, rebuilt)
+    out["b"] = dict(launches=launches, agreement=agree, prologue=pro,
+                    mse=mse, lanes_differ=lanes_differ, walks=walks,
+                    frame_ms=times, rebuilt_scene_frame_ms=static_times)
+    log("7b", t0, f"animated 256^2 depth-2 frame: {len(calls)} sweep calls, "
+        f"launches {launches}; every launch equal to sweep_plain with the "
+        f"same steps ({sum(t.get('launches', 0) for t in agree.values())} "
+        f"checked), prologue bit-equal ({pro}); vs the scene rebuilt from "
+        f"the moved mesh (SAH): MSE {mse:.3e} (gate {MSE_GATE}), lanes whose "
+        f"hit or triangle differs per call {lanes_differ}; PNG {png}")
+    for label, rows in walks.items():
+        log("7b", t0, f"{label} supers, same rays: steps "
+            f"{[r['steps'] for r in rows]}, busiest block "
+            f"{[r['busiest'] for r in rows]}, kernel ms "
+            f"{[round(r['ms'], 3) for r in rows]}")
+    log("7b", t0, f"frames {[round(x, 2) for x in times]} ms (mean "
+        f"{np.mean(times):.2f}); the rebuilt scene's static frames "
+        f"{[round(x, 2) for x in static_times]} ms (mean "
+        f"{np.mean(static_times):.2f}); card {card}")
+    if not (np.isfinite(img).all() and mse < MSE_GATE):
+        raise AssertionError(f"animated 1M frame: MSE {mse}")
+    del calls, accs, acc, rebuilt, base, state
+    torch.cuda.empty_cache()
+
+    # -- 7c: bench config 5's settings on the stand-in ----------------------
+    t0 = time.perf_counter()
+    scene5 = caustic_glass.scene_around(glass_standin(), dev)
+    base5 = tri_mod.to_device(scene5.triangles, dev)
+    png5 = os.path.join(tmp, "chip_smoke_anim_relight.png")
+    integ5 = SPPMIntegrator(caustic_glass.build_camera(128, png5),
+                            initial_search_radius=0.055, max_depth=5,
+                            n_iterations=2, photons_per_iteration=65536,
+                            device=dev)
+
+    def move(shift):
+        return T.translate([0.0, 0.002 * shift, 0.0])
+
+    def frame(shift):
+        caustic_moving.set_frame_lights(scene5, shift)
+        return integ5.render(scene5, n_iterations=2, geometry=base5,
+                             geometry_transform=move(shift))
+
+    rebuild5_ms, rebuild5_all = median_ms(
+        lambda: IC.prepare_geometry(scene5, base5, move(0.1)), 5)
+    frame(0.0)   # warm
+    marks, views = [], []
+    prep, apply_ = IC.prepare_geometry, IC.apply_geometry
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    def prep_timed(*a, **k):
+        geom = prep(*a, **k)
+        mark("rebuild")
+        return geom
+
+    def apply_timed(*a, **k):
+        view = apply_(*a, **k)
+        views.append(view)
+        mark("view")
+        return view
+
+    time_phases(integ5, marks)
+    IC.prepare_geometry, IC.apply_geometry = prep_timed, apply_timed
+    states, rows = {}, []
+    try:
+        for shift in ANIM_SHIFTS:
+            marks.clear()
+            views.clear()
+            sweep_kernel.reset_counts()
+            block_entry_kernel.reset_counts()
+            mark("start")
+            st = frame(shift)
+            mark("end")
+            torch.cuda.synchronize()
+            states[shift] = st
+            row = dict(shift=shift, ms=marks[0][1].elapsed_time(marks[-1][1]),
+                       sweep_launches=sweep_kernel.launches,
+                       f32_launches=sweep_kernel.arm_launches["f32"],
+                       prologue_launches=block_entry_kernel.launches,
+                       skipped_chunks=views[0].accel.skipped_chunks,
+                       gathered=int((st.tau.sum(-1) > 0).sum()),
+                       finite=bool(torch.isfinite(
+                           integ5.to_image(st, 2)).all()))
+            # Each mark ends a span that starts at the mark before it.
+            row["spans"] = [(n, p.elapsed_time(e)) for (_, p), (n, e)
+                            in zip(marks[:-1], marks[1:])]
+            rows.append(row)
+            log("7c", t0, f"frame shift {shift}: {row['ms']:.2f} ms; " +
+                ", ".join(f"{n} {ms:.2f}" for n, ms in row["spans"]) +
+                f" ms; sweep launches {row['sweep_launches']}, prologue "
+                f"{row['prologue_launches']}, chunks skipped "
+                f"{row['skipped_chunks']}, pixels with tau > 0 "
+                f"{row['gathered']}, finite {row['finite']}; card {card}")
+            if row["sweep_launches"] <= 0 or row["f32_launches"] != \
+                    row["sweep_launches"] or row["prologue_launches"] != \
+                    row["sweep_launches"] or row["gathered"] <= 0 \
+                    or not row["finite"]:
+                raise AssertionError(f"config-5 frame {shift}: {row}")
+    finally:
+        IC.prepare_geometry, IC.apply_geometry = prep, apply_
+        for name in SPPM_PHASES:
+            delattr(integ5, name)
+    integ5.save(states[ANIM_SHIFTS[-1]], 2)
+    frame_ms = [r["ms"] for r in rows]
+    busy = device_busy("7c", t0, card, "frame", lambda: frame(0.5),
+                       np.mean(frame_ms))
+    # One frame's every sweep launch against the plain version.
+    _, calls5, accs5 = record_sweep_calls(frame, 0.5)
+    agree5, pro5, _ = check_launches("7c", accs5[0], calls5)
+    del calls5, accs5
+    # render_frames: frame k is the render of frame k; and a frame of
+    # pre-moved triangles is the frame moved on the device.
+    stacked = integ5.render_frames(
+        scene5, [caustic_moving.frame_lights(s) for s in ANIM_SHIFTS],
+        n_iterations=2, geometry=base5,
+        frame_transforms=[move(s) for s in ANIM_SHIFTS])
+    batch_same = [states_equal(caustic_moving._frame(stacked, k), states[s])
+                  for k, s in enumerate(ANIM_SHIFTS)]
+    s = ANIM_SHIFTS[0]
+    caustic_moving.set_frame_lights(scene5, s)
+    moved_same = states_equal(integ5.render(
+        scene5, n_iterations=2,
+        geometry=tri_mod.transform_triangles(base5, move(s))), states[s])
+    out["c"] = dict(n_triangles=scene5.n_triangles, rebuild_ms=rebuild5_ms,
+                    rebuild_all_ms=rebuild5_all, frames=rows, busy=busy,
+                    agreement=agree5, prologue=pro5,
+                    render_frames_same_bits=batch_same,
+                    moved_geometry_same_bits=moved_same)
+    log("7c", t0, f"stand-in ({scene5.n_triangles} triangles) 128^2, 2 "
+        f"iterations of 65536 "
+        f"photons a frame, depth 5, r0 0.055: frames "
+        f"{[round(x, 2) for x in frame_ms]} ms (mean {np.mean(frame_ms):.2f}"
+        f"), rebuild alone {rebuild5_ms:.3f} ms (median of 5); one frame's "
+        f"{sum(t.get('launches', 0) for t in agree5.values())} sweep launches "
+        f"equal to sweep_plain, prologue bit-equal ({pro5}); render_frames "
+        f"frame k == render of frame k: {batch_same}; pre-moved geometry == "
+        f"moved on the card: {moved_same}; PNG {png5}; card {card}")
+    if not (all(batch_same) and moved_same):
+        raise AssertionError("render_frames or pre-moved geometry differs "
+                             "from render")
+    log(7, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
     return out
 
 
@@ -1403,6 +1850,23 @@ def main() -> int:
     with open(os.path.join(REPO, "chiprun_out", "slice5.json"), "w") as f:
         json.dump(dict(card=card, **s5), f, indent=1)
     sppm_launches = s5["iterations"][1]
+
+    # -- 7: animated geometry -------------------------------------------------
+    del s5
+    torch.cuda.empty_cache()
+    s7 = slice7(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice7.json"), "w") as f:
+        json.dump(dict(card=card, **s7), f, indent=1)
+    anim = dict(
+        anim_whitted_launches=s7["b"]["launches"]["sweep"],
+        anim_sppm_launches_per_frame=[r["sweep_launches"]
+                                      for r in s7["c"]["frames"]])
+    anim_pro = dict(
+        anim_whitted_launches=s7["b"]["launches"]["prologue"],
+        anim_sppm_launches_per_frame=[r["prologue_launches"]
+                                      for r in s7["c"]["frames"]],
+        anim_sppm_skipped_chunks_per_frame=[r["skipped_chunks"]
+                                            for r in s7["c"]["frames"]])
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
@@ -1431,7 +1895,7 @@ def main() -> int:
     kernels = [
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
-             sppm_launches=sppm_launches["sweep_launches"]),
+             sppm_launches=sppm_launches["sweep_launches"], **anim),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -1458,7 +1922,7 @@ def main() -> int:
                    plain_key="prologue_plain_ms", bound_key="prologue_bound",
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
-             sppm_skipped_chunks=sppm_launches["skipped_chunks"]),
+             sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

@@ -570,10 +570,16 @@ def test_left_out_paths_refuse():
             TSp.SPPMIntegrator(cam, device="cpu", **kw)
     integ = TSp.SPPMIntegrator(cam, device="cpu")
     scene = TSph.build_scene(device="cpu")
-    with pytest.raises(NotImplementedError):
-        integ.render(scene, geometry=object())
-    with pytest.raises(NotImplementedError):
-        integ.render_frames(scene, [])
+    # Animated geometry and render_frames are ported
+    # (tests/test_torch_animated.py); they refuse a transform without
+    # geometry and frames with unequal light counts.
+    from trace_tpu_torch.core import transform as TT
+
+    with pytest.raises(ValueError):
+        integ.render(scene, geometry_transform=TT.identity())
+    light = TL.point_light(TT.translate([0.0, 5.0, 0.0]), (1.0, 1.0, 1.0))
+    with pytest.raises(ValueError):
+        integ.render_frames(scene, [[light], [light, light]])
     with pytest.raises(NotImplementedError):
         integ.fused_cost_analysis(scene)
     with pytest.raises(ValueError, match="cuda"):

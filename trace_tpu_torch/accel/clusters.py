@@ -18,6 +18,7 @@ from . import native
 
 
 class ClusterAccel(NamedTuple):
+    """Host numpy (the SAH build), or device tensors (accel/morton.py)."""
     c_lo: np.ndarray       # [C, 3] cluster AABBs
     c_hi: np.ndarray
     packed_mt: np.ndarray  # [C, 16L->%128] MT constants n|e1|e2|w|q|v0n
@@ -39,12 +40,23 @@ def build_clusters(tris: tri_mod.Triangles, leaf_tris: int = 32,
     src = np.minimum(starts[:, None] + k_grid, len(order) - 1)
     tri_id = np.where(in_range, order[src], -1).astype(np.int32)
     packed_mt = native.cluster_pack(tris.v0, tris.v1, tris.v2, tri_id,
-                                    leaf_tris)
+                                    leaf_tris)[0]
     tri_id = np.pad(tri_id, ((0, 0), (0, (-leaf_tris) % 128)),
                     constant_values=-1)
     return ClusterAccel(np.ascontiguousarray(c_lo),
                         np.ascontiguousarray(c_hi), packed_mt, tri_id,
                         int(leaf_tris))
+
+
+def refit_clusters(accel: ClusterAccel, v0, v1, v2) -> ClusterAccel:
+    """The clusters' bounds and constants for moved vertices (host numpy
+    [T, 3]) with the same topology, on the host as in the JAX package:
+    the constants through the build's double-precision route, the boxes
+    as the clusters' vertex AABBs, so a refit equals a static build of the
+    same clusters bit for bit."""
+    packed_mt, lo, hi = native.cluster_pack(v0, v1, v2, accel.tri_id,
+                                            accel.leaf_tris)
+    return accel._replace(c_lo=lo, c_hi=hi, packed_mt=packed_mt)
 
 
 def entry_boxes(lo: torch.Tensor, hi: torch.Tensor, o: torch.Tensor,

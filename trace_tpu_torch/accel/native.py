@@ -131,9 +131,11 @@ def cluster_cut(right_child: np.ndarray, n_prims: np.ndarray,
 
 
 def cluster_pack(v0, v1, v2, tri_id: np.ndarray, leaf_tris: int):
-    """Moller-Trumbore constants per cluster, computed in double and
-    rounded once: [C, 16*L padded to 128] rows n|e1|e2|w|q (3L each,
-    component-major) then v0.n (L); padding slots stay zero."""
+    """(packed_mt, lo, hi): Moller-Trumbore constants per cluster, computed
+    in double and rounded once: [C, 16*L padded to 128] rows n|e1|e2|w|q
+    (3L each, component-major) then v0.n (L), padding slots zero; and each
+    cluster's vertex AABB [C, 3] (an empty cluster gets lo 3e38, hi
+    -3e38)."""
     lib = load()
     c = tri_id.shape[0]
     l = int(leaf_tris)
@@ -144,8 +146,9 @@ def cluster_pack(v0, v1, v2, tri_id: np.ndarray, leaf_tris: int):
                      for v in (v0, v1, v2))
     packed = np.empty((c, p_stride), np.float32)
     packed_mt = np.empty((c, mt_stride), np.float32)
-    null = _F()
+    lo = np.empty((c, 3), np.float32)
+    hi = np.empty((c, 3), np.float32)
     lib.cluster_pack(_fp(v0c), _fp(v1c), _fp(v2c), _ip(tid), c, l,
                      p_stride, mt_stride, _fp(packed), _fp(packed_mt),
-                     null, null)
-    return packed_mt
+                     _fp(lo), _fp(hi))
+    return packed_mt, lo, hi

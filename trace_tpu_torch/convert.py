@@ -22,7 +22,8 @@ identical data. Keys (all numpy):
   then intersects through the fused brute-force accelerator.
 
 ``sppm_state_from_numpy`` carries an SPPM state across the same way, so a
-run of the JAX package resumes in the port.
+run of the JAX package resumes in the port; ``triangles_from_jax`` and
+``transform_from_jax`` carry a frame's geometry and motion.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.transform import Transform
 from .lights import lights as light_mod
 from .materials import materials as M
 from .ops import intersect
@@ -102,6 +104,19 @@ def sppm_state_from_numpy(src, device):
     return SPPMState(**{
         k: torch.from_numpy(np.array(v, dtypes.get(k, np.float32))).to(
             device) for k, v in zip(names, vals)})
+
+
+def triangles_from_jax(tris) -> Triangles:
+    """A JAX package Triangles (device or host arrays) -> the port's
+    Triangles of host numpy arrays, field by field."""
+    return Triangles(*[np.asarray(getattr(tris, f)) for f in
+                       Triangles._fields])
+
+
+def transform_from_jax(xf) -> Transform:
+    """A JAX package Transform (m, inv_m) -> the port's, float32."""
+    return Transform(np.asarray(xf.m, np.float32),
+                     np.asarray(xf.inv_m, np.float32))
 
 
 def scene_from_numpy(arrays: dict, device) -> Scene:

@@ -87,6 +87,14 @@ def scale(x, y, z) -> Transform:
     return Transform(mat, inv)
 
 
+def rotate_y(deg: float) -> Transform:
+    """Rotation about +y; the inverse is the transpose."""
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    mat = np.eye(4, dtype=np.float32)
+    mat[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    return Transform(mat, mat.T.copy())
+
+
 def look_at(position, target, up) -> Transform:
     """Camera-to-world transform (z axis = position - target)."""
     position = np.asarray(position, np.float32)

@@ -15,6 +15,7 @@ from ..core.ray import scale_differentials
 from ..film.film import FilmState
 from ..sampler import uniform as U
 from ..sampler.uniform import UniformSampler
+from . import common
 
 F32 = torch.float32
 
@@ -46,7 +47,16 @@ class SamplerIntegrator:
         grid = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
         return torch.from_numpy(grid).to(device)
 
-    def render(self, scene) -> FilmState:
+    def render(self, scene, geometry=None, geometry_transform=None,
+               geometry_accel=None) -> FilmState:
+        """Render ``scene``. ``geometry`` (optional): a Triangles table with
+        the scene's topology and moved vertices, which replaces the
+        scene's for this render -- one frame of animated geometry, its
+        sweep tables rebuilt on the device; ``geometry_transform`` moves
+        it there first; ``geometry_accel`` gives pre-built tables instead
+        (common.prepare_geometry)."""
+        scene = common.apply_geometry(scene, common.prepare_geometry(
+            scene, geometry, geometry_transform, geometry_accel))
         dev = scene.device
         film = self.camera.film
         state = film.initial_state(dev)

@@ -30,6 +30,13 @@ def build_scene(ply_path: str = PLY_NAME, device="cuda") -> Scene:
         raise FileNotFoundError(
             f"caustic_glass needs the reference's mesh at {ply_path!r}; the "
             f"file is absent (it is not in the repository)")
+    return scene_around(load_ply(ply_path), device)
+
+
+def scene_around(mesh: dict, device="cuda") -> Scene:
+    """The scene around a glass mesh given as load_ply's dict (indices,
+    vertices, normals, uv; normals and uv may be None) in the PLY's own
+    frame, which the scene moves by (5, -1.49, -100)."""
     b = SceneBuilder()
     glass = b.material(GlassMaterial(
         Kr=(1.0, 1.0, 1.0), Kt=(1.0, 1.0, 1.0), u_roughness=0.0,
@@ -38,10 +45,9 @@ def build_scene(ply_path: str = PLY_NAME, device="cuda") -> Scene:
         Kd=(0.6399999857,) * 3, Ks=(0.1000000015,) * 3,
         roughness=0.010408001, remap_roughness=True))
 
-    mesh = load_ply(ply_path)
     b.triangle_mesh(T.translate([5.0, -1.49, -100.0]), mesh["indices"],
-                    mesh["vertices"], glass, normals=mesh["normals"],
-                    uv=mesh["uv"])
+                    mesh["vertices"], glass, normals=mesh.get("normals"),
+                    uv=mesh.get("uv"))
 
     # The intended 30 x 30 floor quad (the reference's vertex list
     # collapses both triangles onto a line, as the JAX twin notes).

@@ -37,14 +37,15 @@ def heightfield(n: int):
 
 
 def build_scene(target_tris: int = 1_000_000, device="cuda",
-                **build_kw) -> Scene:
-    """``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
+                terrain_to_world=None, **build_kw) -> Scene:
+    """``terrain_to_world`` places the heightfield (identity by default);
+    ``build_kw`` goes to SceneBuilder.build (``exact_shared_edges``)."""
     n = int(np.sqrt(target_tris / 2)) + 1
     verts, tris = heightfield(n)
     b = SceneBuilder()
     ground = b.material(MatteMaterial(Kd=(0.55, 0.5, 0.4), sigma=20.0))
     glass = b.material(GlassMaterial(index=1.5))
-    b.triangle_mesh(T.identity(), tris, verts, ground)
+    b.triangle_mesh(terrain_to_world or T.identity(), tris, verts, ground)
     b.sphere(T.translate([0.0, 2.0, 0.0]), 1.0, glass)
     b.light(point_light(T.translate([4.0, 8.0, 4.0]), (400.0, 400.0, 400.0)))
     return b.build(device=device, **build_kw)

@@ -32,7 +32,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..accel.clusters import ClusterAccel, entry_boxes, sort_key
+from ..accel.clusters import (ClusterAccel, entry_boxes, refit_clusters,
+                              sort_key)
 from ..accel.mxu import MT_ERR_EPS, mt_epilogue, mt_epilogue_certified
 from .nvcc import CudaLibrary, check_tensors
 
@@ -72,47 +73,67 @@ def panel_err_eps(bf16: bool, hilo: bool) -> float:
 
 
 class SweepTables:
-    """Kernel tables from a ClusterAccel (host numpy, bit-equal to the
-    JAX package's SweepTables).
+    """Kernel tables from a ClusterAccel, bit-equal to the JAX package's
+    SweepTables: host numpy from the SAH build, or tensors on the
+    clusters' device from the device build (accel/morton.py), packed
+    there without a host round trip.
 
     ``panel`` [S, 16, GLP]: row k is MT component k (n, e1, e2, w, q,
     v0.n) across the super's G clusters (GLP = G*L padded to 128); f32,
-    or with ``panel_bf16`` the same as bf16 bits (uint16), or with
-    ``panel_hilo`` [S, 32, GLP] bf16 bits, rows 0-15 hi and rows 16-31
-    lo = bf16(f32 - hi). ``slot_to_tri`` [S*GLP] maps a local slot
-    s*GLP + k to the global triangle id (-1 = padding; padding slots
-    carry zero constants, so det = 0 and they never hit).
-    ``s_lo``/``s_hi`` [S, 3] are the super AABBs."""
+    or with ``panel_bf16`` the same as bf16 bits (uint16; a bf16 tensor on
+    a device), or with ``panel_hilo`` [S, 32, GLP] bf16 bits, rows 0-15 hi
+    and rows 16-31 lo = bf16(f32 - hi). ``slot_to_tri`` [S*GLP] maps a
+    local slot s*GLP + k to the global triangle id (-1 = padding; padding
+    slots carry zero constants, so det = 0 and they never hit).
+    ``s_lo``/``s_hi`` [S, 3] are the super AABBs. The cluster count is
+    padded to a multiple of G with empty clusters that repeat the last
+    cluster's box."""
 
     def __init__(self, accel: ClusterAccel, group: int = 8,
                  panel_bf16: bool = False, panel_hilo: bool = False):
         l = accel.leaf_tris
-        c = accel.tri_id.shape[0]
         g = int(group)
+        on_device = torch.is_tensor(accel.packed_mt)
+        mt, tid, c_lo, c_hi = (torch.as_tensor(a) for a in (
+            accel.packed_mt[:, :16 * l], accel.tri_id[:, :l], accel.c_lo,
+            accel.c_hi))
+        c = tid.shape[0]
         pad_c = (-c) % g
-        mt = accel.packed_mt[:, :16 * l]
-        tid = accel.tri_id[:, :l]
-        c_lo, c_hi = accel.c_lo, accel.c_hi
         if pad_c:
-            mt = np.pad(mt, ((0, pad_c), (0, 0)))
-            tid = np.pad(tid, ((0, pad_c), (0, 0)), constant_values=-1)
-            c_lo = np.concatenate([c_lo, np.repeat(c_lo[-1:], pad_c, 0)])
-            c_hi = np.concatenate([c_hi, np.repeat(c_hi[-1:], pad_c, 0)])
+            mt = torch.cat([mt, mt.new_zeros((pad_c, 16 * l))])
+            tid = torch.cat([tid, tid.new_full((pad_c, l), -1)])
+            c_lo = torch.cat([c_lo, c_lo[-1:].expand(pad_c, 3)])
+            c_hi = torch.cat([c_hi, c_hi[-1:].expand(pad_c, 3)])
         s = (c + pad_c) // g
         gl = g * l
         gl_pad = -(-gl // 128) * 128
-        panel = mt.reshape(s, g, 16, l).transpose(0, 2, 1, 3).reshape(s, 16, gl)
-        panel = np.asarray(np.pad(panel, ((0, 0), (0, 0), (0, gl_pad - gl))),
-                           np.float32)
-        slot = np.full((s, gl_pad), -1, np.int32)
+        panel = mt.reshape(s, g, 16, l).transpose(1, 2).reshape(s, 16, gl)
+        panel = torch.nn.functional.pad(panel.to(F32), (0, gl_pad - gl))
+        slot = tid.new_full((s, gl_pad), -1)
         slot[:, :gl] = tid.reshape(s, gl)
-        self._set(cast_panel(panel, panel_bf16, panel_hilo),
-                  slot.reshape(-1), c_lo.reshape(s, g, 3).min(axis=1),
-                  c_hi.reshape(s, g, 3).max(axis=1))
+        tables = (panel, slot.reshape(-1), c_lo.reshape(s, g, 3).amin(1),
+                  c_hi.reshape(s, g, 3).amax(1))
+        if on_device:
+            self._set(cast_panel_tensor(panel, panel_bf16, panel_hilo),
+                      *tables[1:])
+        else:
+            self._set(cast_panel(panel.numpy(), panel_bf16, panel_hilo),
+                      *(t.numpy() for t in tables[1:]))
         self.group = g
         self.leaf_tris = l
 
     def _set(self, panel, slot_to_tri, s_lo, s_hi):
+        if torch.is_tensor(panel):
+            kind = _panel_kind(panel)
+            self.panel_bf16 = kind == "bf16"
+            self.panel_hilo = kind == "hilo"
+            self.panel = panel.contiguous()
+            self.slot_to_tri = slot_to_tri.to(torch.int32).contiguous()
+            self.s_lo = s_lo.to(F32).contiguous()
+            self.s_hi = s_hi.to(F32).contiguous()
+            self.n_supers = self.panel.shape[0]
+            self.gl_pad = self.panel.shape[2]
+            return
         self.panel = np.ascontiguousarray(panel)
         rows = (16, 32) if self.panel.dtype == np.uint16 else (16,)
         if self.panel.dtype not in (np.float32, np.uint16) \
@@ -159,8 +180,24 @@ def cast_panel(panel: np.ndarray, bf16: bool = False,
     return np.asarray(panel, np.float32)
 
 
-def panel_tensor(panel: np.ndarray, device) -> torch.Tensor:
-    """A host panel as a device tensor: f32, or bf16 for bf16 bits."""
+def cast_panel_tensor(panel: torch.Tensor, bf16: bool = False,
+                      hilo: bool = False) -> torch.Tensor:
+    """:func:`cast_panel` on a device: the same values, as an f32 or bf16
+    tensor where it lies."""
+    if bf16 and hilo:
+        raise ValueError("panel_bf16 and panel_hilo are mutually exclusive")
+    if bf16:
+        return panel.to(torch.bfloat16)
+    if hilo:
+        hi = panel.to(torch.bfloat16)
+        return torch.cat([hi, (panel - hi.to(F32)).to(torch.bfloat16)], 1)
+    return panel
+
+
+def panel_tensor(panel, device) -> torch.Tensor:
+    """A panel as a device tensor: f32, or bf16 for host bf16 bits."""
+    if torch.is_tensor(panel):
+        return panel.to(device)
     p = np.ascontiguousarray(panel)
     if p.dtype == np.uint16:
         return torch.from_numpy(p.view(np.int16)).view(torch.bfloat16).to(
@@ -543,13 +580,14 @@ class SweepAccelerator:
     (module docstring); with ``collect_stats`` every launch appends its
     per-block step counts [NB] to ``last_steps``. ``skipped_chunks``
     counts the chunks :meth:`intersect` gave the miss result without a
-    launch (no live lane)."""
+    launch (no live lane). ``tables`` may be host numpy or device tensors
+    (a frame's device build); the world box of the ray sort is reduced
+    from the super boxes on the device."""
 
     def __init__(self, tables: SweepTables, device, block_rays: int = 32,
                  ray_chunk: int = 65536, certified: bool = False,
                  pipeline: bool = False, collect_stats: bool = False):
-        dev = torch.device(device)
-        self.tables = tables
+        self.device = torch.device(device)
         self.block_rays = int(block_rays)
         self.ray_chunk = int(ray_chunk)
         self.certified = bool(certified)
@@ -557,16 +595,40 @@ class SweepAccelerator:
         self.collect_stats = bool(collect_stats)
         self.last_steps = []
         self.skipped_chunks = 0
+        self._load(tables)
+
+    def _load(self, tables: SweepTables) -> None:
+        dev = self.device
+        self.tables = tables
         self.panel = panel_tensor(tables.panel, dev)
-        self.slot_to_tri = torch.from_numpy(
-            tables.slot_to_tri.astype(np.int64)).to(dev)
-        self.s_lo = torch.from_numpy(tables.s_lo).to(dev)
-        self.s_hi = torch.from_numpy(tables.s_hi).to(dev)
-        lo = tables.s_lo.min(axis=0)
-        hi = tables.s_hi.max(axis=0)
-        self.world_lo = torch.from_numpy(lo).to(dev)
-        self.world_inv_extent = torch.from_numpy(
-            (1.0 / np.maximum(hi - lo, 1e-12)).astype(np.float32)).to(dev)
+        self.slot_to_tri = torch.as_tensor(tables.slot_to_tri).to(
+            dev, torch.int64)
+        self.s_lo = torch.as_tensor(tables.s_lo).to(dev)
+        self.s_hi = torch.as_tensor(tables.s_hi).to(dev)
+        self.world_lo = self.s_lo.amin(0)
+        self.world_inv_extent = 1.0 / (self.s_hi.amax(0)
+                                       - self.world_lo).clamp_min(1e-12)
+
+    def refit(self, v0, v1, v2) -> None:
+        """Refresh the tables for moved vertices [T, 3] (host or device)
+        with the same topology (port of the JAX package's
+        PallasSweepAccelerator.refit): each cluster keeps its triangles
+        (``slot_to_tri``), its constants and box are recomputed on the
+        host through the static build's double-precision route, and the
+        super boxes follow. The result equals a static build of the same
+        clusters bit for bit."""
+        tb = self.tables
+        if tb.group is None:
+            raise ValueError("refit needs tables packed from clusters "
+                             "(SweepTables.from_arrays keeps no group)")
+        l = tb.leaf_tris
+        slot = torch.as_tensor(tb.slot_to_tri).cpu().numpy().reshape(
+            tb.n_supers, -1)[:, :tb.group * l].reshape(-1, l)
+        host = [x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                for x in (v0, v1, v2)]
+        acc = refit_clusters(ClusterAccel(None, None, None, slot, l), *host)
+        self._load(SweepTables(acc, tb.group, panel_bf16=tb.panel_bf16,
+                               panel_hilo=tb.panel_hilo))
 
     def pad_rays(self, o, d, t_max):
         """(o_p, d_p, t_p): the chunk padded to whole blocks. Padding lanes

@@ -16,6 +16,8 @@ non-constant textures) raises NotImplementedError at ``build()``.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -116,7 +118,6 @@ class Scene:
         self.device = torch.device(device)
         self.exact_edges = bool(exact_edges)
         self.spheres = spheres
-        self.triangles = triangles
         self.materials = list(materials)
         WM.check_materials(self.materials)
         self.n_spheres = sph_mod.num_spheres(spheres)
@@ -127,13 +128,8 @@ class Scene:
         self.sphere_cols = (G.sphere_cols(spheres, dev)
                             if self.n_spheres else None)
         self.sphere_rows = torch.from_numpy(G.sphere_rows(spheres)).to(dev)
-        self.triangle_rows = torch.from_numpy(
-            G.triangle_rows(triangles)).to(dev)
-        self.triangle_cols = (G.triangle_cols(triangles, dev)
-                              if self.n_triangles else None)
-        self.accel = (None if sweep_tables is None else SweepAccelerator(
-            sweep_tables, dev, block_rays=BLOCK_RAYS, ray_chunk=RAY_CHUNK,
-            certified=self.exact_edges))
+        self._set_geometry(triangles, None if sweep_tables is None
+                           else self.sweep(sweep_tables))
 
         bounds = []
         if self.n_spheres:
@@ -146,13 +142,59 @@ class Scene:
         else:
             lo = hi = np.zeros(3, np.float32)
         self.world_lo, self.world_hi = lo, hi
-        center = (lo + hi) / 2
-        self.lights = light_mod.preprocess(
-            lights, center, float(np.linalg.norm(hi - center)))
         if tri_light_id is None:
             tri_light_id = np.full(self.n_triangles, -1, np.int32)
         self.tri_light_id = torch.from_numpy(
             np.asarray(tri_light_id, np.int32).reshape(-1)).to(dev)
-        self.max_area_tris = int(self.lights.tri_count.max(initial=0))
-        self.light_rows = torch.from_numpy(WL.light_rows(self.lights)).to(dev)
+        self.set_lights(light_mod.preprocess(lights, *self.bounding_sphere()))
+
+    def bounding_sphere(self):
+        """(center [3], radius) of the scene's world bounds, the sphere a
+        light table is preprocessed against."""
+        center = (self.world_lo + self.world_hi) / 2
+        return center, float(np.linalg.norm(self.world_hi - center))
+
+    def sweep(self, tables: SweepTables) -> SweepAccelerator:
+        """The scene's sweep over ``tables``, with its block, chunk and
+        certification."""
+        return SweepAccelerator(tables, self.device, block_rays=BLOCK_RAYS,
+                                ray_chunk=RAY_CHUNK,
+                                certified=self.exact_edges)
+
+    def _set_geometry(self, triangles, accel) -> None:
+        """Install a triangle table (host or device) and its accelerator,
+        with the detail rows and brute-force columns built from it."""
+        dev = self.device
+        self.triangles = triangles
+        self.triangle_rows = G.triangle_rows(triangles, dev)
+        self.triangle_cols = (G.triangle_cols(triangles, dev)
+                              if self.n_triangles else None)
+        self.accel = accel
         self.area_tables = {}   # per area-light window (wavefront/lights.py)
+
+    def set_lights(self, lights: light_mod.Lights) -> None:
+        """Install a preprocessed light table in place, with the tables
+        derived from it (the emission rows, the area-light windows)."""
+        self.lights = lights
+        self.max_area_tris = int(lights.tri_count.max(initial=0))
+        self.light_rows = torch.from_numpy(WL.light_rows(lights)).to(
+            self.device)
+        self.area_tables = {}
+
+    def with_lights(self, lights: light_mod.Lights) -> "Scene":
+        """A shallow view of this scene with the light table swapped (a
+        frame's relight); the scene itself is unchanged."""
+        view = copy.copy(self)
+        view.set_lights(lights)
+        return view
+
+    def with_geometry(self, triangles, accel) -> "Scene":
+        """A shallow view with the triangle table (same topology, moved
+        vertices, usually device tensors) and its accelerator swapped: one
+        frame of animated geometry (integrators/common.py). World bounds,
+        materials and the light table stay the base scene's, as in the JAX
+        package; the area-light windows are rebuilt from the moved
+        triangles."""
+        view = copy.copy(self)
+        view._set_geometry(triangles, accel)
+        return view

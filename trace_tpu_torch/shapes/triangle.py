@@ -1,14 +1,20 @@
 """Triangle table packing (port of the host half of
 trace_tpu/shapes/triangle.py). Vertices are transformed to world space
-at build time; intersection lives in ops/sweep.py and wavefront/geom.py."""
+at build time; intersection lives in ops/sweep.py and wavefront/geom.py.
+
+A scene's table is host numpy. Animated geometry holds the same fields as
+device tensors (``to_device``): the base mesh stays resident and each
+frame moves it there (``transform_triangles``)."""
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 
 class Triangles(NamedTuple):
+    """Host numpy arrays, or tensors on one device (``to_device``)."""
     v0: np.ndarray           # [T, 3] world-space vertices
     v1: np.ndarray
     v2: np.ndarray
@@ -74,6 +80,49 @@ def concat_triangles(parts) -> Triangles:
 
 def num_triangles(t: Triangles) -> int:
     return t.v0.shape[0]
+
+
+def to_device(t: Triangles, device) -> Triangles:
+    """The same table as tensors on ``device`` (a device table moves
+    there, or stays)."""
+    return Triangles(*[torch.as_tensor(x).to(device) for x in t])
+
+
+def to_numpy(t: Triangles) -> Triangles:
+    """A device table as host numpy arrays."""
+    return Triangles(*[x.cpu().numpy() if torch.is_tensor(x)
+                       else np.asarray(x) for x in t])
+
+
+def transform_triangles(t: Triangles, transform) -> Triangles:
+    """Move a device table by an affine Transform, on its device: vertices
+    through the matrix, normals through the inverse transpose, in the JAX
+    package's f32 component order (core/math.py mat3_apply and
+    mat3_apply_t, then the translation). The matrix entries ride as host
+    scalars, so only the frame's transform leaves the host. A transform
+    that swaps handedness (det < 0) flips ``flip_normal``, keeping
+    pack_triangle_mesh's invariant (flip = reverse_orientation XOR
+    swaps_handedness)."""
+    m = np.asarray(transform.m, np.float32)
+    inv = np.asarray(transform.inv_m, np.float32)
+    r = [[float(m[i, j]) for j in range(3)] for i in range(3)]
+    ri = [[float(inv[i, j]) for j in range(3)] for i in range(3)]
+    tr = [float(m[i, 3]) for i in range(3)]
+
+    def pt(v):
+        x, y, z = v.unbind(-1)
+        return torch.stack([r[i][0] * x + r[i][1] * y + r[i][2] * z + tr[i]
+                            for i in range(3)], -1)
+
+    def nrm(v):
+        x, y, z = v.unbind(-1)
+        return torch.stack([ri[0][i] * x + ri[1][i] * y + ri[2][i] * z
+                            for i in range(3)], -1)
+
+    swaps = bool(np.linalg.det(m[:3, :3]) < 0)
+    return t._replace(v0=pt(t.v0), v1=pt(t.v1), v2=pt(t.v2),
+                      n0=nrm(t.n0), n1=nrm(t.n1), n2=nrm(t.n2),
+                      flip_normal=t.flip_normal ^ swaps)
 
 
 def world_bounds_np(t: Triangles) -> np.ndarray:

@@ -3,7 +3,8 @@ trace_tpu/wavefront/geom.py).
 
 Every 3-vector is a V3 of flat [N] tensors. Winner details are built from
 one row gather per primitive kind (``sphere_rows``/``triangle_rows``,
-device tensors built once per scene).
+device tensors built once per scene, and once per frame of animated
+geometry).
 """
 from __future__ import annotations
 
@@ -257,9 +258,10 @@ def _watertight(v0: V3, v1: V3, v2: V3, o: V3, d: V3, t_max,
 
 
 def triangle_cols(tris, device) -> tuple:
-    """Vertices as (v0, v1, v2) V3s of [1, T] columns on ``device``."""
+    """Vertices as (v0, v1, v2) V3s of [1, T] columns on ``device``, from
+    a host or a device table."""
     def col(a):
-        a = torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+        a = torch.as_tensor(a, dtype=F32).to(device)
         return V3(a[None, :, 0], a[None, :, 1], a[None, :, 2])
     return col(tris.v0), col(tris.v1), col(tris.v2)
 
@@ -293,21 +295,17 @@ SPH_FIELDS = 32  # w2o 3x4, o2w 3x4, radius, th_min, th_max, phi_max,
 #                  mat_id, flip, 2 pad
 
 
-def triangle_rows(tris) -> np.ndarray:
-    """Host [T, 27] detail rows; material ids ride bitcast to f32."""
+def triangle_rows(tris, device) -> torch.Tensor:
+    """[T, 27] detail rows on ``device``; material ids ride bitcast to
+    f32. A device table (animated geometry) is packed where it lies."""
     n = tris.v0.shape[0]
-    out = np.zeros((max(n, 1), TRI_FIELDS), np.float32)
     if n == 0:
-        return out
-    j = 0
-    for c in (tris.v0, tris.v1, tris.v2, tris.n0, tris.n1, tris.n2,
-              tris.uv0, tris.uv1, tris.uv2):
-        out[:, j:j + c.shape[1]] = c
-        j += c.shape[1]
-    out[:, 24] = tris.has_normals.astype(np.float32)
-    out[:, 25] = np.asarray(tris.material_id, np.int32).view(np.float32)
-    out[:, 26] = tris.flip_normal.astype(np.float32)
-    return out
+        return torch.zeros((1, TRI_FIELDS), dtype=F32, device=device)
+    t = [torch.as_tensor(c).to(device) for c in tris]
+    cols = [c.to(F32) for c in t[:9]] + [t[9].to(F32)[:, None],
+                    t[10].to(torch.int32).contiguous().view(F32)[:, None],
+                    t[11].to(F32)[:, None]]
+    return torch.cat(cols, 1)
 
 
 def sphere_rows(sph) -> np.ndarray:

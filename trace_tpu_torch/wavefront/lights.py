@@ -15,6 +15,7 @@ import torch
 from ..core import vec as V
 from ..core.vec import V3
 from ..lights import lights as L
+from ..shapes import triangle as tri_mod
 
 F32 = torch.float32
 
@@ -169,13 +170,17 @@ def area_cdf(tris, tri_start: int, tri_count: int) -> np.ndarray:
 
 def _area_tables(scene, tri_start: int, tri_count: int):
     """(cdf [M], lower bucket edges [M], vertex rows [M, 10]) on the
-    scene's device, built once per light window."""
+    scene's device, built once per light window (per frame for animated
+    geometry, whose window is first read back to the host)."""
     cache = scene.area_tables
     key = (tri_start, tri_count)
     if key not in cache:
-        tris = scene.triangles
         s = slice(tri_start, tri_start + tri_count)
-        cdf = area_cdf(tris, tri_start, tri_count)
+        tris = scene.triangles
+        if torch.is_tensor(tris.v0):
+            tris = tri_mod.to_numpy(tri_mod.Triangles(*[x[s] for x in tris]))
+            s = slice(0, tri_count)
+        cdf = area_cdf(tris, s.start, tri_count)
         lo = np.concatenate([np.zeros(1, np.float32), cdf[:-1]])
         rows = np.concatenate(
             [tris.v0[s], tris.v1[s], tris.v2[s],
