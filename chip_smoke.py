@@ -124,13 +124,45 @@ Phases (each prints lines with its seconds; any failure raises):
         sweep launch of one frame against sweep_plain; render_frames'
         frame k bit-equal to the render of frame k, and pre-moved
         triangles bit-equal to the same frame moved on the card.
+  8. environment lights and the pbrt / thin-lens camera (details in
+     chiprun_out/slice8.json):
+     a. goldens on the card: env_studio 32^2 (path tracer, 4 spp, depth 3,
+        seed 0, pbrt camera) against tests/goldens/env_studio32.npy, and
+        the 5k-triangle mesh_heavy with its point light and env_studio's
+        sky (rotate_x(-90)) at 32^2 (Whitted, 1 spp, depth 2, seed 0)
+        against mesh_heavy5k_env_32.npy, MSE < 5e-4 each, and every
+        pixel within 1e-3 of its golden (on the 5k frame, outside lane
+        630's 3 x 3, ROADMAP C); 65536 rays with
+        differentials of the pbrt camera with a thin lens (radius 0.05)
+        on the card against the same rays on the CPU (max abs <= 1e-6);
+     b. env_studio at its own settings (512^2, path tracer, depth 5,
+        Lanczos; spp cut from 64 to 4): one warm frame and three timed,
+        useful rays, peak memory, the device-busy share of one more frame
+        (torch.profiler); a finite frame whose two top corners (their
+        centre rays miss) read the sky along those rays within 5%; no
+        kernel (brute-force triangles); its PNG in TMPDIR;
+     c. bench config 4's settings with the sky added (1M mesh_heavy,
+        Whitted, 256^2, 1 spp, depth 2, seed 0): launches and chunks
+        skipped with the counts set to 0 before the frame, every sweep
+        launch (camera, point and sky shadow, specular rays) against
+        sweep_plain and the prologue kernel bit-equal on every launched
+        chunk; frames timed beside the point-lit frame in the same call;
+     d. SPPM under the sky alone on the 1M mesh (256^2, 65536 photons,
+        depth 5, radius 0.3): one warm iteration and two timed with their
+        phases' ms, launches and chunks skipped, the device-busy share of
+        one more iteration; every sweep launch of one
+        iteration against sweep_plain, the prologue bit-equal; a finite
+        image with photons gathered; and test_sppm.py's open box under a
+        constant sky (12^2, 8 iterations of 8192 photons): the SPPM/path
+        tracer mean ratio in (0.5, 2).
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
 route's; sweep and prologue also with their launches in one full-width
-SPPM iteration, the prologue with the chunks skipped there, and both with
-their launches in the animated 1M frame and in each config-5 frame), the
-card's name and power limit, and
+SPPM iteration, the prologue with the chunks skipped there, both with
+their launches in the animated 1M frame and in each config-5 frame, and
+in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d)),
+the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -154,6 +186,10 @@ SPPM_MESH_GOLDEN = os.path.join(REPO, "tests", "goldens",
                                 "sppm_mesh5k_32.npy")
 SPPM_SHADOWS_GOLDEN = os.path.join(REPO, "tests", "goldens",
                                    "sppm_shadows16.npy")
+ENV_STUDIO_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                                 "env_studio32.npy")
+MESH_ENV_GOLDEN = os.path.join(REPO, "tests", "goldens",
+                               "mesh_heavy5k_env_32.npy")
 MSE_GATE = 5e-4
 # Kernel vs plain: built with --fmad=false in the plain version's
 # association order, so the two should agree bit for bit; the stated
@@ -1426,6 +1462,337 @@ def slice7(dev, card, scene, t_all):
     return out
 
 
+def env_box(dev):
+    """test_sppm.py's open box under a constant sky (radiance 1.5): five
+    matte quads, open toward +z, brute-force triangles."""
+    from trace_tpu_torch.lights.lights import infinite_light
+    from trace_tpu_torch.materials.materials import MatteMaterial
+    from trace_tpu_torch.models.cornell import _quad
+    from trace_tpu_torch.scene import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.material(MatteMaterial(Kd=(0.7, 0.7, 0.7)))
+    for q in ([[-1, -1, 1], [1, -1, 1], [1, -1, -1], [-1, -1, -1]],
+              [[-1, 1, -1], [1, 1, -1], [1, 1, 1], [-1, 1, 1]],
+              [[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1]],
+              [[-1, -1, 1], [-1, -1, -1], [-1, 1, -1], [-1, 1, 1]],
+              [[1, -1, -1], [1, -1, 1], [1, 1, 1], [1, 1, -1]]):
+        _quad(b, q, white)
+    b.light(infinite_light(radiance=(1.5, 1.5, 1.5)))
+    return b.build(device=dev)
+
+
+def relit(scene, entries):
+    """A view of ``scene`` lit by ``entries`` (Scene.with_lights): the 1M
+    mesh's tables are built once."""
+    from trace_tpu_torch.lights import lights as L
+
+    return scene.with_lights(L.preprocess(
+        L.pack_lights(entries, scene.triangles), *scene.bounding_sphere()))
+
+
+def mesh_point():
+    """mesh_heavy's point light."""
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.lights import lights as L
+
+    return L.point_light(T.translate([4.0, 8.0, 4.0]), (400.0, 400.0, 400.0))
+
+
+def mesh_sky():
+    """env_studio's sky over mesh_heavy's y-up terrain: rotate_x(-90) turns
+    the env frame's +z (the sky's zenith) to +y."""
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.lights import lights as L
+    from trace_tpu_torch.models import env_studio
+
+    return L.infinite_light(l2w=T.rotate_x(-90.0),
+                            image=env_studio.sky_image())
+
+
+# The pixels of mesh_heavy5k_env_32 that camera lane 630 reaches (its 3 x 3
+# filter stencil around pixel (17, 17)): jitted JAX blocks both of its
+# shadow rays, the port clears them (ROADMAP C). Every other pixel agrees
+# with the golden within LANE_ATOL.
+LANE_630_PIXELS = (slice(16, 19), slice(16, 19))
+LANE_ATOL = 1e-3
+
+
+def slice8(dev, card, scene, t_all):
+    """Phase 8: environment lights and the pbrt / thin-lens camera (module
+    docstring)."""
+    import torch
+    from trace_tpu_torch.camera.perspective import PerspectiveCamera
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.core.vec import V3
+    from trace_tpu_torch.film.film import Film
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import env_studio, mesh_heavy
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.wavefront import lights as WL
+    from trace_tpu_torch.wavefront import whitted as WF
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 8a: goldens and the thin-lens camera's rays ------------------------
+    t0 = time.perf_counter()
+    studio = env_studio.build_scene(device=dev)
+    small = relit(mesh_heavy.build_scene(5000, device=dev),
+                  [mesh_point(), mesh_sky()])
+    for label, sc, mod, make, path in (
+            ("env_studio32", studio, env_studio,
+             lambda c: PathIntegrator(c, U.UniformSampler(4, seed=0),
+                                      max_depth=3), ENV_STUDIO_GOLDEN),
+            ("mesh_heavy5k_env_32", small, mesh_heavy,
+             lambda c: WhittedIntegrator(c, U.UniformSampler(1, seed=0),
+                                         max_depth=2), MESH_ENV_GOLDEN)):
+        sweep_kernel.reset_counts()
+        it = make(mod.build_camera(32, os.path.join(
+            tmp, f"chip_smoke_{label}.png")))
+        img = image(it, it.render(sc))
+        golden = np.load(path)
+        mse = float(np.mean((img - golden) ** 2))
+        diff = np.abs(img - golden).max(-1)
+        where = "every pixel"
+        if label == "mesh_heavy5k_env_32":
+            diff[LANE_630_PIXELS] = 0.0
+            where = "outside lane 630's pixels"
+        rest = float(diff.max())
+        out[f"golden_{label}"] = dict(mse=mse, max_abs=float(
+            np.abs(img - golden).max()), max_abs_other_pixels=rest,
+            sweep_launches=sweep_kernel.launches)
+        log("8a", t0, f"golden {label}: MSE {mse:.3e} (gate {MSE_GATE}), "
+            f"max abs {out[f'golden_{label}']['max_abs']:.4f}, {where} "
+            f"{rest:.3e} (gate {LANE_ATOL}), sweep "
+            f"launches {sweep_kernel.launches}")
+        if not (img.shape == golden.shape and np.isfinite(img).all()
+                and mse < MSE_GATE and rest <= LANE_ATOL):
+            raise AssertionError(f"golden mismatch ({label}): MSE {mse}, "
+                                 f"max abs {where} {rest}")
+    if out["golden_mesh_heavy5k_env_32"]["sweep_launches"] <= 0:
+        raise AssertionError("the 5k env frame did not launch the sweep")
+    rng = np.random.default_rng(8)
+    n = 65536
+    samples = [np.stack([rng.uniform(1.0, 257.0, n), rng.uniform(
+        1.0, 257.0, n)], -1), rng.uniform(size=(n, 2)), rng.uniform(size=n)]
+    samples = [torch.from_numpy(x.astype(np.float32)) for x in samples]
+    lens = PerspectiveCamera(
+        T.look_at([3.2, -3.2, 1.6], [0.0, 0.0, 0.35], [0.0, 0.0, 1.0]),
+        lens_radius=0.05, focal_distance=4.6, fov=35.0,
+        film=Film((256, 256), filename="unused.png"), convention="pbrt")
+    rd_gpu, _ = lens.generate_ray_differentials(*[x.to(dev)
+                                                  for x in samples])
+    rd_cpu, _ = lens.generate_ray_differentials(*samples)
+    ray_err = max(float((getattr(rd_gpu, f).cpu() - getattr(rd_cpu, f))
+                        .abs().max()) for f in (
+        "o", "d", "rx_origin", "ry_origin", "rx_direction", "ry_direction"))
+    out["lens_rays_max_abs"] = ray_err
+    log("8a", t0, f"pbrt thin-lens camera (radius 0.05, focal 4.6), {n} "
+        f"rays with differentials on the card vs the CPU: max abs "
+        f"{ray_err:.3e} (gate 1e-6)")
+    if ray_err > 1e-6:
+        raise AssertionError(f"camera rays differ: {ray_err}")
+    del small
+
+    # -- 8b: env_studio_512 ---------------------------------------------------
+    t0 = time.perf_counter()
+    png = os.path.join(tmp, "chip_smoke_env_studio_512.png")
+    cam = env_studio.build_camera(512, png)
+    integ = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    torch.cuda.reset_peak_memory_stats()
+    sweep_kernel.reset_counts()
+    times, state = timed_frames(integ, studio)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = image(integ, state)
+    cam.film.save_png(state)
+    # The top corners' rays miss the scene (they see the sky above the
+    # floor's far edge); each corner pixel must read the sky along its
+    # centre ray (pixel (x, y), 1-based, is centred at raster (x, y) + 0.5).
+    w = cam.film.width
+    p = torch.tensor([[1.5, 1.5], [w + 0.5, 1.5]], device=dev)
+    rd, _ = cam.generate_ray_differentials(p, torch.zeros(2, 2, device=dev),
+                                           torch.zeros(2, device=dev))
+    miss = not WF.closest_hit(studio, V3.of(rd.o), V3.of(rd.d), rd.t_max,
+                              rd.time).valid.any()
+    sky = WL.env_le(studio, V3.of(rd.d)).arr().cpu().numpy()
+    sky_ratio = (img[0, [0, -1]] / sky).tolist()
+    out["env_studio_512"] = dict(
+        frame_ms=times, ms=float(np.mean(times)),
+        useful_rays=integ.last_useful_rays, peak_gib=peak,
+        sweep_launches=sweep_kernel.launches, corner_sky_ratio=sky_ratio)
+    log("8b", t0, f"env_studio 512^2, path tracer, 4 spp (cut from 64), "
+        f"depth 5: frames {[round(x, 2) for x in times]} ms, mean "
+        f"{np.mean(times):.2f}; useful rays {integ.last_useful_rays} "
+        f"({integ.last_useful_rays / np.mean(times) / 1e3:.3f} Mrays/s); "
+        f"peak {peak:.3f} GiB; sweep launches {sweep_kernel.launches}; "
+        f"top corners / the sky along their centre rays {sky_ratio} (gate "
+        f"5%); PNG {png}; card {card}")
+    if not (np.isfinite(img).all() and miss and sweep_kernel.launches == 0
+            and np.abs(np.asarray(sky_ratio) - 1.0).max() < 0.05):
+        raise AssertionError(f"env_studio 512: {out['env_studio_512']}")
+    out["env_studio_512"]["busy"] = device_busy(
+        "8b", t0, card, "frame", lambda: integ.render(studio),
+        np.mean(times))
+    del studio, state
+
+    # -- 8c: mesh1m_whitted_256_env, the kernel path -------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lit = relit(scene, [mesh_point(), mesh_sky()])
+    acc = lit.accel
+    png = os.path.join(tmp, "chip_smoke_1m_env.png")
+    integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
+                              U.UniformSampler(1, seed=0), max_depth=2)
+    sweep_kernel.reset_counts()
+    block_entry_kernel.reset_counts()
+    acc.skipped_chunks = 0
+    state, calls, _ = record_sweep_calls(integ.render, lit)
+    launches = dict(sweep=sweep_kernel.launches,
+                    f32=sweep_kernel.arm_launches["f32"],
+                    prologue=block_entry_kernel.launches,
+                    skipped=acc.skipped_chunks)
+    integ.camera.film.save_png(state)
+    img = image(integ, state)
+    if [a for *_, a in calls] != [False, True, True, False, True, True] \
+            or launches["sweep"] <= 0 or launches["f32"] != \
+            launches["sweep"] or launches["prologue"] != launches["sweep"]:
+        raise AssertionError(f"the env frame did not run the kernels: "
+                             f"{len(calls)} calls, {launches}")
+    agree, pro, _ = check_launches("8c", acc, calls)
+    times, _ = timed_frames(integ, lit)
+    plain_times, _ = timed_frames(integ, scene)
+    out["whitted_1m_env"] = dict(launches=launches, agreement=agree,
+                                 prologue=pro, frame_ms=times,
+                                 point_only_frame_ms=plain_times)
+    log("8c", t0, f"1M + sky, Whitted 256^2 depth 2: {len(calls)} sweep "
+        f"calls (camera, point and sky shadows, specular, their shadows), "
+        f"launches {launches}; every launch equal to sweep_plain with the "
+        f"same steps ({sum(t.get('launches', 0) for t in agree.values())} "
+        f"checked, sky shadows included), prologue bit-equal ({pro}); "
+        f"frames {[round(x, 2) for x in times]} ms (mean "
+        f"{np.mean(times):.2f}), the point-lit frame "
+        f"{[round(x, 2) for x in plain_times]} (mean "
+        f"{np.mean(plain_times):.2f}); non-zero pixels "
+        f"{float((img > 0).any(-1).mean()):.3f}; PNG {png}; card {card}")
+    if not np.isfinite(img).all():
+        raise AssertionError("the 1M env frame is not finite")
+    del calls, state, lit
+
+    # -- 8d: SPPM under the sky alone ----------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    lit = relit(scene, [mesh_sky()])
+    acc = lit.accel
+    png = os.path.join(tmp, "chip_smoke_sppm_1m_env.png")
+    integ = SPPMIntegrator(mesh_heavy.build_camera(256, png),
+                           initial_search_radius=0.3, max_depth=5,
+                           n_iterations=3, photons_per_iteration=65536,
+                           seed=0, device=dev)
+    integ.check_scene(lit)
+    marks = []
+    time_phases(integ, marks)
+    pixels = integ._pixel_grid(dev)
+    key = U.key(integ.seed, dev)
+    cdf, pmf = integ.light_distribution(lit)
+    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                             dev)
+    rows = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for it in (1, 2, 3):
+        marks.clear()
+        sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
+        acc.skipped_chunks = 0
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state = integ.step(lit, state, it, pixels, key, cdf, pmf)
+        z = torch.cuda.Event(enable_timing=True)
+        z.record()
+        torch.cuda.synchronize()
+        row = dict(iteration=it, ms=a.elapsed_time(z),
+                   sweep_launches=sweep_kernel.launches,
+                   f32_launches=sweep_kernel.arm_launches["f32"],
+                   entry_launches=block_entry_kernel.launches,
+                   skipped_chunks=acc.skipped_chunks)
+        prev = a
+        for name, ev in marks:
+            row[f"{name}_ms"] = prev.elapsed_time(ev)
+            prev = ev
+        rows.append(row)
+        log("8d", t0, f"iteration {it}{' (warm)' if it == 1 else ''}: "
+            f"{row['ms']:.2f} ms; " + ", ".join(
+                f"{nm.strip('_')} {row[nm.strip('_') + '_ms']:.2f}"
+                for nm in SPPM_PHASES) + f" ms; sweep launches "
+            f"{row['sweep_launches']}, prologue {row['entry_launches']}, "
+            f"chunks skipped {row['skipped_chunks']}; card {card}")
+        if row["sweep_launches"] <= 0 or row["f32_launches"] != \
+                row["sweep_launches"] or row["entry_launches"] != \
+                row["sweep_launches"]:
+            raise AssertionError(f"the env SPPM iteration did not run the "
+                                 f"kernels: {row}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in SPPM_PHASES:
+        delattr(integ, name)
+    img = integ.to_image(state, 3)
+    gathered = int((state.tau.sum(-1) > 0).sum())
+    finite = bool(torch.isfinite(img).all())
+    integ.save(state, 3)
+    busy = device_busy("8d", t0, card, "iteration", lambda: integ.step(
+        lit, state, 4, pixels, key, cdf, pmf),
+        np.mean([r["ms"] for r in rows[1:]]))
+    _, calls, _ = record_sweep_calls(integ.render, lit, n_iterations=1)
+    agree, pro, _ = check_launches("8d", acc, calls)
+    log("8d", t0, f"1M under the sky alone, 256^2, 65536 photons, depth 5, "
+        f"r0 0.3: iterations {[round(r['ms'], 2) for r in rows]} ms (the "
+        f"first warm); peak {peak:.3f} GiB; pixels with tau > 0 "
+        f"{gathered}; finite {finite}; one iteration's {len(calls)} sweep "
+        f"calls, {sum(t.get('launches', 0) for t in agree.values())} "
+        f"launches equal to sweep_plain with the same steps, prologue "
+        f"bit-equal ({pro}); PNG {png}; card {card}")
+    if not finite or gathered <= 0:
+        raise AssertionError(f"env SPPM image: finite {finite}, pixels "
+                             f"with tau > 0 {gathered}")
+    out["sppm_1m_env"] = dict(iterations=rows, peak_gib=peak,
+                              pixels_gathered=gathered, busy=busy,
+                              agreement=agree, prologue=pro)
+    del calls, state, lit
+    torch.cuda.empty_cache()
+
+    # The open box under a constant sky: SPPM against the path tracer.
+    t0 = time.perf_counter()
+    box = env_box(dev)
+
+    def box_camera():
+        film = Film((12, 12), filename=os.path.join(tmp, "chip_smoke_"
+                                                    "env_box.png"))
+        return PerspectiveCamera(T.look_at([0.0, 0.0, 140.0],
+                                           [0.0, -2.8, 0.0], [0, 1, 0]),
+                                 film=film)
+
+    cam = box_camera()
+    pt = PathIntegrator(cam, U.UniformSampler(24, seed=0), max_depth=8,
+                        rr_depth=5)
+    mean_pt = float(image(pt, pt.render(box)).mean())
+    sp = SPPMIntegrator(box_camera(), initial_search_radius=0.25,
+                        max_depth=8, n_iterations=8,
+                        photons_per_iteration=8192, seed=0, device=dev)
+    mean_sp = float(sp.to_image(sp.render(box), 8).mean())
+    ratio = mean_sp / mean_pt
+    out["env_box"] = dict(sppm_mean=mean_sp, path_mean=mean_pt, ratio=ratio)
+    log("8d", t0, f"open box under a constant sky, 12^2: SPPM (8 "
+        f"iterations of 8192 photons) mean {mean_sp:.4f}, path tracer (24 "
+        f"spp) {mean_pt:.4f}, ratio {ratio:.3f} (must be in (0.5, 2))")
+    if not 0.5 < ratio < 2.0:
+        raise AssertionError(f"env box ratio {ratio}")
+    log(8, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -1867,6 +2234,22 @@ def main() -> int:
                                       for r in s7["c"]["frames"]],
         anim_sppm_skipped_chunks_per_frame=[r["skipped_chunks"]
                                             for r in s7["c"]["frames"]])
+
+    # -- 8: environment lights and the pbrt / thin-lens camera -------------
+    del s7
+    torch.cuda.empty_cache()
+    s8 = slice8(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice8.json"), "w") as f:
+        json.dump(dict(card=card, **s8), f, indent=1)
+    env = dict(env_whitted_launches=s8["whitted_1m_env"]["launches"]["sweep"],
+               env_sppm_launches=s8["sppm_1m_env"]["iterations"][1][
+                   "sweep_launches"])
+    env_pro = dict(
+        env_whitted_launches=s8["whitted_1m_env"]["launches"]["prologue"],
+        env_sppm_launches=s8["sppm_1m_env"]["iterations"][1][
+            "entry_launches"],
+        env_sppm_skipped_chunks=s8["sppm_1m_env"]["iterations"][1][
+            "skipped_chunks"])
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
@@ -1895,7 +2278,7 @@ def main() -> int:
     kernels = [
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
-             sppm_launches=sppm_launches["sweep_launches"], **anim),
+             sppm_launches=sppm_launches["sweep_launches"], **anim, **env),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -1922,7 +2305,8 @@ def main() -> int:
                    plain_key="prologue_plain_ms", bound_key="prologue_bound",
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
-             sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro),
+             sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
+             **env_pro),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

@@ -156,7 +156,7 @@ def test_area_light_radiance_matches_jax(scenes):
     assert not bool((z.x != 0).any())
 
 
-def test_environment_light_and_instancing_raise():
+def test_environment_light_builds():
     from trace_tpu_torch.core import transform as TT
     from trace_tpu_torch.materials.materials import MatteMaterial
     from trace_tpu_torch.scene import SceneBuilder
@@ -165,8 +165,15 @@ def test_environment_light_and_instancing_raise():
     m = b.material(MatteMaterial())
     b.sphere(TT.translate([0.0, 0.0, 0.0]), 1.0, m)
     b.light(TL.infinite_light())
-    with pytest.raises(NotImplementedError):
-        b.build(device="cpu")
+    scene = b.build(device="cpu")
+    assert TL.has_env(scene.lights) and scene.env.k == 2
+    assert float(scene.lights.world_radius) > 0
+
+
+def test_instancing_raises():
+    from trace_tpu_torch.materials.materials import MatteMaterial
+    from trace_tpu_torch.scene import SceneBuilder
+
     b = SceneBuilder()
     m = b.material(MatteMaterial())
     b.instanced_mesh(np.zeros((1, 3), np.uint32), np.zeros((3, 3)), [], m)

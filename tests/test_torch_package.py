@@ -22,7 +22,8 @@ def test_every_module_is_listed():
                  "wavefront.whitted", "sampler.halton", "integrators.common",
                  "integrators.sppm", "wavefront.sppm_camera",
                  "wavefront.sppm_photon", "utils.checkpoint", "io.ply",
-                 "models.sphere", "models.caustic_glass"):
+                 "models.sphere", "models.caustic_glass",
+                 "models.env_studio"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -73,12 +74,14 @@ def _default_devices():
 
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator, initial_state
     from trace_tpu_torch.models import (_run, caustic_glass, cornell,
-                                        mesh_heavy, sphere, spheres)
+                                        env_studio, mesh_heavy, sphere,
+                                        spheres)
     from trace_tpu_torch.scene import SceneBuilder
 
     dflt = lambda f: inspect.signature(f).parameters["device"].default
     out = {f"{m.__name__}.build_scene": dflt(m.build_scene)
-           for m in (mesh_heavy, spheres, cornell, sphere, caustic_glass)}
+           for m in (mesh_heavy, spheres, cornell, sphere, caustic_glass,
+                     env_studio)}
     out["models.sphere.render"] = dflt(sphere.render)
     out["SceneBuilder.build"] = dflt(SceneBuilder.build)
     out["SPPMIntegrator"] = dflt(SPPMIntegrator)

@@ -12,9 +12,31 @@ from trace_tpu_torch.core.vec import V3 as TV3
 from trace_tpu_torch.shapes.sphere import Spheres
 from trace_tpu_torch.shapes.triangle import Triangles
 
+def warm_vector_math():
+    """Call the vector-math functions of the env lookups and samplers once
+    before any test does.
+
+    torch computes them on the CPU through MKL's VML, in chunks of 2048
+    elements on its intra-op threads. When a process's first call ran on
+    two threads at once, the second thread's chunk came out less
+    accurate: sin of acos of 4096 directions off by up to 3e-5 relative
+    on lanes 2048-4095, in about one process in six, while the same call
+    repeated was exact. Each function is called first on the calling
+    thread alone (below 2048 elements), then on every intra-op thread.
+    """
+    for n in (1024, 2048 * max(torch.get_num_threads(), 2)):
+        x = torch.linspace(-0.9, 0.9, n)
+        for f in (torch.acos, torch.sin, torch.cos, torch.sqrt):
+            f(x.abs())
+        torch.atan2(x, x + 2.0)
+
+
+warm_vector_math()
+
 LIGHT_FIELDS = ("kind", "p", "i", "direction", "w2l", "l2w",
                 "cos_total_width", "cos_falloff_start", "tri_start",
-                "tri_count", "two_sided")
+                "tri_count", "two_sided", "env_rgb", "env_pmf", "env_prob",
+                "env_alias", "env_h", "env_w")
 
 
 def _v(tex):

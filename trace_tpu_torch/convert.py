@@ -10,6 +10,8 @@ identical data. Keys (all numpy):
 - lights: ``light_<field>`` for fields of lights.lights.Lights; ``kind``,
   ``p`` and ``i`` are required, the rest default as in ``make_lights``
   (``flags`` follow from the kinds, ``total_area`` from the triangles);
+  an environment light comes with its six ``light_env_*`` tables (rgb,
+  pmf, prob, alias, h, w) as the JAX package packed them;
 - materials: ``material_kind`` [M] i32 (MATTE, GLASS, MIRROR, PLASTIC,
   METAL) and ``material_params`` [M, <= 10] f32, zero-padded: matte (Kd
   rgb, sigma), glass (Kr rgb, Kt rgb, index, u and v roughness,

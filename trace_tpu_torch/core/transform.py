@@ -8,7 +8,8 @@ device, in written-out component arithmetic.
 Reference quirks kept on purpose (PARITY.md, the verify skill's
 "Gotchas"): ``compose_ref`` multiplies the cached inverses in the SAME
 order as the forward matrices (the reference's wrong-order inverse), and
-``perspective`` is the transposed projective-divide matrix.
+``perspective`` is the transposed projective-divide matrix. The ``pbrt``
+camera convention uses ``compose`` and ``perspective_pbrt`` instead.
 """
 from __future__ import annotations
 
@@ -87,12 +88,22 @@ def scale(x, y, z) -> Transform:
     return Transform(mat, inv)
 
 
+def _rot(mat3: np.ndarray) -> Transform:
+    mat = np.eye(4, dtype=np.float32)
+    mat[:3, :3] = mat3
+    return Transform(mat, mat.T.copy())
+
+
+def rotate_x(deg: float) -> Transform:
+    """Rotation about +x; the inverse is the transpose."""
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    return _rot(np.array([[1, 0, 0], [0, c, -s], [0, s, c]], np.float32))
+
+
 def rotate_y(deg: float) -> Transform:
     """Rotation about +y; the inverse is the transpose."""
     s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
-    mat = np.eye(4, dtype=np.float32)
-    mat[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-    return Transform(mat, mat.T.copy())
+    return _rot(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32))
 
 
 def look_at(position, target, up) -> Transform:
@@ -120,6 +131,19 @@ def perspective(fov: float, near: float, far: float) -> Transform:
     b = -far * near / (far - near)
     p = np.array(
         [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, a, 1], [0, 0, b, 0]],
+        np.float32,
+    )
+    inv_tan = 1.0 / np.tan(np.deg2rad(fov) / 2.0)
+    return compose(scale(inv_tan, inv_tan, 1.0), from_matrix(p))
+
+
+def perspective_pbrt(fov: float, near: float, far: float) -> Transform:
+    """The standard PBRT projection (rays toward +z): ``perspective``
+    without the transposition, for the ``pbrt`` camera convention."""
+    a = far / (far - near)
+    b = -far * near / (far - near)
+    p = np.array(
+        [[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, a, b], [0, 0, 1, 0]],
         np.float32,
     )
     inv_tan = 1.0 / np.tan(np.deg2rad(fov) / 2.0)

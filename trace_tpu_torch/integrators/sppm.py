@@ -28,8 +28,10 @@ view (integrators/common.py).
 
 Not ported, and refused with NotImplementedError: the fused and unrolled
 iteration blocks and the sharded passes (``mesh``); scenes the planar
-wavefront cannot render (several lights unless all are delta lights;
-environment lights are not ported at all) raise as in wavefront/path.py.
+wavefront cannot render (several lights unless all are delta lights, so
+an environment light renders alone) raise as in wavefront/path.py. The
+environment light emits photons from a disk of the scene's bounding
+radius on the side of a direction its texel tables pick.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
-"""Light table (port of trace_tpu/lights/lights.py): point, spot, distant
-and diffuse area lights.
+"""Light table (port of trace_tpu/lights/lights.py): point, spot, distant,
+diffuse area and environment (infinite) lights.
 
 The table is small, per-scene static host data: the wavefront visits
 lights at static indices and reads each light's parameters as host
-scalars. Environment (infinite) lights are not ported: ``pack_lights``
-refuses them.
+scalars. An environment light is an equal-rect radiance image, one per
+scene, carried in the table's ``env_*`` fields with its texel pick pmf
+and Vose alias table; scenes without one carry 1-texel dummies.
 """
 from __future__ import annotations
 
@@ -44,6 +45,19 @@ class Lights:
     two_sided: np.ndarray        # [L] bool
     world_center: np.ndarray     # [3] scene bounding sphere (preprocess)
     world_radius: np.ndarray     # []
+    env_rgb: np.ndarray          # [K, 3] equal-rect radiance texels, rows
+    #                              theta from the light frame's +z
+    env_pmf: np.ndarray          # [K] texel pick pmf (sin-theta weighted)
+    env_prob: np.ndarray         # [K] alias-table acceptance probability
+    env_alias: np.ndarray        # [K] int32 alias-table partner texel
+    env_h: np.ndarray            # [] int32 image height
+    env_w: np.ndarray            # [] int32 image width
+
+
+def has_env(lights: Lights) -> bool:
+    """Whether the table holds an environment light: its tables have at
+    least 2 texels (a constant sky is stored as 2), the dummies 1."""
+    return lights.env_pmf.shape[0] > 1
 
 
 def point_light(light_to_world, intensity):
@@ -69,9 +83,58 @@ def area_light(radiance, tri_start, tri_count, two_sided=False):
 
 
 def infinite_light(l2w=None, radiance=(1.0, 1.0, 1.0), image=None):
-    """An environment light entry; ``pack_lights`` refuses it (not
-    ported)."""
-    return dict(kind=INFINITE, l2w=l2w, i=radiance, image=image)
+    """Image-based environment light. ``image``: [H, W, 3] linear
+    equal-rect radiance (rows = theta from the light frame's +z, columns
+    = phi), or None for a constant sky; ``radiance`` scales either. At
+    most one per scene."""
+    img = None if image is None else np.asarray(image, np.float32)
+    return dict(kind=INFINITE, l2w=l2w, i=radiance, image=img)
+
+
+def _alias_table(pmf: np.ndarray):
+    """Vose alias table over a pmf -> (prob [K] f32, alias [K] i32)."""
+    k = pmf.size
+    scaled = (pmf * k).astype(np.float64)
+    prob = np.ones(k, np.float64)
+    alias = np.arange(k, dtype=np.int64)
+    small = [i for i in range(k) if scaled[i] < 1.0]
+    large = [i for i in range(k) if scaled[i] >= 1.0]
+    while small and large:
+        s, big = small.pop(), large.pop()
+        prob[s] = scaled[s]
+        alias[s] = big
+        scaled[big] -= 1.0 - scaled[s]
+        (small if scaled[big] < 1.0 else large).append(big)
+    return prob.astype(np.float32), alias.astype(np.int32)
+
+
+def env_tables(image=None, radiance=(1.0, 1.0, 1.0)) -> dict:
+    """An environment light's tables (the env_* fields of Lights) and its
+    mean radiance ``i`` (what ``power`` reads), from an [H, W, 3] image or
+    a constant sky (None), scaled by ``radiance``. The texel pmf is
+    luminance times sin(theta) of the row (uniform for a black image)."""
+    img = np.ones((1, 1, 3), np.float32) if image is None else image
+    img = img * np.asarray(radiance, np.float32)
+    if img.shape[0] * img.shape[1] < 2:
+        img = np.tile(img, (1, 2, 1))   # >= 2 texels: has_env reads shapes
+    h, w = int(img.shape[0]), int(img.shape[1])
+    rgb = img.reshape(-1, 3).astype(np.float32)
+    lum = rgb @ np.array([0.212671, 0.715160, 0.072169], np.float32)
+    sin_t = np.sin(np.pi * (np.arange(h, dtype=np.float64) + 0.5) / h
+                   ).astype(np.float32)
+    wgt = (lum.reshape(h, w) * sin_t[:, None]).reshape(-1).astype(np.float64)
+    total = wgt.sum()
+    pmf = wgt / total if total > 0 else np.full(wgt.size, 1.0 / wgt.size)
+    prob, alias = _alias_table(pmf)
+    return dict(env_rgb=rgb, env_pmf=pmf.astype(np.float32), env_prob=prob,
+                env_alias=alias, env_h=np.asarray(h, np.int32),
+                env_w=np.asarray(w, np.int32), i=rgb.mean(axis=0))
+
+
+_NO_ENV = dict(env_rgb=np.zeros((1, 3), np.float32),
+               env_pmf=np.ones(1, np.float32), env_prob=np.ones(1, np.float32),
+               env_alias=np.zeros(1, np.int32), env_h=np.asarray(1, np.int32),
+               env_w=np.asarray(1, np.int32))
 
 
 def is_delta(lights: Lights) -> np.ndarray:
@@ -87,13 +150,21 @@ def make_lights(kind, p, i, tris=None, **fields) -> Lights:
     """The light table from per-light arrays: ``kind`` [L], ``p`` and
     ``i`` [L, 3], and any other field of Lights (the rest default as for
     a point light). ``flags`` follow from the kinds, an area light's
-    ``total_area`` from its range of ``tris``."""
+    ``total_area`` from its range of ``tris``. An environment light
+    (kind INFINITE, at most one) comes with the ``env_*`` fields
+    (``env_tables``), its ``i`` their mean radiance."""
     kind = np.asarray(kind, np.int32).reshape(-1)
     n = kind.shape[0]
     for k in kind:
-        if int(k) not in (POINT, SPOT, DISTANT, AREA):
-            raise NotImplementedError(
-                f"light kind {k} is not ported (environment lights are not)")
+        if int(k) not in _KIND_FLAGS:
+            raise ValueError(f"unknown light kind {k}")
+    n_env = int((kind == INFINITE).sum())
+    if n_env > 1:
+        raise ValueError("at most one environment light per scene")
+    env = {k: np.asarray(fields.pop(k, v)).astype(v.dtype)
+           for k, v in _NO_ENV.items()}
+    if (env["env_pmf"].shape[0] > 1) != bool(n_env):
+        raise ValueError("env_* tables need exactly one INFINITE light")
     ident = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
     direction = np.zeros((n, 3), np.float32)
     direction[:, 2] = 1.0
@@ -120,7 +191,7 @@ def make_lights(kind, p, i, tris=None, **fields) -> Lights:
         p=np.asarray(p, np.float32).reshape(n, 3),
         i=np.asarray(i, np.float32).reshape(n, 3),
         total_area=total_area, world_center=np.zeros(3, np.float32),
-        world_radius=np.asarray(0.0, np.float32), **f)
+        world_radius=np.asarray(0.0, np.float32), **f, **env)
 
 
 def pack_lights(entries, tris=None) -> Lights:
@@ -134,6 +205,8 @@ def pack_lights(entries, tris=None) -> Lights:
              tri_start=np.zeros(n, np.int32), tri_count=np.zeros(n, np.int32),
              two_sided=np.zeros(n, bool))
     f["direction"][:, 2] = 1.0
+    i = np.array([np.asarray(e["i"], np.float32).reshape(3)
+                  for e in entries], np.float32).reshape(n, 3)
     for j, e in enumerate(entries):
         t = e.get("l2w")
         if t is not None:
@@ -142,12 +215,18 @@ def pack_lights(entries, tris=None) -> Lights:
         if e["kind"] == DISTANT:
             dw = l2w[j][:3, :3] @ np.asarray(e["direction"], np.float32)
             f["direction"][j] = dw / np.linalg.norm(dw)
+        if e["kind"] == INFINITE:
+            if "env_pmf" in f:
+                raise ValueError("at most one environment light per scene")
+            env = env_tables(e.get("image"), e["i"])
+            i[j] = env.pop("i")   # the image's mean radiance
+            f.update(env)
         for name in ("cos_total_width", "cos_falloff_start", "tri_start",
                      "tri_count", "two_sided"):
             if name in e:
                 f[name][j] = e[name]
-    return make_lights([e["kind"] for e in entries], l2w[:, :3, 3],
-                       [e["i"] for e in entries], tris, l2w=l2w, w2l=w2l, **f)
+    return make_lights([e["kind"] for e in entries], l2w[:, :3, 3], i, tris,
+                       l2w=l2w, w2l=w2l, **f)
 
 
 def preprocess(lights: Lights, world_center, world_radius) -> Lights:
@@ -165,8 +244,8 @@ def num_lights(lights: Lights) -> int:
 def power(lights: Lights) -> np.ndarray:
     """Per-light total power [L, 3], float32 on the host, in the JAX
     twin's operation order (point 4 pi I; spot I 2 pi (1 - (cfs + ctw) /
-    2); distant pi r^2 I over the scene's bounding disk; area L A pi,
-    twice that if two-sided)."""
+    2); distant, and an environment light's mean radiance, pi r^2 I over
+    the scene's bounding disk; area L A pi, twice that if two-sided)."""
     pi = np.float32(3.1415926535897932)
     i = lights.i.astype(np.float32)
     p_point = 4.0 * pi * i
@@ -179,6 +258,7 @@ def power(lights: Lights) -> np.ndarray:
                   * np.where(lights.two_sided, np.float32(2.0),
                              np.float32(1.0)))[..., None]
     out = np.where((lights.kind == SPOT)[:, None], p_spot, p_point)
-    out = np.where((lights.kind == DISTANT)[:, None], p_dist, out)
+    far = (lights.kind == DISTANT) | (lights.kind == INFINITE)
+    out = np.where(far[:, None], p_dist, out)
     return np.where((lights.kind == AREA)[:, None], p_area,
                     out).astype(np.float32)

@@ -11,7 +11,9 @@ triangles intersect them by brute force over the [rays, triangles] grid
 makes shared mesh edges watertight: the sweep runs its certified
 epilogue, the brute-force grid and the winner detail phase the
 double-single edge fallback. A mesh given ``emission`` is a diffuse area
-light. What the port cannot render (environment lights, instancing,
+light; ``light(infinite_light(...))`` adds the environment light, whose
+texel tables go to the device with the light table and whose disk is
+the scene's bounding sphere. What the port cannot render (instancing,
 non-constant textures) raises NotImplementedError at ``build()``.
 """
 from __future__ import annotations
@@ -174,16 +176,19 @@ class Scene:
 
     def set_lights(self, lights: light_mod.Lights) -> None:
         """Install a preprocessed light table in place, with the tables
-        derived from it (the emission rows, the area-light windows)."""
+        derived from it (the emission rows, the environment light's
+        texels, the area-light windows)."""
         self.lights = lights
         self.max_area_tris = int(lights.tri_count.max(initial=0))
         self.light_rows = torch.from_numpy(WL.light_rows(lights)).to(
             self.device)
+        self.env = WL.device_env(lights, self.device)
         self.area_tables = {}
 
     def with_lights(self, lights: light_mod.Lights) -> "Scene":
         """A shallow view of this scene with the light table swapped (a
-        frame's relight); the scene itself is unchanged."""
+        frame's relight), its environment texels with it; the scene
+        itself is unchanged."""
         view = copy.copy(self)
         view.set_lights(lights)
         return view

@@ -1,13 +1,25 @@
 """Light sampling on planar state (port of trace_tpu/wavefront/lights.py:
-point, spot, distant and area lights, and the emission of area lights).
+point, spot, distant and area lights, and the emission of area lights;
+and of the environment light's lookups and samplers in
+trace_tpu/lights/lights.py, which the JAX package runs on its packed
+path only).
 
 Lights are visited at static indices; each light's kind, triangle range
 and parameters are host scalars from the scene's light table. An area
 light's windowed area CDF is built on the host in numpy, in float32,
 exactly as the JAX package builds it, so light picks agree at bucket
 edges.
+
+The environment light's texel tables live on the scene's device
+(``EnvTables``). Its lookups keep the JAX package's association order
+(the multiply by 0.5/pi before the one by the width), and divide by the
+image's width and height as device tensors: CUDA computes a division by
+a host scalar as a multiply by its reciprocal, which would put a texel
+in another row on the card than on the CPU.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -18,6 +30,142 @@ from ..lights import lights as L
 from ..shapes import triangle as tri_mod
 
 F32 = torch.float32
+
+
+_F = np.float32
+PI = V.PI
+TWO_PI = float(_F(2.0) * _F(PI))
+TWO_PI2 = float(_F(2.0) * _F(PI) * _F(PI))
+HALF_INV_PI = float(_F(0.5) / _F(PI))
+INV_PI = float(_F(1.0) / _F(PI))
+ONE_MINUS = float(_F(1.0 - 1e-7))
+
+
+class EnvTables(NamedTuple):
+    """An environment light's tables on the scene's device."""
+    rgb: torch.Tensor     # [K, 3] texel radiance
+    pmf: torch.Tensor     # [K] texel pick pmf
+    prob: torch.Tensor    # [K] alias acceptance probability
+    alias: torch.Tensor   # [K] int64 alias partner
+    h: torch.Tensor       # [] f32 image height (a device divisor)
+    w: torch.Tensor       # [] f32 image width
+    hf: float             # the height, width and texels as host numbers
+    wf: float
+    k: int
+
+
+def device_env(lights: L.Lights, device) -> EnvTables | None:
+    """The table's environment light on ``device``; None without one."""
+    if not L.has_env(lights):
+        return None
+    dev = torch.device(device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    h, w = int(lights.env_h), int(lights.env_w)
+    return EnvTables(t(lights.env_rgb), t(lights.env_pmf),
+                     t(lights.env_prob), t(lights.env_alias).long(),
+                     torch.tensor(float(h), dtype=F32, device=dev),
+                     torch.tensor(float(w), dtype=F32, device=dev),
+                     float(h), float(w), h * w)
+
+
+def _unit(v: V3) -> V3:
+    """Normalize by a division, as the JAX package's packed normalize
+    does (``V3.normalize`` multiplies by the reciprocal)."""
+    n = v.length()
+    n = torch.where(n == 0.0, 1.0, n)
+    return V3(v.x / n, v.y / n, v.z / n)
+
+
+def _rows3(r) -> list:
+    return [[float(r[a, c]) for c in range(3)] for a in range(3)]
+
+
+def _env_uv_cell(env: EnvTables, wl: V3):
+    """Light-space unit direction -> (sin theta [N], texel [N] int64)."""
+    theta = torch.acos(wl.z.clamp(-1.0, 1.0))
+    phi = torch.atan2(wl.y, wl.x)
+    phi = torch.where(phi < 0, phi + TWO_PI, phi)
+    w, h = env.wf, env.hf
+    x = torch.floor(phi * HALF_INV_PI * w).clamp(0.0, w - 1.0)
+    y = torch.floor(theta * INV_PI * h).clamp(0.0, h - 1.0)
+    # A NaN direction (a masked lane) reads texel 0, not an index that
+    # would trap on the card.
+    return torch.sin(theta), torch.nan_to_num(y * w + x).long()
+
+
+def _env_pdf(env: EnvTables, cell, sin_theta):
+    """Solid-angle pdf of the env sampler at a texel: pmf H W / (2 pi^2
+    sin theta), 0 at the poles."""
+    p = (env.pmf[cell] * float(env.k)) / (
+        TWO_PI2 * sin_theta.clamp_min(1e-9))
+    return torch.where(sin_theta > 1e-9, p, 0.0)
+
+
+def _env_sample_cell(env: EnvTables, u0):
+    """One uniform -> (texel [N] int64, a fresh uniform [N]) through the
+    alias table; the alias coin is rescaled into the fresh uniform."""
+    x = u0 * env.k
+    c = torch.floor(x).clamp(0.0, env.k - 1.0)
+    f = x - c
+    c = c.long()
+    p_c = env.prob[c]
+    take = f >= p_c
+    cell = torch.where(take, env.alias[c], c)
+    f2 = torch.where(take, (f - p_c) / (1.0 - p_c).clamp_min(1e-9),
+                     f / p_c.clamp_min(1e-9))
+    return cell, f2.clamp(0.0, ONE_MINUS)
+
+
+def _env_sample_dir(env: EnvTables, l2w, u0, u1):
+    """Importance-sample a world direction toward the environment ->
+    (wi V3, radiance V3, solid-angle pdf [N]); ``l2w`` [4, 4] host."""
+    cell, fu = _env_sample_cell(env, u0)
+    cf = cell.to(F32)
+    row = torch.floor(cf / env.w)
+    col = cf - row * env.wf
+    phi = (TWO_PI * (col + fu)) / env.w
+    theta = (PI * (row + u1)) / env.h
+    st = torch.sin(theta)
+    wl = V3(st * torch.cos(phi), st * torch.sin(phi), torch.cos(theta))
+    wi = _unit(V.mat3_apply(_rows3(l2w), wl))
+    return wi, _texels(env, cell), _env_pdf(env, cell, st)
+
+
+def _texels(env: EnvTables, cell) -> V3:
+    g = env.rgb[cell]
+    return V3(g[:, 0], g[:, 1], g[:, 2])
+
+
+def env_index(scene) -> int:
+    """The scene's environment light's index (there is at most one)."""
+    return int(np.flatnonzero(scene.lights.kind == L.INFINITE)[0])
+
+
+def _env_lookup(scene, rot, wi: V3):
+    """(sin theta [N], texel [N]) of the environment along world ``wi``,
+    rotated into the light's frame by ``rot`` ([4, 4] host w2l)."""
+    return _env_uv_cell(scene.env, _unit(V.mat3_apply(_rows3(rot), wi)))
+
+
+def env_le(scene, d: V3) -> V3:
+    """Environment radiance along escaped rays ``d`` (the scene must hold
+    an environment light)."""
+    # The JAX package sums the lights' masked w2l, which makes a -0.0
+    # entry +0.0; adding 0.0 does the same.
+    rot = scene.lights.w2l[env_index(scene)] + _F(0.0)
+    return _texels(scene.env, _env_lookup(scene, rot, _unit(d))[1])
+
+
+def le_inf(scene, j: int, wi: V3) -> V3:
+    """Environment light ``j``'s radiance along ``wi`` (the BSDF-sampling
+    MIS leg's Le)."""
+    return _texels(scene.env, _env_lookup(scene, scene.lights.w2l[j], wi)[1])
+
+
+def pdf_li_env(scene, j: int, wi: V3):
+    """Solid-angle pdf that environment light ``j`` samples ``wi``."""
+    st, cell = _env_lookup(scene, scene.lights.w2l[j], _unit(wi))
+    return _env_pdf(scene.env, cell, st)
 
 
 def light_count(scene) -> int:
@@ -47,7 +195,8 @@ def _spot_falloff(w2l, ctw, cfs, w: V3):
 
 def sample_li_static(scene, j: int, p_ref: V3, u0, u1):
     """sample_li for static light ``j`` -> (radiance V3, wi V3, pdf [N],
-    p_light V3). ``u0``/``u1`` are read by area lights only."""
+    p_light V3). ``u0``/``u1`` are read by area and environment lights
+    only."""
     lights = scene.lights
     kind = kind_of(scene, j)
     n = p_ref.x.shape[0]
@@ -91,7 +240,12 @@ def sample_li_static(scene, j: int, p_ref: V3, u0, u1):
         rad = V.where(emits, _full3(n, i_rgb, dev), 0.0)
         return rad, wi_a, pdf_a, p_a
 
-    raise NotImplementedError(f"light kind {kind} is not ported")
+    if kind == L.INFINITE:
+        wi, rad, pdf = _env_sample_dir(scene.env, lights.l2w[j], u0, u1)
+        p_light = p_ref + wi * float(2.0 * lights.world_radius)
+        return rad, wi, pdf, p_light
+
+    raise ValueError(f"unknown light kind {kind}")
 
 
 def sample_le_static(scene, j: int, u0x, u0y, u1x, u1y, time):
@@ -159,7 +313,22 @@ def sample_le_static(scene, j: int, u0x, u0y, u1x, u1y, time):
             0.5 if two else 1.0)
         return i_v, p_a, d, n_a, pdf_pos, pdf_dir
 
-    raise NotImplementedError(f"light kind {kind} is not ported")
+    if kind == L.INFINITE:
+        # A direction toward the sky, then a world-radius disk on its side
+        # emitting back through the scene (as for a distant light).
+        w_to, le, pdf_dir = _env_sample_dir(scene.env, lights.l2w[j], u0x,
+                                            u0y)
+        wr = float(np.float32(lights.world_radius))
+        _, v1, v2 = V.coordinate_system(w_to)
+        cdx, cdy = V.concentric_sample_disk(u1x, u1y)
+        o = _full3(n, lights.world_center, dev) + (v1 * cdx + v2 * cdy) * wr \
+            + w_to * wr
+        pi = np.float32(np.pi)
+        wr32 = np.float32(lights.world_radius)
+        pdf_pos = np.float32(1.0) / max(pi * wr32 * wr32, np.float32(1e-20))
+        return le, o, -w_to, -w_to, ones * float(pdf_pos), pdf_dir
+
+    raise ValueError(f"unknown light kind {kind}")
 
 
 def area_cdf(tris, tri_start: int, tri_count: int) -> np.ndarray:

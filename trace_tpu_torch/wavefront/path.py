@@ -1,12 +1,14 @@
 """Planar path tracer: next-event estimation with MIS (port of
 trace_tpu/wavefront/path.py).
 
-Per bounce: closest hit, emission on camera and specular vertices, one
-light picked uniformly per lane (a static unroll over the scene's
-lights) with the light-sampling leg, plus the BSDF-sampling leg for area
-lights (one more closest hit), then a BSDF sample continues the path,
-with Russian roulette after ``rr_depth`` bounces. The uniforms derive
-from the lane keys exactly as in the JAX twin.
+Per bounce: closest hit, emission (and the environment on escaped rays)
+on camera and specular vertices, one light picked uniformly per lane (a
+static unroll over the scene's lights) with the light-sampling leg, plus
+the BSDF-sampling leg for area and environment lights (one more closest
+hit), then a BSDF sample continues the path, with Russian roulette after
+``rr_depth`` bounces. The uniforms derive from the lane keys exactly as
+in the JAX twin; environment-lit scenes follow the JAX package's packed
+li (integrators/path.py), which renders them there.
 
 Dead lanes (finished paths, shading lanes whose shadow or MIS ray cannot
 contribute) go to the sweep with t_max = -1, which skips them; their
@@ -33,7 +35,7 @@ INF = float("inf")
 
 def supports(scene) -> None:
     """Raise for a scene the planar path tracer cannot render: one light
-    of any ported kind, or several delta lights."""
+    of any kind, or several delta lights."""
     WW.supports(scene)
     kinds = [int(k) for k in scene.lights.kind]
     if len(kinds) > 1 and not all(
@@ -63,8 +65,8 @@ def _estimate_direct_static(scene, j: int, hit: G.HitP, lobes: S.LobesP,
                             u_l0, u_l1, u_s0, u_s1,
                             flags: int = S.BSDF_ALL & ~S.BSDF_SPECULAR) -> V3:
     """Direct light from static light ``j``: the light-sampling leg, and
-    for an area light the BSDF-sampling leg, each weighted by the power
-    heuristic."""
+    for an area or environment light the BSDF-sampling leg, each weighted
+    by the power heuristic."""
     lights = scene.lights
     kind = WL.kind_of(scene, j)
     n = hit.t.shape[0]
@@ -114,6 +116,23 @@ def _estimate_direct_static(scene, j: int, hit: G.HitP, lobes: S.LobesP,
                           power_heuristic(1.0, bs.pdf, 1.0, li_pdf))
         ld = ld + V.where(go & hits_light,
                           f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
+    elif kind == L.INFINITE:
+        # BSDF samples that escape see the sky; the area leg's pdf would
+        # be inf / inf on them, so the env leg reads the texel pdf only.
+        bs = S.sample_f(lobes, hit.wo, u_s0, u_s1, flags)
+        spec_sample = (bs.sampled_flags & S.BSDF_SPECULAR) != 0
+        f_b = bs.f * bs.wi.dot(hit.ns).abs()
+        go = hit.valid & (bs.pdf > 0) & ~f_b.is_black()
+        o = _offset_origin(hit.p, bs.wi, hit.n)
+        hit2 = WW.closest_hit(scene, o, bs.wi,
+                              torch.full((n,), INF, dtype=F32, device=dev),
+                              hit.time, live=go)
+        le = WL.le_inf(scene, j, bs.wi)
+        counts = ~hit2.valid & ~le.is_black()
+        w_b = torch.where(spec_sample, 1.0, power_heuristic(
+            1.0, bs.pdf, 1.0, WL.pdf_li_env(scene, j, bs.wi)))
+        ld = ld + V.where(go & counts,
+                          f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
     return ld
 
 
@@ -161,9 +180,13 @@ def li(scene, rd, keys, max_depth: int = 5, rr_depth: int = 3):
         live = active & hit.valid
         useful = useful + active.sum() + 2 * live.sum()
 
-        count_le = live & ((bounce == 0) | specular_bounce)
+        camera_or_specular = (bounce == 0) | specular_bounce
         le = WL.area_light_radiance(scene, hit, hit.wo)
-        l_out = l_out + V.where(count_le, beta * le, 0.0)
+        l_out = l_out + V.where(live & camera_or_specular, beta * le, 0.0)
+        if scene.env is not None:
+            # Other escapes are the BSDF-sampling leg's (NEE's MIS).
+            esc = active & ~hit.valid & camera_or_specular
+            l_out = l_out + V.where(esc, beta * WL.env_le(scene, d), 0.0)
 
         hit = hit._replace(valid=live)
         lobes = WM.compute_scattering(scene.materials, hit,

@@ -1,13 +1,14 @@
 """SPPM camera pass: visible points on planar state (port of
 trace_tpu/wavefront/sppm_camera.py).
 
-One bounce walk per pixel: closest hit, emission on camera and specular
-vertices, direct light from one uniformly picked light (not scaled by the
-path throughput, as in the reference), a visible point at the first
-diffuse vertex (or a glossy one at the last depth), else a BSDF sample
-with Russian roulette. The randomness derives from the pixel-keyed lane
-keys exactly as in the JAX twin; only the output is converted to the
-packed layout the grid and pair phases read.
+One bounce walk per pixel: closest hit, emission (and the environment
+on escaped rays) on camera and specular vertices, direct light from one
+uniformly picked light (not scaled by the path throughput, as in the
+reference), a visible point at the first diffuse vertex (or a glossy one
+at the last depth), else a BSDF sample with Russian roulette. The
+randomness derives from the pixel-keyed lane keys exactly as in the JAX
+twin; only the output is converted to the packed layout the grid and
+pair phases read.
 
 Dead lanes go to the sweep with t_max = -1 (``closest_hit(live=)``);
 their results are masked out anyway. The walk stops once no lane is
@@ -118,6 +119,11 @@ def camera_pass_body(integ, scene, pixels, lane_valid, key):
             le = WL.area_light_radiance(scene, hit, hit.wo)
             emit = live if depth == 1 else live & specular_bounce
             ld = ld + V.where(emit, beta * le, 0.0)
+        if scene.env is not None:
+            esc = active & ~hit.valid
+            if depth > 1:
+                esc = esc & specular_bounce
+            ld = ld + V.where(esc, beta * WL.env_le(scene, d), 0.0)
         direct = WP.uniform_sample_one_light(scene, hit, lobes,
                                              U.fold_lanes(k_depth, 0))
         ld = ld + V.where(live, direct, 0.0)

@@ -11,7 +11,8 @@ the image is energy-exact iff ``queue_drops`` is 0.
 
 Intersection goes through the scene's accelerator (the sweep) where it
 has one, else through the brute-force triangle grid (scenes of 1-64
-triangles).
+triangles). Lanes that escape see the environment light, if the scene
+has one (the JAX package renders such scenes on its packed path only).
 
 Randomness is identity-keyed as in the JAX twin: per lane, fold in the
 branch path (heap numbering) and the depth.
@@ -30,7 +31,6 @@ from ..core import vec as V
 from ..core.ray import SPAWN_EPS
 from ..core.vec import V3
 from ..sampler import uniform as U
-from ..lights import lights as L
 from . import geom as G
 from . import lights as WL
 from . import materials as WM
@@ -60,10 +60,6 @@ def _zeros_hit(n, device):
 def supports(scene) -> None:
     """Raise for a scene the planar path cannot render (the JAX twin
     falls back to its packed path there; the port has one path)."""
-    kinds = set(int(k) for k in scene.lights.kind)
-    if not kinds <= {L.POINT, L.SPOT, L.DISTANT, L.AREA}:
-        raise NotImplementedError(f"light kinds {sorted(kinds)}: only point, "
-                                  "spot, distant and area lights are ported")
     WM.check_materials(scene.materials)
 
 
@@ -290,10 +286,12 @@ def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
         contrib = WL.area_light_radiance(scene, hit, hit.wo)
         contrib = contrib + sum_over_lights(scene, hit, lobes,
                                             U.fold_lanes(k_depth, 0))
-        contrib = sanitize(beta * contrib)
-        c_pack = torch.stack([torch.where(valid, contrib.x, 0.0),
-                              torch.where(valid, contrib.y, 0.0),
-                              torch.where(valid, contrib.z, 0.0)], dim=1)
+        contrib = V.where(valid, sanitize(beta * contrib), 0.0)
+        if scene.env is not None:
+            # A lane either shades or escapes, so one add holds both.
+            bg = sanitize(beta * WL.env_le(scene, q_rd.d))
+            contrib = V.where(active & ~valid, bg, contrib)
+        c_pack = torch.stack([contrib.x, contrib.y, contrib.z], dim=1)
         rank = queue["path"] - ((1 << (depth - 1)) - 1)
         for r in range(1 << (depth - 1)):
             l_buf.index_add_(0, queue["slot"],
