@@ -155,14 +155,43 @@ Phases (each prints lines with its seconds; any failure raises):
         image with photons gathered; and test_sppm.py's open box under a
         constant sky (12^2, 8 iterations of 8192 photons): the SPPM/path
         tracer mean ratio in (0.5, 2).
+  9. instanced geometry (details in chiprun_out/slice9.json):
+     a. sphere_field at n = 6, 32^2 (Whitted, 1 spp, depth 2, seed 0)
+        against tests/goldens/sphere_field6_32.npy, MSE < 5e-4;
+        test_instances.py's tetrahedron and grid pairs (four placements),
+        Whitted 24^2, instanced against flattened on the card, MSE < 1e-6
+        (the grid's base through the sweep kernel); the grid pair's
+        closest hits of 4096 probe rays on the card against the CPU:
+        equal hit masks, t within 1e-6 relative;
+     b. sphere_field at its own settings (1024 instances of a clipped
+        sphere, Whitted, 512^2, 4 spp, depth 3, Lanczos, pbrt camera,
+        seed 0): the camera rays' instance walk at each group size of
+        INST_GROUPS (ms, groups visited, the same results), one warm frame
+        and three timed, peak memory, useful rays, the walk calls and
+        instance groups visited, kernels a frame and the device-busy share
+        (torch.profiler); no sweep launch (spheres and a 2-triangle floor);
+     c. 100 copies (10 x 10, rotated, two mirrored) of the 88,208-triangle
+        glass stand-in on a floor under a point light, Whitted 256^2, 1
+        spp, depth 2, seed 0: launches with the counts set to 0 before the
+        frame, every sweep launch against sweep_plain and the prologue
+        kernel bit-equal on every launched chunk, skipped chunks dead; the
+        camera walk by group size; frames timed, peak memory beside the
+        flattened scene's sweep tables and rows (100 x the base's), kernels
+        a frame and the busy share; a 3 x 3 grid of the stand-in at 64^2
+        against its flattened twin (793,874 triangles): MSE < 5e-4, hit
+        masks within 1% of the camera rays;
+     d. the path tracer (256^2, 1 spp, depth 3, timed) and SPPM (256^2,
+        65536 photons, depth 5, radius 0.3; one warm iteration and two
+        timed with their phases' ms and launches) on 9c's scene.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
 route's; sweep and prologue also with their launches in one full-width
 SPPM iteration, the prologue with the chunks skipped there, both with
 their launches in the animated 1M frame and in each config-5 frame, and
-in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d)),
-the card's name and power limit, and
+in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d),
+and in the instanced stand-in frame (9c, with its agreement) and one of
+its SPPM iterations (9d)), the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1526,7 +1555,6 @@ def slice8(dev, card, scene, t_all):
     from trace_tpu_torch.core import transform as T
     from trace_tpu_torch.core.vec import V3
     from trace_tpu_torch.film.film import Film
-    from trace_tpu_torch.integrators import sppm as SP
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
     from trace_tpu_torch.integrators.whitted import WhittedIntegrator
@@ -1693,51 +1721,13 @@ def slice8(dev, card, scene, t_all):
                            n_iterations=3, photons_per_iteration=65536,
                            seed=0, device=dev)
     integ.check_scene(lit)
-    marks = []
-    time_phases(integ, marks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, state = sppm_iterations("8d", t0, card, integ, lit, acc, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     pixels = integ._pixel_grid(dev)
     key = U.key(integ.seed, dev)
     cdf, pmf = integ.light_distribution(lit)
-    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
-                             dev)
-    rows = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for it in (1, 2, 3):
-        marks.clear()
-        sweep_kernel.reset_counts()
-        block_entry_kernel.reset_counts()
-        acc.skipped_chunks = 0
-        a = torch.cuda.Event(enable_timing=True)
-        a.record()
-        state = integ.step(lit, state, it, pixels, key, cdf, pmf)
-        z = torch.cuda.Event(enable_timing=True)
-        z.record()
-        torch.cuda.synchronize()
-        row = dict(iteration=it, ms=a.elapsed_time(z),
-                   sweep_launches=sweep_kernel.launches,
-                   f32_launches=sweep_kernel.arm_launches["f32"],
-                   entry_launches=block_entry_kernel.launches,
-                   skipped_chunks=acc.skipped_chunks)
-        prev = a
-        for name, ev in marks:
-            row[f"{name}_ms"] = prev.elapsed_time(ev)
-            prev = ev
-        rows.append(row)
-        log("8d", t0, f"iteration {it}{' (warm)' if it == 1 else ''}: "
-            f"{row['ms']:.2f} ms; " + ", ".join(
-                f"{nm.strip('_')} {row[nm.strip('_') + '_ms']:.2f}"
-                for nm in SPPM_PHASES) + f" ms; sweep launches "
-            f"{row['sweep_launches']}, prologue {row['entry_launches']}, "
-            f"chunks skipped {row['skipped_chunks']}; card {card}")
-        if row["sweep_launches"] <= 0 or row["f32_launches"] != \
-                row["sweep_launches"] or row["entry_launches"] != \
-                row["sweep_launches"]:
-            raise AssertionError(f"the env SPPM iteration did not run the "
-                                 f"kernels: {row}")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for name in SPPM_PHASES:
-        delattr(integ, name)
     img = integ.to_image(state, 3)
     gathered = int((state.tau.sum(-1) > 0).sum())
     finite = bool(torch.isfinite(img).all())
@@ -1790,6 +1780,525 @@ def slice8(dev, card, scene, t_all):
     if not 0.5 < ratio < 2.0:
         raise AssertionError(f"env box ratio {ratio}")
     log(8, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+# Phase 9's scenes: test_instances.py's pairs (a tetrahedron and a wavy
+# 128-triangle grid, four placements), and 100 copies of the glass
+# stand-in, 10 x 10 on a floor, with rotations and two mirrors.
+INST_GOLDEN = os.path.join(REPO, "tests", "goldens", "sphere_field6_32.npy")
+FLAT_GATE = 1e-6
+STANDIN_CENTRE = (-3.75, 2.5, 2.425)   # glass_standin's centre
+INST_GROUPS = (16, 32, 128, 1024)
+
+
+def tetra_mesh():
+    verts = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1]],
+                     np.float32)
+    return np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]],
+                    np.uint32), verts
+
+
+def grid_mesh(n=9):
+    xs = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    gz = 0.1 * np.sin(6.0 * gx) * np.cos(5.0 * gy)
+    verts = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32)
+    ii, jj = np.meshgrid(np.arange(n - 1), np.arange(n - 1), indexing="ij")
+    v00 = (ii * n + jj).reshape(-1)
+    return np.concatenate(
+        [np.stack([v00, v00 + n, v00 + 1], -1),
+         np.stack([v00 + 1, v00 + n, v00 + n + 1], -1)], 0).astype(
+             np.uint32), verts
+
+
+def pair_scenes(mesh, dev):
+    """(instanced, flattened) scenes of test_instances.py's _build_pair."""
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.lights.lights import point_light
+    from trace_tpu_torch.materials.materials import MatteMaterial
+    from trace_tpu_torch.scene import SceneBuilder
+
+    idx, verts = mesh
+    trs = [T.translate([0.0, 0.0, -3.0]),
+           T.compose(T.translate([2.0, 0.5, -4.0]), T.rotate_y(40.0)),
+           T.compose(T.translate([-2.0, -0.5, -5.0]),
+                     T.compose(T.rotate_x(25.0), T.scale(1.5, 0.8, 1.2))),
+           T.compose(T.translate([0.5, 2.0, -6.0]), T.rotate_z(70.0))]
+    out = []
+    for flat in (False, True):
+        b = SceneBuilder()
+        mat = b.material(MatteMaterial(Kd=(0.7, 0.6, 0.5)))
+        if flat:
+            for t in trs:
+                b.triangle_mesh(t, idx, verts, mat)
+        else:
+            b.instanced_mesh(idx, verts, trs, mat)
+        b.light(point_light(T.translate([0.0, 5.0, 0.0]), (50.0, 50.0, 50.0)))
+        out.append(b.build(device=dev))
+    return out
+
+
+def pair_image(scene, res=24):
+    from trace_tpu_torch.camera.perspective import PerspectiveCamera
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.film.film import Film
+    from trace_tpu_torch.film.filters import LanczosSincFilter
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.sampler.uniform import UniformSampler
+
+    film = Film((res, res), filter=LanczosSincFilter((1.0, 1.0), 3.0),
+                filename="unused.png")
+    cam = PerspectiveCamera(T.look_at([0.0, 0.3, 4.0], [0.0, 0.0, -4.0],
+                                      [0.0, 1.0, 0.0]),
+                            film=film, convention="pbrt")
+    integ = WhittedIntegrator(cam, UniformSampler(1, seed=2), max_depth=2)
+    return image(integ, integ.render(scene))
+
+
+def probe_rays(n, seed, dev):
+    """test_instances.py's probe rays toward the four placements."""
+    import torch
+    from trace_tpu_torch.core.vec import V3
+
+    rng = np.random.default_rng(seed)
+    o = np.array([0.0, 0.3, 4.0], np.float32) + 0.3 * rng.normal(
+        size=(n, 3)).astype(np.float32)
+    tgt = np.stack([rng.uniform(-3, 3, n), rng.uniform(-1.5, 2.5, n),
+                    rng.uniform(-6.5, -2.5, n)], -1).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        dev)
+    return V3(*[t(o[:, i]) for i in range(3)]), V3(*[t(d[:, i])
+                                                    for i in range(3)])
+
+
+def standin_transforms(n_side, spacing=2.6):
+    """n_side^2 placements of the stand-in (its centre moved to a grid at
+    height 1 over the floor): every third turned about y, every third
+    tilted about x, and two mirrored by scale(-1, 1, 1)."""
+    from trace_tpu_torch.core import transform as T
+
+    home = T.translate([-c for c in STANDIN_CENTRE])
+    mirrored = {11, 57} if n_side == 10 else {4}
+    out = []
+    for k in range(n_side * n_side):
+        i, j = divmod(k, n_side)
+        place = T.translate([spacing * (i - (n_side - 1) / 2), 1.0,
+                             spacing * (j - (n_side - 1) / 2)])
+        if k in mirrored:
+            turn = T.scale(-1.0, 1.0, 1.0)
+        elif k % 3 == 1:
+            turn = T.rotate_y(37.0 * k)
+        elif k % 3 == 2:
+            turn = T.rotate_x(20.0 + k)
+        else:
+            turn = T.identity()
+        out.append(T.compose(place, turn, home))
+    return out
+
+
+def standin_scene(dev, n_side, flat=False):
+    """n_side^2 glass stand-ins (instanced, or flattened into one triangle
+    table) on a 2-triangle matte floor under a point light."""
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.lights.lights import point_light
+    from trace_tpu_torch.materials.materials import (GlassMaterial,
+                                                     MatteMaterial)
+    from trace_tpu_torch.scene import SceneBuilder
+
+    g = glass_standin()
+    b = SceneBuilder()
+    floor = b.material(MatteMaterial(Kd=(0.6, 0.6, 0.6)))
+    glass = b.material(GlassMaterial(Kr=(1.0, 1.0, 1.0), Kt=(1.0, 1.0, 1.0),
+                                     index=1.5))
+    trs = standin_transforms(n_side)
+    if flat:
+        for t in trs:
+            b.triangle_mesh(t, g["indices"], g["vertices"], glass,
+                            normals=g["normals"])
+    else:
+        b.instanced_mesh(g["indices"], g["vertices"], trs, glass,
+                         normals=g["normals"])
+    fv = np.array([[-16, 0, 16], [16, 0, 16], [16, 0, -16], [-16, 0, -16]],
+                  np.float32)
+    b.triangle_mesh(T.identity(), np.array([[0, 1, 2], [0, 2, 3]],
+                                           np.uint32), fv, floor)
+    b.light(point_light(T.translate([4.0, 14.0, 8.0]), (300.0, 300.0, 300.0)))
+    return b.build(device=dev)
+
+
+def standin_camera(res, png, n_side=10):
+    from trace_tpu_torch.camera.perspective import PerspectiveCamera
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.film.film import Film
+    from trace_tpu_torch.film.filters import LanczosSincFilter
+
+    s = 1.3 * n_side
+    film = Film((res, res), filter=LanczosSincFilter((1.0, 1.0), 3.0),
+                filename=png)
+    return PerspectiveCamera(T.look_at([0.0, s, 1.7 * s], [0.0, 0.0, 0.0],
+                                       [0.0, 1.0, 0.0]),
+                             fov=50.0, film=film, convention="pbrt")
+
+
+def camera_rays(cam, dev):
+    """One ray through each pixel centre of ``cam``'s film, as V3s."""
+    import torch
+    from trace_tpu_torch.core.vec import V3
+
+    w, h = cam.film.width, cam.film.height
+    yy, xx = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    p = torch.stack([xx.reshape(-1), yy.reshape(-1)], 1).float() + 0.5
+    n = p.shape[0]
+    rd, _ = cam.generate_ray_differentials(
+        p, torch.zeros(n, 2, device=dev), torch.zeros(n, device=dev))
+    return V3.of(rd.o), V3.of(rd.d), rd.t_max
+
+
+def walk_groups(phase, t0, card, geom, o, d, tm):
+    """The instance walk of one recorded call at each group size in
+    INST_GROUPS: ms (CUDA events, 3 calls after a warm one), groups
+    visited a call, and the results equal to the default group's."""
+    import torch
+    from trace_tpu_torch.accel import instances as TI
+
+    ref = TI.sweep_instances(geom, o, d, tm)
+    rows = {}
+    for g in INST_GROUPS:
+        before = geom.groups_visited
+        got = TI.sweep_instances(geom, o, d, tm, group=g)
+        visited = geom.groups_visited - before
+        same = all(torch.equal(a, b) for a, b in zip(ref, got))
+        ms = cuda_ms(lambda: TI.sweep_instances(geom, o, d, tm, group=g), 3)
+        rows[g] = dict(ms=ms, groups=visited, same=same)
+    log(phase, t0, f"the walk of {o.x.shape[0]} rays over "
+        f"{geom.n_instances} instances by group size: " + ", ".join(
+            f"{g}: {r['ms']:.2f} ms, {r['groups']} groups"
+            for g, r in rows.items()) + f" (default {TI.GROUP}); card {card}")
+    if not all(r["same"] for r in rows.values()):
+        raise AssertionError(f"[{phase}] the walk depends on its group: "
+                             f"{rows}")
+    return rows
+
+
+def record_walks(geom):
+    """Wrap ``geom.traverse`` to record each call's rays and any-hit flag;
+    returns the list (del geom.traverse restores the method)."""
+    calls = []
+    traced = geom.traverse
+
+    def record(o, d, t_max, any_hit=False):
+        calls.append((o, d, t_max.clone(), any_hit))
+        return traced(o, d, t_max, any_hit)
+
+    geom.traverse = record
+    return calls
+
+
+def sppm_iterations(phase, t0, card, integ, scene, acc, n):
+    """``n`` SPPM iterations (the first warm), each with its phases' ms
+    and its sweep and prologue launches and chunks skipped."""
+    import torch
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+
+    dev = scene.device
+    marks = []
+    time_phases(integ, marks)
+    pixels = integ._pixel_grid(dev)
+    key = U.key(integ.seed, dev)
+    cdf, pmf = integ.light_distribution(scene)
+    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                             dev)
+    rows = []
+    try:
+        for it in range(1, n + 1):
+            marks.clear()
+            sweep_kernel.reset_counts()
+            block_entry_kernel.reset_counts()
+            acc.skipped_chunks = 0
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state = integ.step(scene, state, it, pixels, key, cdf, pmf)
+            z = torch.cuda.Event(enable_timing=True)
+            z.record()
+            torch.cuda.synchronize()
+            row = dict(iteration=it, ms=a.elapsed_time(z),
+                       sweep_launches=sweep_kernel.launches,
+                       f32_launches=sweep_kernel.arm_launches["f32"],
+                       entry_launches=block_entry_kernel.launches,
+                       skipped_chunks=acc.skipped_chunks)
+            prev = a
+            for name, ev in marks:
+                row[f"{name}_ms"] = prev.elapsed_time(ev)
+                prev = ev
+            rows.append(row)
+            log(phase, t0, f"iteration {it}{' (warm)' if it == 1 else ''}: "
+                f"{row['ms']:.2f} ms; " + ", ".join(
+                    f"{nm.strip('_')} {row[nm.strip('_') + '_ms']:.2f}"
+                    for nm in SPPM_PHASES) + f" ms; sweep launches "
+                f"{row['sweep_launches']}, prologue {row['entry_launches']}"
+                f", chunks skipped {row['skipped_chunks']}; card {card}")
+            if row["sweep_launches"] <= 0 or row["f32_launches"] != \
+                    row["sweep_launches"] or row["entry_launches"] != \
+                    row["sweep_launches"]:
+                raise AssertionError(f"[{phase}] the SPPM iteration did not "
+                                     f"run the kernels: {row}")
+    finally:
+        for name in SPPM_PHASES:
+            delattr(integ, name)
+    return rows, state
+
+
+def slice9(dev, card, t_all):
+    """Phase 9: instanced geometry (module docstring)."""
+    import torch
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import sphere_field
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.wavefront import whitted as WF
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 9a: the golden, the pairs against their flattened twins ----------
+    t0 = time.perf_counter()
+    sf6 = sphere_field.build_scene(6, device=dev)
+    cam = sphere_field.build_camera(32, os.path.join(tmp, "unused.png"))
+    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+    img = image(integ, integ.render(sf6))
+    golden = np.load(INST_GOLDEN)
+    mse = float(np.mean((img - golden) ** 2))
+    out["golden_sphere_field6_32"] = dict(mse=mse, max_abs=float(
+        np.abs(img - golden).max()))
+    log("9a", t0, f"golden sphere_field6_32: MSE {mse:.3e} (gate "
+        f"{MSE_GATE}), max abs {out['golden_sphere_field6_32']['max_abs']:.3e}")
+    if not (img.shape == golden.shape and np.isfinite(img).all()
+            and mse < MSE_GATE):
+        raise AssertionError(f"golden mismatch (sphere_field6_32): {mse}")
+    for label, mesh in (("tetra", tetra_mesh()), ("grid", grid_mesh())):
+        sweep_kernel.reset_counts()
+        inst, flat = pair_scenes(mesh, dev)
+        img_i = pair_image(inst)
+        launches = sweep_kernel.launches
+        img_f = pair_image(flat)
+        mse = float(np.mean((img_i - img_f) ** 2))
+        out[f"pair_{label}"] = dict(mse=mse, inst_sweep_launches=launches)
+        log("9a", t0, f"{label} pair, Whitted 24^2: instanced vs flattened "
+            f"MSE {mse:.3e} (gate {FLAT_GATE}); the instanced frame's sweep "
+            f"launches {launches}")
+        if not (np.isfinite(img_i).all() and img_i.max() > 0.01
+                and mse < FLAT_GATE) or (label == "grid") != (launches > 0):
+            raise AssertionError(f"{label} pair: {out[f'pair_{label}']}")
+    # The grid pair's closest hits on the card against the port on the CPU.
+    inst_cpu = pair_scenes(grid_mesh(), "cpu")[0]
+    o, d = probe_rays(4096, 0, dev)
+    tm = torch.full((4096,), float("inf"), device=dev)
+    sweep_kernel.reset_counts()
+    hc = WF.closest_hit(inst, o, d, tm, torch.zeros_like(tm))
+    launches = sweep_kernel.launches
+    cpu = lambda v: type(v)(*[x.cpu() for x in v])
+    hh = WF.closest_hit(inst_cpu, cpu(o), cpu(d), tm.cpu(),
+                        torch.zeros(4096))
+    vc, vh = hc.valid.cpu(), hh.valid
+    rel = float(((hc.t.cpu() - hh.t).abs() / hh.t.abs())[vh].max())
+    out["grid_pair_card_vs_cpu"] = dict(
+        hits=int(vh.sum()), mask_mismatch=int((vc != vh).sum()),
+        t_max_rel=rel, prim_mismatch=int((hc.prim_id.cpu() != hh.prim_id)[
+            vh].sum()), sweep_launches=launches)
+    log("9a", t0, f"grid pair, 4096 probe rays: closest hits on the card vs "
+        f"the CPU {out['grid_pair_card_vs_cpu']} (t gate 1e-6 relative)")
+    if (vc != vh).any() or rel > 1e-6 or launches <= 0:
+        raise AssertionError(f"grid pair card vs CPU: "
+                             f"{out['grid_pair_card_vs_cpu']}")
+    del sf6, inst, flat, inst_cpu
+
+    # -- 9b: sphere_field_512 -------------------------------------------------
+    t0 = time.perf_counter()
+    field = sphere_field.build_scene(device=dev)
+    geom = field.instanced[0]
+    png = os.path.join(tmp, "chip_smoke_sphere_field_512.png")
+    cam = sphere_field.build_camera(512, png)
+    integ = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=3)
+    walks = record_walks(geom)
+    integ.render(field)
+    del geom.traverse
+    groups = walk_groups("9b", t0, card, geom, *walks[0][:3])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sweep_kernel.reset_counts()
+    times, state = timed_frames(integ, field)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    geom.groups_visited = 0
+    walks = record_walks(geom)
+    state = integ.render(field)
+    del geom.traverse
+    img = image(integ, state)
+    cam.film.save_png(state)
+    calls = [dict(rays=int(o.x.shape[0]), live=int((t >= 0).sum()),
+                  any_hit=a) for o, _, t, a in walks]
+    busy = device_busy("9b", t0, card, "frame", lambda: integ.render(field),
+                       np.mean(times))
+    out["sphere_field_512"] = dict(
+        frame_ms=times, ms=float(np.mean(times)), peak_gib=peak,
+        useful_rays=integ.last_useful_rays, walk_calls=calls,
+        groups_visited=geom.groups_visited,
+        groups_per_call=geom.groups_visited / max(len(calls), 1),
+        group_sizes=groups, busy=busy,
+        kernels_per_frame=busy["kernels"],
+        sweep_launches=sweep_kernel.launches)
+    log("9b", t0, f"sphere_field 512^2, Whitted, 4 spp, depth 3, 1024 "
+        f"instances: frames {[round(x, 2) for x in times]} ms, mean "
+        f"{np.mean(times):.2f}; useful rays {integ.last_useful_rays} "
+        f"({integ.last_useful_rays / np.mean(times) / 1e3:.3f} Mrays/s); "
+        f"peak {peak:.3f} GiB; {len(calls)} walk calls {calls}, instance "
+        f"groups visited {geom.groups_visited}; kernels a frame "
+        f"{busy['kernels']}, device busy {100 * busy['share']:.1f}%; sweep "
+        f"launches {sweep_kernel.launches}; PNG {png}; card {card}")
+    if not (np.isfinite(img).all() and img.max() > 0.02
+            and sweep_kernel.launches == 0):
+        raise AssertionError(f"sphere_field 512: {out['sphere_field_512']}")
+    del field, geom, walks, state
+    torch.cuda.empty_cache()
+
+    # -- 9c: inst100_standin_whitted_256, the mesh path ----------------------
+    t0 = time.perf_counter()
+    scene = standin_scene(dev, 10)
+    geom = scene.instanced[0]
+    acc = geom.accel
+    build_s = time.perf_counter() - t0
+    png = os.path.join(tmp, "chip_smoke_inst100.png")
+    integ = WhittedIntegrator(standin_camera(256, png),
+                              U.UniformSampler(1, seed=0), max_depth=2)
+    sweep_kernel.reset_counts()
+    block_entry_kernel.reset_counts()
+    acc.skipped_chunks = 0
+    geom.groups_visited = 0
+    walks = record_walks(geom)
+    state, calls, accs = record_sweep_calls(integ.render, scene)
+    del geom.traverse
+    launches = dict(sweep=sweep_kernel.launches,
+                    f32=sweep_kernel.arm_launches["f32"],
+                    prologue=block_entry_kernel.launches,
+                    skipped=acc.skipped_chunks,
+                    sweep_calls=len(calls), walk_calls=len(walks),
+                    groups_visited=geom.groups_visited)
+    integ.camera.film.save_png(state)
+    img = image(integ, state)
+    if launches["sweep"] <= 0 or launches["f32"] != launches["sweep"] or \
+            launches["prologue"] != launches["sweep"] or \
+            any(a is not acc for a in accs):
+        raise AssertionError(f"the instanced frame did not run the "
+                             f"kernels: {launches}")
+    agree, pro, _ = check_launches("9c", acc, calls)
+    del calls, accs
+    groups = walk_groups("9c", t0, card, geom, *walks[0][:3])
+    del walks
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, _ = timed_frames(integ, scene)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_copy = (acc.panel.numel() * acc.panel.element_size()
+                + acc.slot_to_tri.numel() * 4 + geom.base_rows.numel() * 4)
+    flat_gib = geom.n_instances * per_copy / 2**30
+    busy = device_busy("9c", t0, card, "frame", lambda: integ.render(scene),
+                       np.mean(times))
+    out["inst100_whitted_256"] = dict(
+        n_base=geom.n_base, n_instances=geom.n_instances,
+        swaps=int(geom.table.swaps.sum()), build_s=build_s,
+        launches=launches, agreement=agree, prologue=pro, frame_ms=times,
+        ms=float(np.mean(times)), peak_gib=peak,
+        flattened_tables_gib=flat_gib, group_sizes=groups, busy=busy,
+        useful_rays=integ.last_useful_rays)
+    log("9c", t0, f"{geom.n_instances} stand-ins of {geom.n_base} triangles "
+        f"({geom.n_instances * geom.n_base} instanced, "
+        f"{int(geom.table.swaps.sum())} mirrored), Whitted 256^2 depth 2: "
+        f"launches {launches}; every launch equal to sweep_plain with the "
+        f"same steps ({sum(t.get('launches', 0) for t in agree.values())} "
+        f"checked), prologue bit-equal ({pro}); frames "
+        f"{[round(x, 2) for x in times]} ms (mean {np.mean(times):.2f}); "
+        f"peak {peak:.3f} GiB against {flat_gib:.3f} GiB of sweep tables and "
+        f"rows flattened; kernels a frame {busy['kernels']}, device busy "
+        f"{100 * busy['share']:.1f}%; non-zero pixels "
+        f"{float((img > 0).any(-1).mean()):.3f}; PNG {png}; card {card}")
+    if not (np.isfinite(img).all() and geom.table.swaps.sum() == 2):
+        raise AssertionError("the instanced stand-in frame")
+    # A 3 x 3 grid of the stand-in, instanced against flattened, at 64^2.
+    small = standin_scene(dev, 3)
+    flat = standin_scene(dev, 3, flat=True)
+    ims = []
+    for sc in (small, flat):
+        it = WhittedIntegrator(standin_camera(64, os.path.join(
+            tmp, "unused.png"), 3), U.UniformSampler(1, seed=0), max_depth=2)
+        ims.append(image(it, it.render(sc)))
+    mse = float(np.mean((ims[0] - ims[1]) ** 2))
+    o, d, tm = camera_rays(standin_camera(64, "unused.png", 3), dev)
+    zero = torch.zeros_like(tm)
+    hi, hf = (WF.closest_hit(sc, o, d, tm, zero) for sc in (small, flat))
+    both = hi.valid & hf.valid
+    out["flat_3x3_64"] = dict(
+        n_flat=flat.n_triangles, mse=mse,
+        mask_mismatch=int((hi.valid != hf.valid).sum()), hits=int(both.sum()),
+        t_max_rel=float(((hi.t - hf.t).abs() / hf.t)[both].max()))
+    log("9c", t0, f"3 x 3 stand-ins, 64^2: instanced vs flattened "
+        f"({flat.n_triangles} triangles) {out['flat_3x3_64']} (MSE gate "
+        f"{MSE_GATE}, hit masks within 1% of the camera rays)")
+    if not (mse < MSE_GATE and out["flat_3x3_64"]["mask_mismatch"]
+            <= 0.01 * tm.numel() and both.sum() > 0.1 * tm.numel()):
+        raise AssertionError(f"3 x 3 stand-ins: {out['flat_3x3_64']}")
+    del small, flat, hi, hf
+    torch.cuda.empty_cache()
+
+    # -- 9d: the path tracer and SPPM on 9c's scene -------------------------
+    t0 = time.perf_counter()
+    png = os.path.join(tmp, "chip_smoke_inst100_path.png")
+    integ = PathIntegrator(standin_camera(256, png),
+                           U.UniformSampler(1, seed=0), max_depth=3)
+    sweep_kernel.reset_counts()
+    times, state = timed_frames(integ, scene)
+    img = image(integ, state)
+    integ.camera.film.save_png(state)
+    out["inst100_path_256"] = dict(frame_ms=times, ms=float(np.mean(times)),
+                                   sweep_launches_4_frames=sweep_kernel
+                                   .launches,
+                                   useful_rays=integ.last_useful_rays)
+    log("9d", t0, f"path tracer 256^2, 1 spp, depth 3: frames "
+        f"{[round(x, 2) for x in times]} ms (mean {np.mean(times):.2f}); "
+        f"useful rays {integ.last_useful_rays}; sweep launches in 4 frames "
+        f"{sweep_kernel.launches}; PNG {png}; card {card}")
+    if not (np.isfinite(img).all() and img.max() > 0.0
+            and sweep_kernel.launches > 0):
+        raise AssertionError(f"instanced path frame: "
+                             f"{out['inst100_path_256']}")
+    png = os.path.join(tmp, "chip_smoke_inst100_sppm.png")
+    integ = SPPMIntegrator(standin_camera(256, png),
+                           initial_search_radius=0.3, max_depth=5,
+                           n_iterations=3, photons_per_iteration=65536,
+                           seed=0, device=dev)
+    integ.check_scene(scene)
+    torch.cuda.reset_peak_memory_stats()
+    rows, state = sppm_iterations("9d", t0, card, integ, scene, acc, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = integ.to_image(state, 3)
+    gathered = int((state.tau.sum(-1) > 0).sum())
+    finite = bool(torch.isfinite(img).all())
+    integ.save(state, 3)
+    out["inst100_sppm_256"] = dict(iterations=rows, peak_gib=peak,
+                                   pixels_gathered=gathered)
+    log("9d", t0, f"SPPM 256^2, 65536 photons, depth 5, r0 0.3: iterations "
+        f"{[round(r['ms'], 2) for r in rows]} ms (the first warm); peak "
+        f"{peak:.3f} GiB; pixels with tau > 0 {gathered}; finite {finite}; "
+        f"PNG {png}; card {card}")
+    if not finite or gathered <= 0:
+        raise AssertionError(f"instanced SPPM image: finite {finite}, "
+                             f"pixels with tau > 0 {gathered}")
+    log(9, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
     return out
 
 
@@ -2250,6 +2759,26 @@ def main() -> int:
             "entry_launches"],
         env_sppm_skipped_chunks=s8["sppm_1m_env"]["iterations"][1][
             "skipped_chunks"])
+
+    # -- 9: instanced geometry ------------------------------------------------
+    del s8
+    torch.cuda.empty_cache()
+    s9 = slice9(dev, card, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice9.json"), "w") as f:
+        json.dump(dict(card=card, **s9), f, indent=1)
+    c9 = s9["inst100_whitted_256"]
+    inst = dict(inst_whitted_launches=c9["launches"]["sweep"],
+                inst_whitted_max_abs_err=max(
+                    t.get("max_abs_err", 0.0) for t in
+                    c9["agreement"].values()),
+                inst_sppm_launches=s9["inst100_sppm_256"]["iterations"][1][
+                    "sweep_launches"])
+    inst_pro = dict(
+        inst_whitted_launches=c9["launches"]["prologue"],
+        inst_whitted_skipped_chunks=c9["launches"]["skipped"],
+        inst_whitted_max_abs_err=c9["prologue"]["max_abs_err"],
+        inst_sppm_launches=s9["inst100_sppm_256"]["iterations"][1][
+            "entry_launches"])
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
@@ -2278,7 +2807,8 @@ def main() -> int:
     kernels = [
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
-             sppm_launches=sppm_launches["sweep_launches"], **anim, **env),
+             sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
+             **inst),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -2306,7 +2836,7 @@ def main() -> int:
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
-             **env_pro),
+             **env_pro, **inst_pro),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

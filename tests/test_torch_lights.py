@@ -171,11 +171,19 @@ def test_environment_light_builds():
 
 
 def test_instancing_raises():
+    """Instancing is ported (tests/test_torch_instances*.py); an instance
+    list with no transform still raises, as the JAX package's
+    build_instances does (ValueError: nothing to stack)."""
+    from trace_tpu_torch.core import transform as TT
     from trace_tpu_torch.materials.materials import MatteMaterial
     from trace_tpu_torch.scene import SceneBuilder
 
     b = SceneBuilder()
     m = b.material(MatteMaterial())
-    b.instanced_mesh(np.zeros((1, 3), np.uint32), np.zeros((3, 3)), [], m)
-    with pytest.raises(NotImplementedError):
-        b.build(device="cpu")
+    verts = np.eye(3, dtype=np.float32)
+    with pytest.raises(ValueError):
+        b.instanced_mesh(np.array([[0, 1, 2]], np.uint32), verts, [], m)
+    b.instanced_mesh(np.array([[0, 1, 2]], np.uint32), verts,
+                     [TT.identity()], m)
+    scene = b.build(device="cpu")
+    assert len(scene.instanced) == 1 and scene.n_triangles == 0

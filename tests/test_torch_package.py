@@ -23,7 +23,8 @@ def test_every_module_is_listed():
                  "integrators.sppm", "wavefront.sppm_camera",
                  "wavefront.sppm_photon", "utils.checkpoint", "io.ply",
                  "models.sphere", "models.caustic_glass",
-                 "models.env_studio"):
+                 "models.env_studio", "accel.instances",
+                 "models.sphere_field"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -75,13 +76,13 @@ def _default_devices():
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator, initial_state
     from trace_tpu_torch.models import (_run, caustic_glass, cornell,
                                         env_studio, mesh_heavy, sphere,
-                                        spheres)
+                                        sphere_field, spheres)
     from trace_tpu_torch.scene import SceneBuilder
 
     dflt = lambda f: inspect.signature(f).parameters["device"].default
     out = {f"{m.__name__}.build_scene": dflt(m.build_scene)
            for m in (mesh_heavy, spheres, cornell, sphere, caustic_glass,
-                     env_studio)}
+                     env_studio, sphere_field)}
     out["models.sphere.render"] = dflt(sphere.render)
     out["SceneBuilder.build"] = dflt(SceneBuilder.build)
     out["SPPMIntegrator"] = dflt(SPPMIntegrator)

@@ -80,12 +80,40 @@ def arrays_from_jax(scene) -> dict:
         scene.materials)
     a["exact_edges"] = scene.exact_edges
     if scene.n_triangles > 64:
-        from trace_tpu.accel.clusters import build_clusters
-        from trace_tpu.ops.sweep_pallas import SweepTables
+        a.update(sweep_arrays(scene.triangles_host))
+    for k, geom in enumerate(scene.instanced):
+        a.update(instanced_arrays(geom, f"inst{k}_"))
+    return a
 
-        tb = SweepTables(build_clusters(scene.triangles_host, 64, 4), 8)
-        for f in ("panel", "slot_to_tri", "s_lo", "s_hi"):
-            a[f] = np.asarray(getattr(tb, f))
+
+def sweep_arrays(tris, prefix="") -> dict:
+    """The JAX package's sweep tables (leaf 64, group 8) of a triangle
+    table."""
+    from trace_tpu.accel.clusters import build_clusters
+    from trace_tpu.ops.sweep_pallas import SweepTables
+
+    tb = SweepTables(build_clusters(tris, 64, 4), 8)
+    return {prefix + f: np.asarray(getattr(tb, f)) for f in C.SWEEP_FIELDS}
+
+
+def instanced_arrays(geom, prefix) -> dict:
+    """One JAX instanced geometry (a mesh or a sphere base) as
+    convert.py's ``inst<k>_`` keys."""
+    from trace_tpu.accel.instances import InstancedGeometry
+
+    a = {prefix + f: np.asarray(getattr(geom.table, f))
+         for f in ("o2w", "w2o", "lo", "hi", "material_id", "swaps")}
+    base = jax.tree.map(np.asarray, geom.base)
+    if isinstance(geom, InstancedGeometry):
+        a[prefix + "kind"] = np.int32(C.INST_MESH)
+        for f in Triangles._fields:
+            a[prefix + "tri_" + f] = np.asarray(getattr(base, f))
+        if geom.n_base > 64:
+            a.update(sweep_arrays(base, prefix))
+    else:
+        a[prefix + "kind"] = np.int32(C.INST_SPHERES)
+        for f in Spheres._fields:
+            a[prefix + "sphere_" + f] = np.asarray(getattr(base, f))
     return a
 
 

@@ -19,6 +19,12 @@ identical data. Keys (all numpy):
   remap_roughness), metal (eta rgb, k rgb, roughness, remap_roughness);
 - sweep tables (optional): ``panel`` (f32, or a bf16 or hi/lo panel as
   its uint16 view), ``slot_to_tri``, ``s_lo``, ``s_hi``;
+- instanced geometry (optional), for k = 0, 1, ... in the scene's order:
+  ``inst<k>_kind`` (INST_MESH or INST_SPHERES), the base as
+  ``inst<k>_tri_<field>`` or ``inst<k>_sphere_<field>``, the instance
+  table's six arrays ``inst<k>_<field>`` (o2w, w2o, lo, hi, material_id,
+  swaps), and for a mesh base above 64 triangles its sweep tables
+  ``inst<k>_panel`` etc.;
 - ``exact_edges`` (optional): the scene's exact_shared_edges switch;
 - ``fused_b`` (optional): ops/intersect_pallas.py::pack_tris' B; the scene
   then intersects through the fused brute-force accelerator.
@@ -34,6 +40,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .accel import instances as inst_mod
 from .core.transform import Transform
 from .lights import lights as light_mod
 from .materials import materials as M
@@ -49,6 +56,9 @@ MIRROR = 2
 PLASTIC = 3
 METAL = 4
 N_PARAMS = 10
+INST_MESH = 0
+INST_SPHERES = 1
+SWEEP_FIELDS = ("panel", "slot_to_tri", "s_lo", "s_hi")
 
 
 def _materials(kinds, params):
@@ -121,22 +131,47 @@ def transform_from_jax(xf) -> Transform:
                      np.asarray(xf.inv_m, np.float32))
 
 
+def _sweep_tables(arrays, prefix=""):
+    if prefix + "panel" not in arrays:
+        return None
+    return SweepTables.from_arrays(*[arrays[prefix + f]
+                                     for f in SWEEP_FIELDS])
+
+
+def _instanced(arrays) -> list:
+    out = []
+    k = 0
+    while f"inst{k}_kind" in arrays:
+        pre = f"inst{k}_"
+        table = inst_mod.InstanceTable(*[np.asarray(arrays[pre + f])
+                                         for f in inst_mod.InstanceTable
+                                         ._fields])
+        if int(arrays[pre + "kind"]) == INST_MESH:
+            base = Triangles(*[np.asarray(arrays[pre + "tri_" + f])
+                               for f in Triangles._fields])
+            out.append(inst_mod.InstancedGeometry(
+                base, table, _sweep_tables(arrays, pre)))
+        else:
+            base = Spheres(*[np.asarray(arrays[pre + "sphere_" + f])
+                             for f in Spheres._fields])
+            out.append(inst_mod.InstancedSpheres(base, table))
+        k += 1
+    return out
+
+
 def scene_from_numpy(arrays: dict, device) -> Scene:
     spheres = Spheres(*[np.asarray(arrays["sphere_" + f])
                         for f in Spheres._fields])
     tris = Triangles(*[np.asarray(arrays["tri_" + f])
                        for f in Triangles._fields])
-    tables = None
-    if "panel" in arrays:
-        tables = SweepTables.from_arrays(arrays["panel"],
-                                         arrays["slot_to_tri"],
-                                         arrays["s_lo"], arrays["s_hi"])
     scene = Scene(spheres, tris,
                   _materials(arrays["material_kind"],
                              arrays["material_params"]),
-                  _lights(arrays, tris), device, sweep_tables=tables,
+                  _lights(arrays, tris), device,
+                  sweep_tables=_sweep_tables(arrays),
                   exact_edges=bool(arrays.get("exact_edges", False)),
-                  tri_light_id=arrays.get("tri_light_id"))
+                  tri_light_id=arrays.get("tri_light_id"),
+                  instanced=_instanced(arrays))
     if "fused_b" in arrays:
         intersect.attach(scene, b=arrays["fused_b"])
     return scene

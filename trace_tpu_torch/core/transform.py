@@ -38,9 +38,13 @@ def inverse(t: Transform) -> Transform:
     return Transform(t.inv_m, t.m)
 
 
-def compose(t1: Transform, t2: Transform) -> Transform:
-    """t1 * t2 (t2 applies first)."""
-    return Transform(t1.m @ t2.m, t2.inv_m @ t1.inv_m)
+def compose(t1: Transform, t2: Transform, *rest: Transform) -> Transform:
+    """t1 * t2 * ... (the rightmost applies first), multiplied left to
+    right."""
+    out = Transform(t1.m @ t2.m, t2.inv_m @ t1.inv_m)
+    for t in rest:
+        out = Transform(out.m @ t.m, t.inv_m @ out.inv_m)
+    return out
 
 
 def compose_ref(t1: Transform, t2: Transform) -> Transform:
@@ -104,6 +108,12 @@ def rotate_y(deg: float) -> Transform:
     """Rotation about +y; the inverse is the transpose."""
     s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
     return _rot(np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32))
+
+
+def rotate_z(deg: float) -> Transform:
+    """Rotation about +z; the inverse is the transpose."""
+    s, c = np.sin(np.deg2rad(deg)), np.cos(np.deg2rad(deg))
+    return _rot(np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32))
 
 
 def look_at(position, target, up) -> Transform:

@@ -632,11 +632,14 @@ class SweepAccelerator:
 
     def pad_rays(self, o, d, t_max):
         """(o_p, d_p, t_p): the chunk padded to whole blocks. Padding lanes
-        are dead (t_lim = -1); t_max = inf becomes 3e38."""
+        are dead (t_lim = -1); t_max = +inf or NaN becomes 3e38, and -inf
+        becomes -1: such a lane is dead, not swept in full (no hit has t
+        <= -inf, so its hit and t are what they were)."""
         pad = (-o.shape[0]) % self.block_rays
         o_p = torch.cat([o, o.new_zeros((pad, 3))])
         d_p = torch.cat([d, d.new_zeros((pad, 3))])
-        t_p = torch.cat([torch.where(torch.isfinite(t_max), t_max, 3e38),
+        t_lim = torch.where(t_max == -INF, -1.0, t_max)
+        t_p = torch.cat([torch.where(torch.isfinite(t_lim), t_lim, 3e38),
                          torch.full((pad,), -1.0, dtype=F32,
                                     device=o.device)])
         return o_p, d_p, t_p
@@ -677,9 +680,9 @@ class SweepAccelerator:
 
     def live_chunks(self, t_max) -> list:
         """The starts of the chunks of ``t_max`` (in launch order) that hold
-        a lane the kernels treat as live: t_max >= 0, +-inf or NaN (pad_rays
-        sends every non-finite limit to 3e38). One host read."""
-        live = (t_max >= 0) | ~torch.isfinite(t_max)
+        a lane the kernels treat as live: t_max >= 0 or NaN (pad_rays sends
+        +inf and NaN to 3e38, -inf to -1). One host read."""
+        live = ~(t_max < 0)
         n, c = t_max.shape[0], self.ray_chunk
         pad = (-n) % c
         if pad:

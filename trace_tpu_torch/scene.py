@@ -13,8 +13,12 @@ epilogue, the brute-force grid and the winner detail phase the
 double-single edge fallback. A mesh given ``emission`` is a diffuse area
 light; ``light(infinite_light(...))`` adds the environment light, whose
 texel tables go to the device with the light table and whose disk is
-the scene's bounding sphere. What the port cannot render (instancing,
-non-constant textures) raises NotImplementedError at ``build()``.
+the scene's bounding sphere. ``instanced_mesh`` and ``instanced_spheres``
+add many transformed copies of one base (accel/instances.py): the base is
+stored once, each copy adds a row of a transform table, and the base's own
+sweep tables (a mesh above 64 triangles) go to the device at build.
+Primitive ids: spheres [0, S), triangles [S, S + T), then I * n_base ids
+per instanced geometry, in the order they were added.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import copy
 import numpy as np
 import torch
 
+from .accel import instances as inst_mod
 from .accel.clusters import build_clusters
 from .lights import lights as light_mod
 from .ops.sweep import SweepAccelerator, SweepTables
@@ -47,6 +52,22 @@ MAX_PRIMS_PER_LEAF = 4
 BRUTE_FORCE_MAX_TRIS = 64
 
 
+def sweep_tables(tris) -> SweepTables | None:
+    """The sweep's tables for a triangle table above 64 triangles (leaf
+    64 x group 8), else None: the brute-force grid serves it."""
+    if tri_mod.num_triangles(tris) <= BRUTE_FORCE_MAX_TRIS:
+        return None
+    return SweepTables(build_clusters(tris, LEAF_TRIS, MAX_PRIMS_PER_LEAF),
+                       GROUP)
+
+
+def make_sweep(tables: SweepTables, device, certified: bool
+               ) -> SweepAccelerator:
+    """The sweep over ``tables`` with the scene's block and chunk."""
+    return SweepAccelerator(tables, device, block_rays=BLOCK_RAYS,
+                            ray_chunk=RAY_CHUNK, certified=certified)
+
+
 class SceneBuilder:
     """materials -> shapes -> lights -> build()."""
 
@@ -57,7 +78,7 @@ class SceneBuilder:
         self._tri_light = []
         self._tri_count = 0
         self._lights = []
-        self._instanced = 0
+        self._instanced = []
 
     def material(self, mat) -> int:
         self._materials.append(mat)
@@ -86,37 +107,45 @@ class SceneBuilder:
         self._tri_light.append(np.full(n, light_id, np.int32))
         self._tri_count += n
 
-    def instanced_mesh(self, *args, **kw) -> None:
-        self._instanced += 1
+    def instanced_mesh(self, indices, vertices, transforms, material: int,
+                       normals=None, uv=None, material_ids=None) -> None:
+        """Copies of one mesh under ``transforms`` (core.transform
+        Transforms), the mesh stored once; ``material_ids`` [I] overrides
+        the material per copy (-1 keeps ``material``). Instanced geometry
+        carries no area-light emission."""
+        self._instanced.append(inst_mod.build_instances(
+            indices, vertices, transforms, material_id=material,
+            normals=normals, uv=uv, material_ids=material_ids))
 
-    def instanced_spheres(self, *args, **kw) -> None:
-        self._instanced += 1
+    def instanced_spheres(self, entries, transforms,
+                          material_ids=None) -> None:
+        """Copies of one sphere array (dicts of ``sphere``'s arguments,
+        with ``object_to_world``, ``radius``, ``material_id`` and the
+        clipping keys) under ``transforms``."""
+        self._instanced.append(inst_mod.build_sphere_instances(
+            entries, transforms, material_ids=material_ids))
 
     def light(self, entry: dict) -> None:
         self._lights.append(entry)
 
     def build(self, device="cuda", exact_shared_edges: bool = False
               ) -> "Scene":
-        if self._instanced:
-            raise NotImplementedError("instanced geometry is not ported")
         spheres = sph_mod.pack_spheres(self._spheres)
         tris = tri_mod.concat_triangles(self._tri_parts)
         tri_light = (np.concatenate(self._tri_light) if self._tri_light
                      else np.zeros(0, np.int32))
         lights = light_mod.pack_lights(self._lights, tris)
-        tables = None
-        if tri_mod.num_triangles(tris) > BRUTE_FORCE_MAX_TRIS:
-            tables = SweepTables(
-                build_clusters(tris, LEAF_TRIS, MAX_PRIMS_PER_LEAF), GROUP)
         return Scene(spheres, tris, self._materials, lights, device,
-                     sweep_tables=tables, exact_edges=exact_shared_edges,
-                     tri_light_id=tri_light)
+                     sweep_tables=sweep_tables(tris),
+                     exact_edges=exact_shared_edges, tri_light_id=tri_light,
+                     instanced=self._instanced)
 
 
 class Scene:
     def __init__(self, spheres, triangles, materials, lights, device,
                  sweep_tables: SweepTables | None = None,
-                 exact_edges: bool = False, tri_light_id=None):
+                 exact_edges: bool = False, tri_light_id=None,
+                 instanced=()):
         self.device = torch.device(device)
         self.exact_edges = bool(exact_edges)
         self.spheres = spheres
@@ -132,12 +161,20 @@ class Scene:
         self.sphere_rows = torch.from_numpy(G.sphere_rows(spheres)).to(dev)
         self._set_geometry(triangles, None if sweep_tables is None
                            else self.sweep(sweep_tables))
+        self.instanced = [g.to(dev) for g in instanced]
+        self.instanced_offsets = []
+        off = self.n_spheres + self.n_triangles
+        for g in self.instanced:
+            self.instanced_offsets.append(off)
+            off += g.n_instances * g.n_base
 
         bounds = []
         if self.n_spheres:
             bounds.append(sph_mod.world_bounds_np(spheres))
         if self.n_triangles:
             bounds.append(tri_mod.world_bounds_np(triangles))
+        for g in self.instanced:
+            bounds.append(g.world_bounds_np())
         if bounds:
             allb = np.concatenate(bounds, axis=0)
             lo, hi = allb[:, 0].min(0), allb[:, 1].max(0)
@@ -159,9 +196,7 @@ class Scene:
     def sweep(self, tables: SweepTables) -> SweepAccelerator:
         """The scene's sweep over ``tables``, with its block, chunk and
         certification."""
-        return SweepAccelerator(tables, self.device, block_rays=BLOCK_RAYS,
-                                ray_chunk=RAY_CHUNK,
-                                certified=self.exact_edges)
+        return make_sweep(tables, self.device, self.exact_edges)
 
     def _set_geometry(self, triangles, accel) -> None:
         """Install a triangle table (host or device) and its accelerator,

@@ -11,16 +11,18 @@ the image is energy-exact iff ``queue_drops`` is 0.
 
 Intersection goes through the scene's accelerator (the sweep) where it
 has one, else through the brute-force triangle grid (scenes of 1-64
-triangles). Lanes that escape see the environment light, if the scene
-has one (the JAX package renders such scenes on its packed path only).
+triangles), then through each instanced geometry's walk
+(accel/instances.py). Lanes that escape see the environment light, if
+the scene has one. The JAX package renders environment-lit and instanced
+scenes on its packed path only; the port's tests hold this path to that.
 
 Randomness is identity-keyed as in the JAX twin: per lane, fold in the
 branch path (heap numbering) and the depth.
 
 Lanes that are dead (inactive queue entries, or shading lanes whose
-light contribution is already zero) are handed to the sweep with
-t_max = -1, which skips them; their results were masked out anyway, so
-the image is unchanged.
+light contribution is already zero) are handed to the sweep and to the
+instance walks with t_max = -1, which skips them; their results were
+masked out anyway, so the image is unchanged.
 """
 from __future__ import annotations
 
@@ -78,9 +80,11 @@ def _triangles(scene, o: V3, d: V3, t_max, live, any_hit: bool):
 
 
 def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
-    """Closest hit over spheres and triangles -> HitP; where both tie,
-    the sphere (the earlier source) wins. ``live`` marks the lanes whose
-    result is used."""
+    """Closest hit over the scene's sources -- spheres, triangles, then
+    each instanced geometry -> HitP; where sources tie, the earlier one
+    wins. ``live`` marks the lanes whose result is used. An instance walk
+    is given the best t of the sources before it as its limit (it can only
+    win below it)."""
     n = o.x.shape[0]
     dev = o.x.device
     if scene.n_spheres:
@@ -108,13 +112,40 @@ def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
             prim_offset=scene.n_spheres, exact_edges=scene.exact_edges,
             trust_valid=scene.exact_edges and scene.accel is not None)
         rec = rec_t if rec is None else G.where_hit(tri_wins, rec_t, rec)
+    if scene.instanced:
+        rec = _instanced_closest(scene, o, d, t_max, time, live,
+                                 torch.minimum(ts, tt), rec)
     if rec is None:
         raise ValueError("scene has no geometry")
     return rec
 
 
+def _instanced_closest(scene, o: V3, d: V3, t_max, time, live, best,
+                       rec):
+    """Fold each instanced geometry's walk into ``rec``, the record of the
+    sources before it whose least t is ``best``."""
+    win = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
+    walks = []
+    for k, geom in enumerate(scene.instanced):
+        lim = torch.minimum(best, t_max)
+        if live is not None:
+            lim = torch.where(live, lim, -1.0)
+        h_g, t_g, e_g, i_g = geom.traverse(o, d, lim)
+        wins = h_g & (t_g < best)
+        best = torch.where(wins, t_g, best)
+        win = torch.where(wins, k, win)
+        walks.append((e_g, i_g))
+    for k, (geom, off, (e_g, i_g)) in enumerate(zip(
+            scene.instanced, scene.instanced_offsets, walks)):
+        sel = win == k
+        rec_g = geom.make_hit_record(o, d, time, e_g, i_g, sel,
+                                     prim_offset=off)
+        rec = rec_g if rec is None else G.where_hit(sel, rec_g, rec)
+    return rec
+
+
 def any_hit(scene, o: V3, d: V3, t_max, live=None):
-    """Occlusion predicate (shadow rays)."""
+    """Occlusion predicate (shadow rays): any source's hit within t_max."""
     n = o.x.shape[0]
     occ = torch.zeros(n, dtype=torch.bool, device=o.x.device)
     if scene.n_spheres:
@@ -122,6 +153,12 @@ def any_hit(scene, o: V3, d: V3, t_max, live=None):
     if scene.n_triangles:
         h, t, _ = _triangles(scene, o, d, t_max, live, True)
         occ = occ | (h if t is None else h & (t <= t_max))
+    for geom in scene.instanced:
+        # Lanes already occluded, or dead, walk nothing.
+        go = ~occ if live is None else live & ~occ
+        h, t, _, _ = geom.traverse(o, d, torch.where(go, t_max, -1.0),
+                                   any_hit=True)
+        occ = occ | (h & (t <= t_max))
     return occ
 
 
