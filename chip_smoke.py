@@ -183,6 +183,33 @@ Phases (each prints lines with its seconds; any failure raises):
      d. the path tracer (256^2, 1 spp, depth 3, timed) and SPPM (256^2,
         65536 photons, depth 5, radius 0.3; one warm iteration and two
         timed with their phases' ms and launches) on 9c's scene.
+  10. several lights of any kind in one scene, and image textures
+     (details in chiprun_out/slice10.json):
+     a. goldens on the card: __graft_entry__.py's _dryrun_scene (flat and
+        instanced geometry; an area, a point and an environment light),
+        built here by dryrun_builder with the port's SceneBuilder, pbrt
+        camera, Lanczos: Whitted and the path tracer at 16^2 (1 spp,
+        depth 2, seed 0), SPPM at 16^2 (radius 0.2, depth 2, 1 iteration
+        of 1024 photons), and Whitted at 32^2 on the scene with a
+        mip-mapped image on the floor and a mixed texture on a sphere,
+        against tests/goldens/dryrun16_{whitted,path,sppm}.npy and
+        dryrun32_tex_whitted.npy, MSE < 5e-4 each; texture lookups on
+        65536 seeded lanes on the card against the CPU: max abs <= 1e-6,
+        level or texel flips in at most 1 lane in 1000;
+     b. the 1M mesh_heavy terrain and glass sphere lit by its point light,
+        the sky and a 2 x 2 emissive quad facing down, the terrain's Kd an
+        ImageTexture (a procedural 256^2 image written with write_png,
+        read back with read_png, mapped from world x, z; repeat, sRGB):
+        Whitted (256^2, 1 spp, depth 2), the path tracer (256^2, 1 spp,
+        depth 3) and SPPM (256^2, 65536 photons, depth 5, radius 0.3),
+        each with its launches counted from 0, every sweep launch against
+        sweep_plain and the prologue bit-equal on every launched chunk;
+        the path tracer's sweep calls must be one closest hit, one shadow
+        and one BSDF-leg call a bounce; frames timed (one warm, three),
+        SPPM iterations (one warm, two) with their phases' ms; peak
+        memory, useful rays, the path frame's device-busy share; the
+        photons each light emitted in one iteration against the power
+        pmf, within 2% absolute.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -191,7 +218,8 @@ SPPM iteration, the prologue with the chunks skipped there, both with
 their launches in the animated 1M frame and in each config-5 frame, and
 in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d),
 and in the instanced stand-in frame (9c, with its agreement) and one of
-its SPPM iterations (9d)), the card's name and power limit, and
+its SPPM iterations (9d), and in the three-light textured 1M frames and
+SPPM iteration (10b)), the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -2302,6 +2330,414 @@ def slice9(dev, card, t_all):
     return out
 
 
+DRYRUN_GOLDENS = {k: os.path.join(REPO, "tests", "goldens", f"{k}.npy")
+                  for k in ("dryrun16_whitted", "dryrun16_path",
+                            "dryrun16_sppm", "dryrun32_tex_whitted")}
+DRYRUN_SPPM = dict(initial_search_radius=0.2, max_depth=2, n_iterations=1,
+                   photons_per_iteration=1024)
+TEX_SEED = 7
+
+
+def port_modules():
+    """The port's modules that dryrun_builder and dryrun_camera read."""
+    from types import SimpleNamespace
+
+    from trace_tpu_torch.camera.perspective import PerspectiveCamera
+    from trace_tpu_torch.core import transform
+    from trace_tpu_torch.film.film import Film
+    from trace_tpu_torch.film.filters import LanczosSincFilter
+    from trace_tpu_torch.lights import lights
+    from trace_tpu_torch.materials import materials, textures
+    from trace_tpu_torch.models.env_studio import sky_image
+    from trace_tpu_torch.scene import SceneBuilder
+
+    return SimpleNamespace(
+        T=transform, L=lights, M=materials, TX=textures,
+        SceneBuilder=SceneBuilder, sky_image=sky_image, Film=Film,
+        LanczosSincFilter=LanczosSincFilter,
+        PerspectiveCamera=PerspectiveCamera)
+
+
+def floor_image(seed=TEX_SEED, n=16) -> np.ndarray:
+    """The seeded [n, n, 3] uint8 image of the textured floor."""
+    return np.random.default_rng(seed).integers(0, 256, (n, n, 3), np.uint8)
+
+
+def dryrun_builder(ns, textured=False):
+    """__graft_entry__.py's _dryrun_scene (flat spheres and triangles, an
+    instanced tetrahedron mesh, instanced spheres, a point, an area and an
+    environment light) as a SceneBuilder of the package whose modules
+    ``ns`` holds (port_modules(), or the JAX package's twins in the
+    tests). ``textured``: the floor's Kd is a mip-mapped image (floor_image,
+    sRGB, repeat) through a UV mapping scaled by 3, and the red sphere's
+    Kd mixes red and blue by a bilinear ramp over its u."""
+    T, L, M, TX = ns.T, ns.L, ns.M, ns.TX
+    b = ns.SceneBuilder()
+    grey = b.material(M.MatteMaterial(Kd=(0.6, 0.6, 0.6)))
+    red = b.material(M.MatteMaterial(Kd=(0.7, 0.25, 0.2)))
+    mirror = b.material(M.MirrorMaterial(Kr=(0.9, 0.9, 0.9)))
+    floor, ball = grey, red
+    if textured:
+        floor = b.material(M.MatteMaterial(Kd=TX.ImageTexture(
+            TX.UVMapping2D(3.0, 3.0), TX.MipMap(floor_image(), wrap="repeat",
+                                                gamma=True))))
+        ball = b.material(M.MatteMaterial(Kd=TX.MixTexture(
+            TX.ConstantTexture((0.7, 0.25, 0.2)),
+            TX.ConstantTexture((0.2, 0.3, 0.8)),
+            TX.BilerpTexture(TX.UVMapping2D(), 0.0, 0.0, 1.0, 1.0))))
+    b.sphere(T.translate([0.4, 0.3, -2.4]), 0.3, mirror)
+    b.sphere(T.translate([-0.5, 0.25, -2.2]), 0.25, ball)
+    quad = np.array([[0, 1, 2], [0, 2, 3]], np.uint32)
+    fv = np.array([[-3, 0, 1], [3, 0, 1], [3, 0, -6], [-3, 0, -6]],
+                  np.float32)
+    b.triangle_mesh(T.identity(), quad, fv, floor)
+    lv = np.array([[-0.8, 2.5, -2.0], [0.8, 2.5, -2.0],
+                   [0.8, 2.5, -3.4], [-0.8, 2.5, -3.4]], np.float32)
+    b.triangle_mesh(T.identity(), quad, lv, grey, emission=(6.0, 6.0, 6.0))
+    tv = np.array([[0, 0, 0], [0.5, 0, 0], [0, 0.5, 0], [0, 0, 0.5]],
+                  np.float32)
+    ti = np.array([[0, 2, 1], [0, 1, 3], [0, 3, 2], [1, 2, 3]], np.uint32)
+    b.instanced_mesh(ti, tv, [T.translate([-1.2, 0.0, -3.0]),
+                              T.compose(T.translate([1.2, 0.0, -3.2]),
+                                        T.rotate_y(35.0))], red)
+    b.instanced_spheres(
+        [dict(object_to_world=T.identity(), radius=0.2, material_id=grey)],
+        [T.translate([0.0, 0.2, -1.6]), T.translate([-1.4, 0.2, -2.6])])
+    b.light(L.point_light(T.translate([0.0, 2.0, 0.0]), (8.0, 8.0, 8.0)))
+    b.light(L.infinite_light(image=ns.sky_image(16, 32)))
+    return b
+
+
+def dryrun_camera(ns, res, filename="unused.png"):
+    """__graft_entry__.py's _dryrun_camera: pbrt convention, Lanczos."""
+    film = ns.Film((res, res), filter=ns.LanczosSincFilter((1.0, 1.0), 3.0),
+                   filename=filename)
+    return ns.PerspectiveCamera(
+        ns.T.look_at([0.0, 0.8, 2.5], [0.0, 0.2, -2.5], [0.0, 1.0, 0.0]),
+        film=film, convention="pbrt")
+
+
+def texture_lanes(dev, n, seed=0):
+    """Trilinear lookups of floor_image's mip pyramid (repeat wrap, sRGB)
+    on ``n`` seeded lanes whose footprints span every level, on ``dev``
+    -> (values [n, 3], level floor [n], level-0 texel index [n] at that
+    level)."""
+    import torch
+    from trace_tpu_torch.materials.textures import MipMap
+
+    rng = np.random.default_rng(seed)
+    st = rng.uniform(-1.5, 2.5, (n, 2)).astype(np.float32)
+    dx = (rng.choice([-1.0, 1.0], (n, 2)) * 2.0 ** rng.uniform(
+        -9.0, 0.5, (n, 1))).astype(np.float32)
+    dy = (dx * rng.uniform(0.0, 1.0, (n, 2))).astype(np.float32)
+    mip = MipMap(floor_image(), wrap="repeat", gamma=True)
+    st, dx, dy = (torch.from_numpy(a).to(dev) for a in (st, dx, dy))
+    lvl = torch.floor(mip.level(dx, dy))
+    dims = mip.tables(dev)[0][lvl.long()]
+    x0 = torch.floor(st[:, 0] * dims[:, 1] - 0.5)
+    y0 = torch.floor(st[:, 1] * dims[:, 0] - 0.5)
+    return mip.lookup(st, dx, dy), lvl, y0 * dims[:, 1] + x0
+
+
+def terrain_image(n=256) -> np.ndarray:
+    """A procedural [n, n, 3] uint8 image: a checker of 8 x 8 tiles under
+    diagonal colour bands."""
+    y, x = np.mgrid[0:n, 0:n].astype(np.float32) / n
+    check = ((np.floor(x * 8) + np.floor(y * 8)) % 2)[..., None]
+    bands = 0.5 + 0.5 * np.sin(2 * np.pi * (x + 2 * y)[..., None]
+                               * 3.0 + np.array([0.0, 2.1, 4.2]))
+    img = 0.25 + 0.45 * check * bands + 0.2 * (1 - check)
+    return (np.clip(img, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+# The emissive quad of phase 10b: 2 x 2, facing down, 5 above the terrain's
+# centre; its radiance gives it 0.75 of the point light's power (L A pi
+# against 4 pi I).
+QUAD_RADIANCE = 300.0
+QUAD_Y = 5.0
+
+
+def lights3_scene(dev, png):
+    """The 1M mesh_heavy terrain, its glass sphere, mesh_point(), mesh_sky()
+    and an emissive quad, the terrain's Kd an ImageTexture of
+    terrain_image() written as a PNG, read back and mapped from world
+    (x, z) to (s, t) (one tile every 4 units, repeat, sRGB) -> (Scene,
+    seconds to build, whether the PNG read back equal)."""
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.io.png import read_png, write_png
+    from trace_tpu_torch.materials import textures as TX
+    from trace_tpu_torch.materials.materials import (GlassMaterial,
+                                                     MatteMaterial)
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.scene import SceneBuilder
+
+    t0 = time.perf_counter()
+    img = terrain_image()
+    write_png(png, img)
+    back = read_png(png)
+    w2t = T.from_matrix(np.array([[0.25, 0, 0, 0], [0, 0, 0.25, 0],
+                                  [0, 1, 0, 0], [0, 0, 0, 1]], np.float32))
+    tex = TX.ImageTexture(TX.TransformMapping3D(w2t),
+                          TX.MipMap(back, wrap="repeat", gamma=True))
+    verts, tris = mesh_heavy.heightfield(int(np.sqrt(1_000_000 / 2)) + 1)
+    b = SceneBuilder()
+    ground = b.material(MatteMaterial(Kd=tex, sigma=20.0))
+    glass = b.material(GlassMaterial(index=1.5))
+    b.triangle_mesh(T.identity(), tris, verts, ground)
+    b.sphere(T.translate([0.0, 2.0, 0.0]), 1.0, glass)
+    b.triangle_mesh(T.identity(), np.array([[0, 1, 2], [0, 2, 3]],
+                                           np.uint32),
+                    np.array([[-1, QUAD_Y, -1], [-1, QUAD_Y, 1],
+                              [1, QUAD_Y, 1], [1, QUAD_Y, -1]], np.float32),
+                    ground, emission=(QUAD_RADIANCE,) * 3)
+    b.light(mesh_point())
+    b.light(mesh_sky())
+    scene = b.build(device=dev)
+    return scene, time.perf_counter() - t0, bool(np.array_equal(back, img))
+
+
+def count_emitted(photons):
+    """Wrap the photon walk's per-lane emission so each call adds its
+    lanes' light picks to ``photons`` (a list of bincounts); returns the
+    undo."""
+    import torch
+    from trace_tpu_torch.wavefront import lights as WL
+
+    traced = WL.sample_le_lanes
+
+    def counted(scene, idx, *a):
+        photons.append(torch.bincount(idx.long(), minlength=int(
+            scene.lights.kind.shape[0])).cpu())
+        return traced(scene, idx, *a)
+
+    WL.sample_le_lanes = counted
+    return lambda: setattr(WL, "sample_le_lanes", traced)
+
+
+def shading_kernels(dev, n=65536):
+    """Kernels the card runs for one compute_scattering call on ``n``
+    shading lanes of a matte (sigma 20) whose Kd is a constant, and whose
+    Kd is lights3_scene's image texture (torch.profiler) -> (constant,
+    image)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.core.vec import V3
+    from trace_tpu_torch.materials import textures as TX
+    from trace_tpu_torch.materials.materials import MatteMaterial
+    from trace_tpu_torch.wavefront import geom as G
+    from trace_tpu_torch.wavefront import materials as WM
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    f = lambda: torch.rand(n, device=dev, generator=g) * 8.0 - 4.0
+    v3 = lambda: V3(f(), f(), f())
+    vecs = {"p", "wo", "n", "dpdu", "dpdv", "ns", "s_dpdu", "s_dpdv",
+            "s_dndu", "s_dndv", "dpdx", "dpdy"}
+    hit = G.HitP(**{k: v3() if k in vecs else f() for k in G.HitP._fields})
+    hit = hit._replace(valid=torch.ones(n, dtype=torch.bool, device=dev),
+                       material_id=torch.zeros(n, dtype=torch.int32,
+                                               device=dev))
+    w2t = T.from_matrix(np.array([[0.25, 0, 0, 0], [0, 0, 0.25, 0],
+                                  [0, 1, 0, 0], [0, 0, 0, 1]], np.float32))
+    tex = TX.ImageTexture(TX.TransformMapping3D(w2t),
+                          TX.MipMap(terrain_image(), wrap="repeat",
+                                    gamma=True))
+    counts = []
+    for kd in ((0.55, 0.5, 0.4), tex):
+        mats = [MatteMaterial(Kd=kd, sigma=20.0)]
+        TX.upload(mats, dev)
+        WM.compute_scattering(mats, hit)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            WM.compute_scattering(mats, hit)
+            torch.cuda.synchronize()
+        counts.append(int(sum(e.count for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA)))
+    return tuple(counts)
+
+
+def slice10(dev, card, t_all):
+    """Phase 10: several lights of any kind in one scene, and image
+    textures (module docstring)."""
+    import torch
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 10a: the dryrun goldens, the texture lookup card vs CPU ------------
+    t0 = time.perf_counter()
+    ns = port_modules()
+    for name, path in sorted(DRYRUN_GOLDENS.items()):
+        textured = "tex" in name
+        sc = dryrun_builder(ns, textured=textured).build(device=dev)
+        cam = dryrun_camera(ns, 32 if textured else 16)
+        if name.endswith("sppm"):
+            integ = SPPMIntegrator(cam, device=dev, **DRYRUN_SPPM)
+            img = integ.to_image(integ.render(sc), 1).cpu().numpy()
+        else:
+            cls = PathIntegrator if name.endswith("path") \
+                else WhittedIntegrator
+            integ = cls(cam, U.UniformSampler(1, seed=0), max_depth=2)
+            img = image(integ, integ.render(sc))
+        golden = np.load(path)
+        mse = float(np.mean((img - golden) ** 2))
+        off = int((np.abs(img - golden).max(-1) > 1e-3).sum())
+        out[f"golden_{name}"] = dict(mse=mse, pixels_off=off)
+        log("10a", t0, f"golden {name}: MSE {mse:.3e} (gate {MSE_GATE}), "
+            f"pixels off by > 1e-3: {off}")
+        if not (img.shape == golden.shape and np.isfinite(img).all()
+                and mse < MSE_GATE):
+            raise AssertionError(f"golden mismatch ({name}): {mse}")
+    n = 65536
+    vc, lc, xc = texture_lanes(dev, n)
+    vh, lh, xh = texture_lanes(torch.device("cpu"), n)
+    flips = (lc.cpu() != lh) | (xc.cpu() != xh)
+    err = float((vc.cpu() - vh).abs().max(-1).values[~flips].max())
+    out["texture_lanes"] = dict(lanes=n, flips=int(flips.sum()),
+                                max_abs=err, levels=int(lh.unique().numel()))
+    log("10a", t0, f"texture lookups on {n} lanes, card vs CPU: "
+        f"{out['texture_lanes']} (gates: max abs 1e-6, flips 1 in 1000)")
+    if err > 1e-6 or int(flips.sum()) > n // 1000:
+        raise AssertionError(f"texture lookup: {out['texture_lanes']}")
+
+    # -- 10b: the 1M terrain, three lights, textured -------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    scene, build_s, png_equal = lights3_scene(
+        dev, os.path.join(tmp, "chip_smoke_terrain_texture.png"))
+    acc = scene.accel
+    kinds = [int(k) for k in scene.lights.kind]
+    png = os.path.join(tmp, "chip_smoke_lights3_sppm.png")
+    sppm = SPPMIntegrator(mesh_heavy.build_camera(256, png),
+                          initial_search_radius=0.3, max_depth=5,
+                          n_iterations=3, photons_per_iteration=65536,
+                          seed=0, device=dev)
+    sppm.check_scene(scene)
+    cdf, pmf_t = sppm.light_distribution(scene)
+    pmf = pmf_t.cpu().numpy()
+    log("10b", t0, f"scene built in {build_s:.2f} s: {scene.n_triangles} "
+        f"triangles, lights {kinds}, power pmf {pmf.tolist()}; the texture "
+        f"PNG read back equal {png_equal}")
+    if not png_equal or pmf.min() <= 0:
+        raise AssertionError("the lights3 scene")
+    runs = {}
+    for label, integ in (
+            ("mesh1m_whitted_256_lights3", WhittedIntegrator(
+                mesh_heavy.build_camera(256, os.path.join(
+                    tmp, "chip_smoke_lights3_whitted.png")),
+                U.UniformSampler(1, seed=0), max_depth=2)),
+            ("mesh1m_path_256_lights3", PathIntegrator(
+                mesh_heavy.build_camera(256, os.path.join(
+                    tmp, "chip_smoke_lights3_path.png")),
+                U.UniformSampler(1, seed=0), max_depth=3))):
+        sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
+        acc.skipped_chunks = 0
+        state, calls, _ = record_sweep_calls(integ.render, scene)
+        launches = dict(sweep=sweep_kernel.launches,
+                        f32=sweep_kernel.arm_launches["f32"],
+                        prologue=block_entry_kernel.launches,
+                        skipped=acc.skipped_chunks, sweep_calls=len(calls))
+        integ.camera.film.save_png(state)
+        img = image(integ, state)
+        pattern = [a for *_, a in calls]
+        if launches["sweep"] <= 0 or launches["f32"] != launches["sweep"] \
+                or launches["prologue"] != launches["sweep"]:
+            raise AssertionError(f"{label} did not run the kernels: "
+                                 f"{launches}")
+        if label.startswith("mesh1m_path") and pattern != \
+                [False, True, False] * integ.max_depth:
+            raise AssertionError(f"{label}: sweep calls {pattern}, not one "
+                                 f"closest hit, one shadow and one BSDF "
+                                 f"call a bounce")
+        agree, pro, _ = check_launches("10b", acc, calls)
+        del calls
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = timed_frames(integ, scene)
+        row = dict(launches=launches, sweep_call_pattern=pattern,
+                   sweep_calls_per_bounce=len(pattern) / integ.max_depth,
+                   agreement=agree, prologue=pro, frame_ms=times,
+                   ms=float(np.mean(times)),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   useful_rays=integ.last_useful_rays,
+                   nonzero=float((img > 0).any(-1).mean()))
+        if label.startswith("mesh1m_path"):
+            row["busy"] = device_busy("10b", t0, card, "path frame",
+                                      lambda: integ.render(scene),
+                                      row["ms"])
+        runs[label] = row
+        log("10b", t0, f"{label}: launches {launches} (sweep calls "
+            f"{pattern}, {row['sweep_calls_per_bounce']:.2f} a bounce); "
+            f"every launch equal to sweep_plain with the same steps "
+            f"({sum(t.get('launches', 0) for t in agree.values())} "
+            f"checked), prologue bit-equal ({pro}); frames "
+            f"{[round(x, 2) for x in times]} ms (mean {row['ms']:.2f}); "
+            f"peak {row['peak_gib']:.3f} GiB; useful rays "
+            f"{row['useful_rays']}"
+            + (f"; device busy {100 * row['busy']['share']:.1f}%"
+               if "busy" in row else "")
+            + f"; non-zero pixels {row['nonzero']:.3f}; card {card}")
+        if not (np.isfinite(img).all() and row["nonzero"] > 0.05):
+            raise AssertionError(f"{label}: the frame")
+    # SPPM: one iteration's launches against plain, the photons each light
+    # emitted against the power pmf, then one warm iteration and two timed.
+    integ = sppm
+    key = U.key(integ.seed, dev)
+    pixels = integ._pixel_grid(dev)
+    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                             dev)
+    photons = []
+    undo = count_emitted(photons)
+    try:
+        _, calls, _ = record_sweep_calls(integ.step, scene, state, 1, pixels,
+                                         key, cdf, pmf_t)
+    finally:
+        undo()
+    agree, pro, _ = check_launches("10b", acc, calls)
+    emitted = torch.stack(photons).sum(0).numpy()
+    share = emitted / emitted.sum()
+    del calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rows, state = sppm_iterations("10b", t0, card, integ, scene, acc, 3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = integ.to_image(state, 3)
+    gathered = int((state.tau.sum(-1) > 0).sum())
+    finite = bool(torch.isfinite(img).all())
+    integ.save(state, 3)
+    runs["mesh1m_sppm_256_lights3"] = dict(
+        iterations=rows, peak_gib=peak, pixels_gathered=gathered,
+        agreement=agree, prologue=pro, photons_per_light=emitted.tolist(),
+        share=share.tolist(), pmf=pmf.tolist())
+    log("10b", t0, f"mesh1m_sppm_256_lights3: iterations "
+        f"{[round(r['ms'], 2) for r in rows]} ms (the first warm); one "
+        f"iteration's launches equal to sweep_plain "
+        f"({sum(t.get('launches', 0) for t in agree.values())} checked), "
+        f"prologue bit-equal ({pro}); photons per light {emitted.tolist()}"
+        f" ({[round(float(x), 4) for x in share]} against the power pmf "
+        f"{[round(float(x), 4) for x in pmf]}, gate 2% absolute); peak "
+        f"{peak:.3f} GiB; pixels with tau > 0 {gathered}; finite {finite}; "
+        f"PNG {png}; card {card}")
+    if not finite or gathered <= 0 or np.abs(share - pmf).max() > 0.02:
+        raise AssertionError(f"lights3 SPPM: {runs['mesh1m_sppm_256_lights3']}")
+    out.update(runs)
+    const, img_k = shading_kernels(dev)
+    out["shading_kernels"] = dict(constant=const, image=img_k)
+    log("10b", t0, f"kernels of one compute_scattering call on 65536 lanes "
+        f"(matte, sigma 20): Kd constant {const}, Kd the image texture "
+        f"{img_k}; card {card}")
+    log(10, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -2779,6 +3215,24 @@ def main() -> int:
         inst_whitted_max_abs_err=c9["prologue"]["max_abs_err"],
         inst_sppm_launches=s9["inst100_sppm_256"]["iterations"][1][
             "entry_launches"])
+
+    # -- 10: several lights of any kind, image textures ---------------------
+    del s9
+    torch.cuda.empty_cache()
+    s10 = slice10(dev, card, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice10.json"), "w") as f:
+        json.dump(dict(card=card, **s10), f, indent=1)
+    l3 = {k: s10[f"mesh1m_{k}_256_lights3"] for k in ("whitted", "path")}
+    l3_sppm = s10["mesh1m_sppm_256_lights3"]["iterations"][1]
+    lights3 = dict(
+        lights3_whitted_launches=l3["whitted"]["launches"]["sweep"],
+        lights3_path_launches=l3["path"]["launches"]["sweep"],
+        lights3_sppm_launches=l3_sppm["sweep_launches"])
+    lights3_pro = dict(
+        lights3_whitted_launches=l3["whitted"]["launches"]["prologue"],
+        lights3_path_launches=l3["path"]["launches"]["prologue"],
+        lights3_sppm_launches=l3_sppm["entry_launches"],
+        lights3_sppm_skipped_chunks=l3_sppm["skipped_chunks"])
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
@@ -2808,7 +3262,7 @@ def main() -> int:
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
-             **inst),
+             **inst, **lights3),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -2836,7 +3290,7 @@ def main() -> int:
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
-             **env_pro, **inst_pro),
+             **env_pro, **inst_pro, **lights3_pro),
         entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
               frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
               source="trace_tpu_torch/csrc/intersect.cu"),

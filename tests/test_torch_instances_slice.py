@@ -275,8 +275,9 @@ def test_bsdf_mis_leg_ignores_instanced_hits():
                                   allow_multiple_lobes=True, mode=S.RADIANCE)
     u = torch.from_numpy(np.random.default_rng(5).uniform(
         size=(4, n)).astype(np.float32))
-    ld_i = WP._estimate_direct_static(s_inst, 0, hit, lobes, *u).arr()
-    ld_f = WP._estimate_direct_static(s_flat, 0, hit, lobes, *u).arr()
+    light0 = torch.zeros(n, dtype=torch.int32)
+    ld_i = WP.estimate_direct(s_inst, hit, lobes, light0, *u).arr()
+    ld_f = WP.estimate_direct(s_flat, hit, lobes, light0, *u).arr()
     assert torch.isfinite(ld_i).all()
     # Some BSDF rays reach the plate (instanced in one, flat in the other).
     o2 = hit.p + V3(torch.zeros(n), torch.full((n,), 1e-3), torch.zeros(n))

@@ -24,7 +24,8 @@ def test_every_module_is_listed():
                  "wavefront.sppm_photon", "utils.checkpoint", "io.ply",
                  "models.sphere", "models.caustic_glass",
                  "models.env_studio", "accel.instances",
-                 "models.sphere_field"):
+                 "models.sphere_field", "io.png", "materials.textures",
+                 "wavefront.lights", "film.png"):
         assert "trace_tpu_torch." + name in MODULES
 
 

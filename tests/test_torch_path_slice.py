@@ -81,8 +81,9 @@ def test_estimate_direct_matches_jax(cornell):
     th, jh, tl, jl, n = _hits(cornell)
     rng = np.random.default_rng(4)
     u = rng.uniform(0, 1, (4, n)).astype(np.float32)
-    t = TP._estimate_direct_static(ts, 0, th, tl,
-                                   *[torch.from_numpy(x) for x in u])
+    # The port's estimator takes a light per lane: light 0 on every lane.
+    t = TP.estimate_direct(ts, th, tl, torch.zeros(n, dtype=torch.int32),
+                           *[torch.from_numpy(x) for x in u])
     j = JP._estimate_direct_static(js, 0, jh, jl, *[jnp.asarray(x) for x in u])
     _close(t, j, "estimate_direct")
     assert int((np3(t).max(-1) > 0).sum()) > n // 4
@@ -158,6 +159,10 @@ def test_path_refuses_what_it_cannot_render():
         b.triangle_mesh(TT.identity(), quad, np.array(
             [[0, y, 0], [1, y, 0], [1, y, 1], [0, y, 1]], np.float32), m,
             emission=(1.0, 1.0, 1.0))
+    # Two area lights: the per-lane light pick takes them; an unported
+    # material is refused.
+    TP.supports(b.build(device="cpu"))
+    b.material(object())
     with pytest.raises(NotImplementedError):
         TP.supports(b.build(device="cpu"))
 

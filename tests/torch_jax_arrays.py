@@ -40,7 +40,83 @@ LIGHT_FIELDS = ("kind", "p", "i", "direction", "w2l", "l2w",
 
 
 def _v(tex):
-    return np.asarray(tex.value, np.float32).reshape(-1)
+    """A constant texture's value; zeros of the texture's width for any
+    other (its tree goes across as ``tex<m>_<name>_`` keys)."""
+    from trace_tpu.materials.textures import ConstantTexture
+
+    if isinstance(tex, ConstantTexture):
+        return np.asarray(tex.value, np.float32).reshape(-1)
+    return np.zeros(3 if _spectral(tex) else 1, np.float32)
+
+
+def _spectral(tex) -> bool:
+    """Whether a JAX texture evaluates to [N, 3]."""
+    from trace_tpu.materials import textures as JX
+
+    if isinstance(tex, JX.ScaleTexture):
+        return _spectral(tex.value) or _spectral(tex.scale)
+    if isinstance(tex, JX.MixTexture):
+        return _spectral(tex.t1) or _spectral(tex.t2)
+    return bool(tex.is_spectral)
+
+
+def mapping_arrays(mp, pre) -> dict:
+    from trace_tpu.materials import textures as JX
+
+    if isinstance(mp, JX.UVMapping2D):
+        return {pre + "map_kind": np.int32(C.MAP_UV), pre + "map_uv":
+                np.array([mp.su, mp.sv, mp.du, mp.dv], np.float32)}
+    return {pre + "map_kind": np.int32(C.MAP_3D),
+            pre + "map_m": np.asarray(mp.w2t.m, np.float32),
+            pre + "map_inv": np.asarray(mp.w2t.inv_m, np.float32)}
+
+
+def texture_arrays(tex, pre) -> dict:
+    """One JAX texture tree as convert.py's keys under ``pre``."""
+    from trace_tpu.materials import textures as JX
+
+    if isinstance(tex, JX.ConstantTexture):
+        return {pre + "kind": np.int32(C.TEX_CONSTANT),
+                pre + "value": np.asarray(tex.value, np.float32)}
+    if isinstance(tex, JX.ScaleTexture):
+        return {pre + "kind": np.int32(C.TEX_SCALE),
+                **texture_arrays(tex.value, pre + "value_"),
+                **texture_arrays(tex.scale, pre + "scale_")}
+    if isinstance(tex, JX.MixTexture):
+        return {pre + "kind": np.int32(C.TEX_MIX),
+                **texture_arrays(tex.t1, pre + "t1_"),
+                **texture_arrays(tex.t2, pre + "t2_"),
+                **texture_arrays(tex.amount, pre + "amount_")}
+    if isinstance(tex, JX.BilerpTexture):
+        return {pre + "kind": np.int32(C.TEX_BILERP),
+                **mapping_arrays(tex.mapping, pre),
+                **{pre + c: np.asarray(getattr(tex, c), np.float32)
+                   for c in ("v00", "v01", "v10", "v11")}}
+    if isinstance(tex, JX.ImageTexture):
+        mip = tex.mip
+        return {pre + "kind": np.int32(C.TEX_IMAGE),
+                **mapping_arrays(tex.mapping, pre),
+                pre + "dims": mip.dims, pre + "offsets": mip.offsets,
+                pre + "texels": mip.texels,
+                pre + "wrap": np.int32(("repeat", "clamp", "black").index(
+                    mip.wrap)),
+                pre + "spectral": np.bool_(mip.is_spectral),
+                pre + "scale": np.float32(tex.scale)}
+    raise TypeError(type(tex))
+
+
+def material_texture_arrays(materials) -> dict:
+    """Every parameter that is not a constant, as ``tex<m>_<name>_``
+    trees."""
+    from trace_tpu.materials.textures import ConstantTexture, Texture
+
+    a = {}
+    for m, mat in enumerate(materials):
+        for name, tex in vars(mat).items():
+            if isinstance(tex, Texture) and not isinstance(
+                    tex, ConstantTexture):
+                a.update(texture_arrays(tex, f"tex{m}_{name}_"))
+    return a
 
 
 def material_arrays(materials):
@@ -78,6 +154,7 @@ def arrays_from_jax(scene) -> dict:
         a["light_" + f] = np.asarray(getattr(scene.lights, f))
     a["material_kind"], a["material_params"] = material_arrays(
         scene.materials)
+    a.update(material_texture_arrays(scene.materials))
     a["exact_edges"] = scene.exact_edges
     if scene.n_triangles > 64:
         a.update(sweep_arrays(scene.triangles_host))

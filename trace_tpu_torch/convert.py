@@ -17,6 +17,18 @@ identical data. Keys (all numpy):
   rgb, sigma), glass (Kr rgb, Kt rgb, index, u and v roughness,
   remap_roughness), mirror (Kr rgb), plastic (Kd rgb, Ks rgb, roughness,
   remap_roughness), metal (eta rgb, k rgb, roughness, remap_roughness);
+- textures (optional): a parameter of material m that is not a constant
+  comes as a tree under the prefix ``tex<m>_<name>_`` (``name`` the
+  material's attribute, e.g. ``Kd``), which overrides its params entry.
+  Each node has ``kind`` (TEX_CONSTANT, TEX_SCALE, TEX_MIX, TEX_BILERP,
+  TEX_IMAGE) and: a constant its ``value``; a scale its children
+  ``value_`` and ``scale_``; a mix ``t1_``, ``t2_`` and ``amount_``; a
+  bilerp its mapping and corners ``v00`` ``v01`` ``v10`` ``v11``; an
+  image its mapping, the MipMap tables ``dims``, ``offsets``,
+  ``texels``, ``wrap`` (an index into textures.WRAPS), ``spectral`` and
+  its ``scale``. A mapping is ``map_kind`` (MAP_UV, MAP_3D) with
+  ``map_uv`` (su, sv, du, dv) or the world-to-texture ``map_m`` and
+  ``map_inv`` [4, 4];
 - sweep tables (optional): ``panel`` (f32, or a bf16 or hi/lo panel as
   its uint16 view), ``slot_to_tri``, ``s_lo``, ``s_hi``;
 - instanced geometry (optional), for k = 0, 1, ... in the scene's order:
@@ -44,12 +56,20 @@ from .accel import instances as inst_mod
 from .core.transform import Transform
 from .lights import lights as light_mod
 from .materials import materials as M
+from .materials import textures as TX
 from .ops import intersect
 from .ops.sweep import SweepTables
 from .scene import Scene
 from .shapes.sphere import Spheres
 from .shapes.triangle import Triangles
 
+TEX_CONSTANT = 0
+TEX_SCALE = 1
+TEX_MIX = 2
+TEX_BILERP = 3
+TEX_IMAGE = 4
+MAP_UV = 0
+MAP_3D = 1
 MATTE = 0
 GLASS = 1
 MIRROR = 2
@@ -61,7 +81,50 @@ INST_SPHERES = 1
 SWEEP_FIELDS = ("panel", "slot_to_tri", "s_lo", "s_hi")
 
 
-def _materials(kinds, params):
+def _mapping(arrays, pre):
+    if int(arrays[pre + "map_kind"]) == MAP_UV:
+        return TX.UVMapping2D(*[float(x) for x in arrays[pre + "map_uv"]])
+    return TX.TransformMapping3D(Transform(
+        np.asarray(arrays[pre + "map_m"], np.float32),
+        np.asarray(arrays[pre + "map_inv"], np.float32)))
+
+
+def _texture(arrays, pre):
+    """The texture tree under the key prefix ``pre``."""
+    kind = int(arrays[pre + "kind"])
+    if kind == TEX_CONSTANT:
+        return TX.ConstantTexture(arrays[pre + "value"])
+    if kind == TEX_SCALE:
+        return TX.ScaleTexture(_texture(arrays, pre + "value_"),
+                               _texture(arrays, pre + "scale_"))
+    if kind == TEX_MIX:
+        return TX.MixTexture(_texture(arrays, pre + "t1_"),
+                             _texture(arrays, pre + "t2_"),
+                             _texture(arrays, pre + "amount_"))
+    if kind == TEX_BILERP:
+        return TX.BilerpTexture(_mapping(arrays, pre), *[
+            arrays[pre + c] for c in ("v00", "v01", "v10", "v11")])
+    if kind == TEX_IMAGE:
+        mip = TX.MipMap.from_tables(
+            arrays[pre + "dims"], arrays[pre + "offsets"],
+            arrays[pre + "texels"], TX.WRAPS[int(arrays[pre + "wrap"])],
+            bool(arrays[pre + "spectral"]))
+        return TX.ImageTexture(_mapping(arrays, pre), mip,
+                               float(arrays[pre + "scale"]))
+    raise NotImplementedError(f"texture kind {kind} is not ported")
+
+
+def _with_textures(mat, m: int, arrays):
+    """Replace each parameter of material ``m`` that ``arrays`` holds a
+    texture tree for."""
+    for name in list(vars(mat)):
+        pre = f"tex{m}_{name}_"
+        if pre + "kind" in arrays:
+            setattr(mat, name, _texture(arrays, pre))
+    return mat
+
+
+def _materials(kinds, params, arrays=None):
     params = np.asarray(params, np.float32)
     params = np.pad(params, ((0, 0), (0, N_PARAMS - params.shape[1])))
     out = []
@@ -83,6 +146,8 @@ def _materials(kinds, params):
                                        remap_roughness=bool(p[7])))
         else:
             raise NotImplementedError(f"material kind {k} is not ported")
+    if arrays is not None:
+        out = [_with_textures(mat, m, arrays) for m, mat in enumerate(out)]
     return out
 
 
@@ -166,7 +231,7 @@ def scene_from_numpy(arrays: dict, device) -> Scene:
                        for f in Triangles._fields])
     scene = Scene(spheres, tris,
                   _materials(arrays["material_kind"],
-                             arrays["material_params"]),
+                             arrays["material_params"], arrays),
                   _lights(arrays, tris), device,
                   sweep_tables=_sweep_tables(arrays),
                   exact_edges=bool(arrays.get("exact_edges", False)),

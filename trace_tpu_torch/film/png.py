@@ -1,25 +1,4 @@
-"""Minimal PNG writer (8-bit RGB, zlib, no filtering)."""
-from __future__ import annotations
+"""The film's PNG writer: io/png.py's."""
+from ..io.png import write_png
 
-import struct
-import zlib
-
-import numpy as np
-
-
-def _chunk(tag: bytes, data: bytes) -> bytes:
-    crc = zlib.crc32(tag + data) & 0xFFFFFFFF
-    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
-
-
-def write_png(path: str, image: np.ndarray) -> None:
-    """Write an [H, W, 3] float image in [0, 1] as an RGB PNG."""
-    img = (np.clip(np.asarray(image, np.float32), 0.0, 1.0) * 255.0
-           + 0.5).astype(np.uint8)
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(_chunk(b"IEND", b""))
+__all__ = ["write_png"]

@@ -2,7 +2,8 @@
 
 Materials are static parameter records; the planar wavefront turns them
 into lobe slots (wavefront/materials.py). Matte, mirror, smooth or rough
-glass, plastic and metal, with constant textures.
+glass, plastic and metal; any parameter may be a texture
+(materials/textures.py).
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ epilogue, the brute-force grid and the winner detail phase the
 double-single edge fallback. A mesh given ``emission`` is a diffuse area
 light; ``light(infinite_light(...))`` adds the environment light, whose
 texel tables go to the device with the light table and whose disk is
-the scene's bounding sphere. ``instanced_mesh`` and ``instanced_spheres``
+the scene's bounding sphere. Image textures' mip tables go to the device
+with the scene. ``instanced_mesh`` and ``instanced_spheres``
 add many transformed copies of one base (accel/instances.py): the base is
 stored once, each copy adds a row of a transform table, and the base's own
 sweep tables (a mesh above 64 triangles) go to the device at build.
@@ -30,6 +31,7 @@ import torch
 from .accel import instances as inst_mod
 from .accel.clusters import build_clusters
 from .lights import lights as light_mod
+from .materials import textures
 from .ops.sweep import SweepAccelerator, SweepTables
 from .shapes import sphere as sph_mod
 from .shapes import triangle as tri_mod
@@ -151,6 +153,7 @@ class Scene:
         self.spheres = spheres
         self.materials = list(materials)
         WM.check_materials(self.materials)
+        textures.upload(self.materials, self.device)
         self.n_spheres = sph_mod.num_spheres(spheres)
         self.n_triangles = tri_mod.num_triangles(triangles)
         if self.n_triangles > BRUTE_FORCE_MAX_TRIS and sweep_tables is None:

@@ -4,8 +4,12 @@ and of the environment light's lookups and samplers in
 trace_tpu/lights/lights.py, which the JAX package runs on its packed
 path only).
 
-Lights are visited at static indices; each light's kind, triangle range
-and parameters are host scalars from the scene's light table. An area
+Each light's sampler runs at a static index, its kind, triangle range
+and parameters host scalars from the scene's light table; the per-lane
+forms (``*_lanes``) take a light index per lane, run every light's
+static sampler (tensor code, no ray traced) and keep each lane's own, or
+gather the lane's light row on the device (trace_tpu/lights/lights.py's
+per-lane sample_li, pdf_li, le_area, le_inf and sample_le). An area
 light's windowed area CDF is built on the host in numpy, in float32,
 exactly as the JAX package builds it, so light picks agree at bucket
 edges.
@@ -380,6 +384,87 @@ def _sample_area_point_static(scene, tri_start: int, tri_count: int, u0, u1):
     return p_l, V.where(gt[9] != 0.0, -n_l, n_l)
 
 
+def _select(sel, new, old):
+    """Per lane, ``new`` where ``sel`` holds, else ``old`` (V3s or
+    tensors, elementwise over two tuples)."""
+    return tuple(V.where(sel, a, b) if isinstance(a, V3)
+                 else torch.where(sel, a, b) for a, b in zip(new, old))
+
+
+def _rows_of(scene, idx):
+    """The light rows (radiance rgb, kind, two_sided, total_area) of each
+    lane's light ``idx`` [N], as [6, N]."""
+    return scene.light_rows[idx.long()].T
+
+
+def is_delta_lanes(scene, idx):
+    """Whether each lane's light ``idx`` [N] is a delta light."""
+    kind = _rows_of(scene, idx)[3]
+    return ((kind == float(L.POINT)) | (kind == float(L.SPOT))
+            | (kind == float(L.DISTANT)))
+
+
+def sample_li_lanes(scene, idx, p_ref: V3, u0, u1):
+    """sample_li at a per-lane light index ``idx`` [N] -> (radiance V3,
+    wi V3, pdf [N], p_light V3): every light's static sampler runs on all
+    lanes (tensor code, no ray traced) and each lane keeps its own
+    light's values."""
+    out = None
+    for j in range(light_count(scene)):
+        s = sample_li_static(scene, j, p_ref, u0, u1)
+        out = s if out is None else _select(idx == j, s, out)
+    return out
+
+
+def sample_le_lanes(scene, idx, u0x, u0y, u1x, u1y, time):
+    """sample_le at a per-lane light index ``idx`` [N] -> (le V3, o V3,
+    d V3, n_light V3, pdf_pos [N], pdf_dir [N]), each light's static
+    sampler selected per lane."""
+    out = None
+    for j in range(light_count(scene)):
+        s = sample_le_static(scene, j, u0x, u0y, u1x, u1y, time)
+        out = s if out is None else _select(idx == j, s, out)
+    return out
+
+
+def le_area_lanes(scene, idx, n_l: V3, wo: V3) -> V3:
+    """Emission toward ``wo`` of a surface with normal ``n_l`` on each
+    lane's light ``idx`` [N]: its radiance where that light is an area
+    light that emits on ``wo``'s side, else 0."""
+    g = _rows_of(scene, idx)
+    emits = (g[4] != 0.0) | (n_l.dot(wo) > 0)
+    return V.where((g[3] == float(L.AREA)) & emits, V3(g[0], g[1], g[2]),
+                   0.0)
+
+
+def le_inf_lanes(scene, idx, wi: V3) -> V3:
+    """The environment's radiance along ``wi`` on lanes whose light
+    ``idx`` is the environment light, 0 on the others."""
+    n = wi.x.shape[0]
+    if scene.env is None:
+        return V3.zeros((n,), wi.x.device)
+    j = env_index(scene)
+    return V.where(idx == j, le_inf(scene, j, wi), 0.0)
+
+
+def pdf_li_lanes(scene, idx, wi: V3, hit_t, hit_cos):
+    """Solid-angle pdf that each lane's light ``idx`` samples ``wi``:
+    for an area light d^2 / (|cos| area) at the light-surface hit
+    (``hit_t``, ``hit_cos`` = |cos|; 0 where |cos| <= 1e-9), for the
+    environment its texel pdf, 0 for delta lights. The area is gathered
+    per lane on the device: a tensor divided by a tensor, never a host
+    scalar by a tensor (torch computes that as a reciprocal times it)."""
+    g = _rows_of(scene, idx)
+    d2 = hit_t * hit_t * wi.length_squared()
+    pdf_a = d2 / (hit_cos * g[5].clamp_min(1e-20)).clamp_min(1e-20)
+    pdf = torch.where((g[3] == float(L.AREA)) & (hit_cos > 1e-9), pdf_a,
+                      0.0)
+    if scene.env is not None:
+        j = env_index(scene)
+        pdf = torch.where(idx == j, pdf_li_env(scene, j, wi), pdf)
+    return pdf
+
+
 def area_light_radiance(scene, hit, wo: V3) -> V3:
     """Emitted radiance at hits on emissive triangles (zero elsewhere)."""
     n = hit.t.shape[0]
@@ -390,17 +475,18 @@ def area_light_radiance(scene, hit, wo: V3) -> V3:
     tri_idx = (hit.prim_id - ns).clamp(0, scene.n_triangles - 1).long()
     is_flat = (hit.prim_id >= ns) & (hit.prim_id < ns + scene.n_triangles)
     lid = torch.where(hit.valid & is_flat, scene.tri_light_id[tri_idx], -1)
-    g = scene.light_rows[lid.clamp_min(0).long()].T   # [5, N]
+    g = scene.light_rows[lid.clamp_min(0).long()].T   # [6, N]
     is_area = g[3] == float(L.AREA)
     emits = (g[4] != 0.0) | (hit.n.dot(wo) > 0)
     return V.where((lid >= 0) & is_area & emits, V3(g[0], g[1], g[2]), 0.0)
 
 
 def light_rows(lights: L.Lights) -> np.ndarray:
-    """[L, 5] host rows (radiance rgb, kind, two_sided) for the emission
-    gather."""
+    """[L, 6] host rows (radiance rgb, kind, two_sided, total_area) for
+    the per-lane gathers."""
     n = L.num_lights(lights)
     return np.concatenate([
         lights.i.reshape(n, 3), lights.kind.astype(np.float32)[:, None],
-        lights.two_sided.astype(np.float32)[:, None]], axis=1).reshape(
-            max(n, 0), 5)
+        lights.two_sided.astype(np.float32)[:, None],
+        lights.total_area.astype(np.float32)[:, None]], axis=1).reshape(
+            max(n, 0), 6)

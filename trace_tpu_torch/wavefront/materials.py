@@ -1,5 +1,13 @@
 """Material dispatch: textures -> static-width lobe slots (port of
-trace_tpu/wavefront/materials.py with constant textures)."""
+trace_tpu/wavefront/materials.py).
+
+Constant textures broadcast host scalars. Every other texture evaluates
+through a facade over the hit (``TexHit``: ``uv``, ``p``, ``dpdx``,
+``dpdy``, ``dudx`` ... ``dvdy``), as in the JAX twin, and is clamped as
+the materials clamp it. Whitted's hits carry ray differentials, so its
+image lookups pick mip levels above 0; the path tracer's and SPPM's hits
+carry zeros there, as the JAX package's do.
+"""
 from __future__ import annotations
 
 import numpy as np
@@ -8,7 +16,7 @@ import torch
 from ..core import vec as V
 from ..core.vec import V3
 from ..materials import materials as M
-from ..materials.textures import ConstantTexture
+from ..materials import textures as TX
 from . import shade as S
 from .geom import HitP
 
@@ -16,6 +24,22 @@ F32 = torch.float32
 DEG2RAD = float(np.float32(np.pi / 180.0))
 MATERIALS = (M.MatteMaterial, M.MirrorMaterial, M.GlassMaterial,
              M.PlasticMaterial, M.MetalMaterial)
+TEXTURES = (TX.ConstantTexture, TX.ScaleTexture, TX.MixTexture,
+            TX.BilerpTexture, TX.ImageTexture)
+MAPPINGS = (TX.UVMapping2D, TX.TransformMapping3D)
+
+
+def _check_texture(mat, tex) -> None:
+    for t in TX.walk(tex):
+        if not isinstance(t, TEXTURES):
+            raise NotImplementedError(
+                f"{type(mat).__name__}: texture {type(t).__name__} is not "
+                f"ported")
+        mapping = getattr(t, "mapping", None)
+        if mapping is not None and not isinstance(mapping, MAPPINGS):
+            raise NotImplementedError(
+                f"{type(mat).__name__}: mapping {type(mapping).__name__} "
+                f"is not ported")
 
 
 def check_materials(materials) -> None:
@@ -25,19 +49,51 @@ def check_materials(materials) -> None:
             raise NotImplementedError(
                 f"material {type(m).__name__} is not ported")
         for tex in m.textures():
-            if not isinstance(tex, ConstantTexture):
-                raise NotImplementedError(
-                    f"{type(m).__name__}: only constant textures are ported")
+            _check_texture(m, tex)
 
 
-def _tex_rgb(tex, hit: HitP) -> V3:
-    v = np.broadcast_to(tex.value, (3,))
-    return V3.full(hit.t.shape, v[0], v[1], v[2], hit.t.device)
+class TexHit:
+    """The hit as a texture reads it: [N] and [N, 3] tensors."""
+
+    def __init__(self, hp: HitP):
+        self._hp = hp
+        self.t = hp.t
+        self.dudx, self.dudy = hp.dudx, hp.dudy
+        self.dvdx, self.dvdy = hp.dvdx, hp.dvdy
+
+    @property
+    def uv(self):
+        return torch.stack([self._hp.u, self._hp.v], dim=-1)
+
+    @property
+    def p(self):
+        return self._hp.p.arr()
+
+    @property
+    def dpdx(self):
+        return self._hp.dpdx.arr()
+
+    @property
+    def dpdy(self):
+        return self._hp.dpdy.arr()
 
 
-def _tex_scalar(tex, hit: HitP) -> torch.Tensor:
-    return torch.full(hit.t.shape, float(tex.value), dtype=F32,
-                      device=hit.t.device)
+def _tex_rgb(tex, hit: HitP, cache) -> V3:
+    if isinstance(tex, TX.ConstantTexture):
+        v = np.broadcast_to(tex.value, (3,))
+        return V3.full(hit.t.shape, v[0], v[1], v[2], hit.t.device)
+    if cache[0] is None:
+        cache[0] = TexHit(hit)
+    return V3.of(tex(cache[0]))
+
+
+def _tex_scalar(tex, hit: HitP, cache) -> torch.Tensor:
+    if isinstance(tex, TX.ConstantTexture):
+        return torch.full(hit.t.shape, float(tex.value), dtype=F32,
+                          device=hit.t.device)
+    if cache[0] is None:
+        cache[0] = TexHit(hit)
+    return tex(cache[0])
 
 
 def _set_slot(slots, i, mask, **fields):
@@ -66,7 +122,8 @@ def scene_slot_count(materials) -> int:
 
 
 def _is_zero(tex) -> bool:
-    return bool(np.all(np.asarray(tex.value) == 0))
+    return (isinstance(tex, TX.ConstantTexture)
+            and bool(np.all(np.asarray(tex.value) == 0)))
 
 
 def lobe_kinds(materials, allow_multiple_lobes=False) -> tuple:
@@ -117,11 +174,12 @@ def compute_scattering(materials, hit: HitP, allow_multiple_lobes=False,
     lo = S.from_hit(hit, n_slots)
     slots = lo.slots
     eta = lo.eta
+    cache = [None]
     for mat_id, mat in enumerate(materials):
         mask = hit.valid & (hit.material_id == mat_id)
         if isinstance(mat, M.MatteMaterial):
-            r = V.maximum(_tex_rgb(mat.Kd, hit), 0.0)
-            sig = _tex_scalar(mat.sigma, hit).clamp(0.0, 90.0)
+            r = V.maximum(_tex_rgb(mat.Kd, hit, cache), 0.0)
+            sig = _tex_scalar(mat.sigma, hit, cache).clamp(0.0, 90.0)
             use_on = ~(sig.abs() < 1e-6)
             sig_rad = sig * DEG2RAD
             s2 = sig_rad * sig_rad
@@ -133,16 +191,16 @@ def compute_scattering(materials, hit: HitP, allow_multiple_lobes=False,
                               b=torch.where(use_on, b, 0.0))
         elif isinstance(mat, M.MirrorMaterial):
             # The no-op Fresnel term, as the reference's mirror has.
-            r = V.maximum(_tex_rgb(mat.Kr, hit), 0.0)
+            r = V.maximum(_tex_rgb(mat.Kr, hit, cache), 0.0)
             slots = _set_slot(slots, 0, mask & ~r.is_black(),
                               kind=S.SPECULAR_REFLECTION, c0=r,
                               fr_kind=S.FRESNEL_NOOP)
         elif isinstance(mat, M.GlassMaterial):
-            eta_m = _tex_scalar(mat.index, hit)
-            u_rough = _tex_scalar(mat.u_roughness, hit)
-            v_rough = _tex_scalar(mat.v_roughness, hit)
-            r = V.maximum(_tex_rgb(mat.Kr, hit), 0.0)
-            t = V.maximum(_tex_rgb(mat.Kt, hit), 0.0)
+            eta_m = _tex_scalar(mat.index, hit, cache)
+            u_rough = _tex_scalar(mat.u_roughness, hit, cache)
+            v_rough = _tex_scalar(mat.v_roughness, hit, cache)
+            r = V.maximum(_tex_rgb(mat.Kr, hit, cache), 0.0)
+            t = V.maximum(_tex_rgb(mat.Kt, hit, cache), 0.0)
             r_black, t_black = r.is_black(), t.is_black()
             all_black = r_black & t_black
             is_specular = (u_rough.abs() < 1e-6) & (v_rough.abs() < 1e-6)
@@ -171,11 +229,11 @@ def compute_scattering(materials, hit: HitP, allow_multiple_lobes=False,
                               eta_a=ones, eta_b=eta_m, a=u_rough, b=v_rough,
                               fr_kind=S.FRESNEL_DIELECTRIC)
         elif isinstance(mat, M.PlasticMaterial):
-            kd = V.maximum(_tex_rgb(mat.Kd, hit), 0.0)
+            kd = V.maximum(_tex_rgb(mat.Kd, hit, cache), 0.0)
             slots = _set_slot(slots, 0, mask & ~kd.is_black(),
                               kind=S.LAMBERTIAN_REFLECTION, c0=kd)
-            ks = V.maximum(_tex_rgb(mat.Ks, hit), 0.0)
-            rough = _tex_scalar(mat.roughness, hit)
+            ks = V.maximum(_tex_rgb(mat.Ks, hit, cache), 0.0)
+            rough = _tex_scalar(mat.roughness, hit, cache)
             if mat.remap_roughness:
                 rough = S.roughness_to_alpha(rough)
             # The coat's dielectric Fresnel with eta_a 1.5, eta_b 1: the
@@ -186,15 +244,15 @@ def compute_scattering(materials, hit: HitP, allow_multiple_lobes=False,
                               eta_b=torch.ones_like(rough), a=rough, b=rough,
                               fr_kind=S.FRESNEL_DIELECTRIC)
         elif isinstance(mat, M.MetalMaterial):
-            rough = _tex_scalar(mat.roughness, hit)
+            rough = _tex_scalar(mat.roughness, hit, cache)
             if mat.remap_roughness:
                 rough = S.roughness_to_alpha(rough)
             slots = _set_slot(slots, 0, mask, kind=S.MICROFACET_REFLECTION,
                               c0=V3.full(hit.t.shape, 1.0, 1.0, 1.0,
                                          hit.t.device),
                               a=rough, b=rough, fr_kind=S.FRESNEL_CONDUCTOR,
-                              fr_eta=_tex_rgb(mat.eta, hit),
-                              fr_k=_tex_rgb(mat.k, hit))
+                              fr_eta=_tex_rgb(mat.eta, hit, cache),
+                              fr_k=_tex_rgb(mat.k, hit, cache))
         else:
             raise NotImplementedError(
                 f"material {type(mat).__name__} is not ported")

@@ -2,13 +2,15 @@
 trace_tpu/wavefront/path.py).
 
 Per bounce: closest hit, emission (and the environment on escaped rays)
-on camera and specular vertices, one light picked uniformly per lane (a
-static unroll over the scene's lights) with the light-sampling leg, plus
-the BSDF-sampling leg for area and environment lights (one more closest
-hit), then a BSDF sample continues the path, with Russian roulette after
-``rr_depth`` bounces. The uniforms derive from the lane keys exactly as
-in the JAX twin; environment-lit scenes follow the JAX package's packed
-li (integrators/path.py), which renders them there.
+on camera and specular vertices, one light picked uniformly per lane
+with the light-sampling leg (one shadow-ray call whatever the number of
+lights), plus the BSDF-sampling leg for lanes that picked an area or
+environment light (one more closest-hit call), then a BSDF sample
+continues the path, with Russian roulette after ``rr_depth`` bounces.
+The uniforms derive from the lane keys exactly as in the JAX twin;
+scenes with an environment light or several non-delta lights follow the
+JAX package's packed li (integrators/common.py::estimate_direct), which
+renders them there.
 
 Dead lanes (finished paths, shading lanes whose shadow or MIS ray cannot
 contribute) go to the sweep with t_max = -1, which skips them; their
@@ -21,7 +23,6 @@ import torch
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS
 from ..core.vec import V3
-from ..lights import lights as L
 from ..sampler import uniform as U
 from . import geom as G
 from . import lights as WL
@@ -34,14 +35,9 @@ INF = float("inf")
 
 
 def supports(scene) -> None:
-    """Raise for a scene the planar path tracer cannot render: one light
-    of any kind, or several delta lights."""
+    """Raise for a scene the planar path tracer cannot render: what
+    Whitted refuses (any light mix is taken)."""
     WW.supports(scene)
-    kinds = [int(k) for k in scene.lights.kind]
-    if len(kinds) > 1 and not all(
-            k in (L.POINT, L.SPOT, L.DISTANT) for k in kinds):
-        raise NotImplementedError(
-            "the path tracer takes one light, or only delta lights")
 
 
 def to_y(c: V3):
@@ -61,79 +57,68 @@ def _offset_origin(p: V3, d: V3, n_geom: V3) -> V3:
     return o + n_geom * (scale * side)
 
 
-def _estimate_direct_static(scene, j: int, hit: G.HitP, lobes: S.LobesP,
-                            u_l0, u_l1, u_s0, u_s1,
-                            flags: int = S.BSDF_ALL & ~S.BSDF_SPECULAR) -> V3:
-    """Direct light from static light ``j``: the light-sampling leg, and
-    for an area or environment light the BSDF-sampling leg, each weighted
-    by the power heuristic."""
-    lights = scene.lights
-    kind = WL.kind_of(scene, j)
+def estimate_direct(scene, hit: G.HitP, lobes: S.LobesP, idx, u_l0, u_l1,
+                    u_s0, u_s1,
+                    flags: int = S.BSDF_ALL & ~S.BSDF_SPECULAR) -> V3:
+    """Direct light from each lane's light ``idx`` [N] (port of
+    trace_tpu/integrators/common.py::estimate_direct): the light-sampling
+    leg, one shadow-ray call for all lanes, weighted 1 for a delta light
+    and by the power heuristic otherwise; and, in a scene with an area or
+    environment light, the BSDF-sampling leg, one closest-hit call for
+    the lanes whose light is not a delta light. Its ray counts where it
+    hits a flat triangle of the lane's area light, or escapes on a lane
+    whose light is the environment."""
     n = hit.t.shape[0]
     dev = hit.t.device
 
-    radiance, wi, light_pdf, p_light = WL.sample_li_static(
-        scene, j, hit.p, u_l0, u_l1)
+    radiance, wi, light_pdf, p_light = WL.sample_li_lanes(
+        scene, idx, hit.p, u_l0, u_l1)
     f_val = S.f(lobes, hit.wo, wi, flags) * wi.dot(hit.ns).abs()
     scatter_pdf = S.compute_pdf(lobes, hit.wo, wi, flags)
     ok = ((light_pdf > 0) & ~radiance.is_black() & ~f_val.is_black()
           & hit.valid)
     vis = WW.unoccluded(scene, hit.p, p_light, hit.n, live=ok) & ok
-    if bool(L.is_delta(lights)[j]):
-        w_l = torch.ones((n,), dtype=F32, device=dev)
-    else:
-        w_l = power_heuristic(1.0, light_pdf, 1.0, scatter_pdf)
+    delta = WL.is_delta_lanes(scene, idx)
+    w_l = torch.where(delta, 1.0,
+                      power_heuristic(1.0, light_pdf, 1.0, scatter_pdf))
     ld = V.where(vis, f_val * radiance * (w_l / light_pdf.clamp_min(1e-20)),
                  0.0)
+    if not (scene.max_area_tris > 0 or scene.env is not None):
+        return ld
 
-    if kind == L.AREA:
-        bs = S.sample_f(lobes, hit.wo, u_s0, u_s1, flags)
-        spec_sample = (bs.sampled_flags & S.BSDF_SPECULAR) != 0
-        f_b = bs.f * bs.wi.dot(hit.ns).abs()
-        go = hit.valid & (bs.pdf > 0) & ~f_b.is_black()
-        o = _offset_origin(hit.p, bs.wi, hit.n)
-        hit2 = WW.closest_hit(scene, o, bs.wi,
-                              torch.full((n,), INF, dtype=F32, device=dev),
-                              hit.time, live=go)
-        cos_l = hit2.n.dot(-bs.wi)
-        area = float(max(float(lights.total_area[j]), 1e-20))
-        d2 = hit2.t * hit2.t * bs.wi.length_squared()
-        li_pdf = d2 / (cos_l.abs() * area).clamp_min(1e-20)
-        li_pdf = torch.where(cos_l.abs() > 1e-9, li_pdf, 0.0)
+    # BSDF samples that escape see the sky; the area pdf would be
+    # inf / inf on them, so an env lane reads the texel pdf only.
+    bs = S.sample_f(lobes, hit.wo, u_s0, u_s1, flags)
+    spec_sample = (bs.sampled_flags & S.BSDF_SPECULAR) != 0
+    f_b = bs.f * bs.wi.dot(hit.ns).abs()
+    go = hit.valid & ~delta & (bs.pdf > 0) & ~f_b.is_black()
+    o = _offset_origin(hit.p, bs.wi, hit.n)
+    hit2 = WW.closest_hit(scene, o, bs.wi,
+                          torch.full((n,), INF, dtype=F32, device=dev),
+                          hit.time, live=go)
+    cos_l = hit2.n.dot(-bs.wi)
+    li_pdf = WL.pdf_li_lanes(scene, idx, bs.wi, hit2.t, cos_l.abs())
+    le = V3.zeros((n,), dev)
+    counts = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if scene.max_area_tris > 0 and scene.n_triangles:
+        # Only flat triangles are area lights: instanced prim ids start
+        # after them and must not clip onto the last one's light.
         ns = scene.n_spheres
-        tri_idx = (hit2.prim_id - ns).clamp(
-            0, max(scene.n_triangles - 1, 0)).long()
+        tri_idx = (hit2.prim_id - ns).clamp(0, scene.n_triangles - 1).long()
         is_flat = (hit2.prim_id >= ns) & (hit2.prim_id < ns + scene.n_triangles)
-        hits_light = hit2.valid & is_flat & (scene.tri_light_id[tri_idx] == j)
-        if bool(lights.two_sided[j]):
-            emits = torch.ones_like(hits_light)
-        else:
-            emits = cos_l > 0
-        i_rgb = lights.i[j]
-        le = V.where(hits_light & emits,
-                     V3.full((n,), i_rgb[0], i_rgb[1], i_rgb[2], dev), 0.0)
-        w_b = torch.where(spec_sample, 1.0,
-                          power_heuristic(1.0, bs.pdf, 1.0, li_pdf))
-        ld = ld + V.where(go & hits_light,
-                          f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
-    elif kind == L.INFINITE:
-        # BSDF samples that escape see the sky; the area leg's pdf would
-        # be inf / inf on them, so the env leg reads the texel pdf only.
-        bs = S.sample_f(lobes, hit.wo, u_s0, u_s1, flags)
-        spec_sample = (bs.sampled_flags & S.BSDF_SPECULAR) != 0
-        f_b = bs.f * bs.wi.dot(hit.ns).abs()
-        go = hit.valid & (bs.pdf > 0) & ~f_b.is_black()
-        o = _offset_origin(hit.p, bs.wi, hit.n)
-        hit2 = WW.closest_hit(scene, o, bs.wi,
-                              torch.full((n,), INF, dtype=F32, device=dev),
-                              hit.time, live=go)
-        le = WL.le_inf(scene, j, bs.wi)
-        counts = ~hit2.valid & ~le.is_black()
-        w_b = torch.where(spec_sample, 1.0, power_heuristic(
-            1.0, bs.pdf, 1.0, WL.pdf_li_env(scene, j, bs.wi)))
-        ld = ld + V.where(go & counts,
-                          f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
-    return ld
+        hits_light = hit2.valid & is_flat & (scene.tri_light_id[tri_idx] == idx)
+        le = le + V.where(hits_light,
+                          WL.le_area_lanes(scene, idx, hit2.n, -bs.wi), 0.0)
+        counts = counts | hits_light
+    if scene.env is not None:
+        escaped = ~hit2.valid
+        le_e = WL.le_inf_lanes(scene, idx, bs.wi)
+        le = le + V.where(escaped, le_e, 0.0)
+        counts = counts | (escaped & ~le_e.is_black())
+    w_b = torch.where(spec_sample, 1.0,
+                      power_heuristic(1.0, bs.pdf, 1.0, li_pdf))
+    return ld + V.where(go & counts,
+                        f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
 
 
 def uniform_sample_one_light(scene, hit: G.HitP, lobes: S.LobesP,
@@ -149,14 +134,8 @@ def uniform_sample_one_light(scene, hit: G.HitP, lobes: S.LobesP,
     u_pick, u_l0, u_l1, u_s0, u_s1 = row.T
     idx = (u_pick * n_lights).to(torch.int32).clamp_max(n_lights - 1)
     pmf = torch.full((n,), 1.0 / n_lights, dtype=F32, device=dev)
-    total = V3.zeros((n,), dev)
-    for j in range(n_lights):
-        # Only the lanes that picked light j trace its rays.
-        on = hit._replace(valid=hit.valid & (idx == j))
-        ld_j = _estimate_direct_static(scene, j, on, lobes, u_l0, u_l1, u_s0,
-                                       u_s1)
-        total = V.where(idx == j, ld_j, total)
-    return total / pmf.clamp_min(1e-12)
+    ld = estimate_direct(scene, hit, lobes, idx, u_l0, u_l1, u_s0, u_s1)
+    return ld / pmf.clamp_min(1e-12)
 
 
 def li(scene, rd, keys, max_depth: int = 5, rr_depth: int = 3):

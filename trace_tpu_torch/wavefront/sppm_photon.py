@@ -52,20 +52,8 @@ def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
     light_pdf = light_pmf[light_num.long()]
     time = (float(np.float32(integ.camera.shutter_open)) * (1.0 - ri[5])
             + float(np.float32(integ.camera.shutter_close)) * ri[5])
-    le = o = d = n_l = pdf_pos = pdf_dir = None
-    for j in range(WL.light_count(scene)):
-        le_j, o_j, d_j, nl_j, pp_j, pd_j = WL.sample_le_static(
-            scene, j, ri[1], ri[2], ri[3], ri[4], time)
-        if le is None:
-            le, o, d, n_l, pdf_pos, pdf_dir = le_j, o_j, d_j, nl_j, pp_j, pd_j
-            continue
-        sel = light_num == j
-        le = V.where(sel, le_j, le)
-        o = V.where(sel, o_j, o)
-        d = V.where(sel, d_j, d)
-        n_l = V.where(sel, nl_j, n_l)
-        pdf_pos = torch.where(sel, pp_j, pdf_pos)
-        pdf_dir = torch.where(sel, pd_j, pdf_dir)
+    le, o, d, n_l, pdf_pos, pdf_dir = WL.sample_le_lanes(
+        scene, light_num, ri[1], ri[2], ri[3], ri[4], time)
 
     beta = le * (n_l.dot(d).abs()
                  / (light_pdf * pdf_pos * pdf_dir).clamp_min(1e-20))
