@@ -210,6 +210,35 @@ Phases (each prints lines with its seconds; any failure raises):
         memory, useful rays, the path frame's device-busy share; the
         photons each light emitted in one iteration against the power
         pmf, within 2% absolute.
+  11. the render loop's public surface (details in
+     chiprun_out/slice11.json):
+     a. bench config 4's 1M frame (Whitted 256^2, depth 2, seed 0) with a
+        StratifiedSampler(2, 2) (4 spp) and RenderStats: every lane's
+        film sample inside its stratum, launches counted from 0, every
+        sweep launch against sweep_plain and the prologue bit-equal on
+        every launched chunk; frames timed (one warm, three), the
+        RenderStats counters, peak memory, the device-busy share;
+     b. the same frame under a GaussianFilter((2, 2)) film, full and
+        cropped to ((0.25, 0.25), (0.75, 0.75)): the crop's pixels equal
+        to the full frame's window inside the crop's outer ring (the
+        reference's footprint reaches one pixel past the cropped film's
+        sample bounds, so the ring is reported), max abs <= 1e-6; one
+        BoxFilter and one TriangleFilter frame, finite; launches per frame;
+     c. Scene.intersect and intersect_p on 65536 camera rays of the 1M
+        mesh through the sweep, timed: intersect_p equal to the sources'
+        raw closest-hit masks and holding every hit record (the records
+        pass the watertight detail phase, which drops the sweep's hits on
+        a few shared edges; counted); on 4096 of them intersect against
+        the brute-force intersect.cu route: hits equal, t within T_RTOL,
+        ids equal but where both triangles give the same t;
+        trace_profile around one query holds the sweep's kernel events;
+     d. Film.add_samples of 2^20 samples over a 512^2 film: the same bits
+        twice, within 1e-5 relative of the CPU's (whose serial sums
+        associate otherwise), against add_samples_grid on the full
+        grid within 1e-6 relative, add_splats dropping splats outside the
+        film; each splat timed;
+     e. python -m trace_tpu_torch.utils.compare on 11b's crop PNG and
+        the full frame's window inside the ring: exit 0, MSE <= 1e-6.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -219,7 +248,9 @@ their launches in the animated 1M frame and in each config-5 frame, and
 in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d),
 and in the instanced stand-in frame (9c, with its agreement) and one of
 its SPPM iterations (9d), and in the three-light textured 1M frames and
-SPPM iteration (10b)), the card's name and power limit, and
+SPPM iteration (10b), and in phase 11's stratified frame, filter frames
+and Scene queries; intersect with the queries' brute-force oracle's),
+the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -864,6 +895,7 @@ def slice5(dev, card, scene, t_all):
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
     from trace_tpu_torch.utils.checkpoint import load_pytree
+    from trace_tpu_torch.utils.stats import RenderStats
 
     tmp = tempfile.gettempdir()
     out = {}
@@ -981,7 +1013,7 @@ def slice5(dev, card, scene, t_all):
     torch.cuda.reset_peak_memory_stats()
     try:
         for it in range(1, 2 + n_timed):
-            integ.stats = {}
+            integ.stats = RenderStats()
             marks.clear()
             sweep_kernel.reset_counts()
             block_entry_kernel.reset_counts()
@@ -996,7 +1028,7 @@ def slice5(dev, card, scene, t_all):
                        sweep_launches=sweep_kernel.launches,
                        entry_launches=block_entry_kernel.launches,
                        skipped_chunks=scene.accel.skipped_chunks,
-                       **integ.stats)
+                       **integ.stats.as_dict())
             prev = a
             for name, ev in marks:
                 row[f"{name}_ms"] = prev.elapsed_time(ev)
@@ -2738,6 +2770,361 @@ def slice10(dev, card, t_all):
     return out
 
 
+# The crop of phase 11b: the middle quarter of the 256^2 frame.
+CROP = ((0.25, 0.25), (0.75, 0.75))
+SPLAT_SAMPLES = 1 << 20
+
+
+def film_like(cam, **kw):
+    """``cam`` with its film replaced by a Film of the same resolution and
+    file (the camera reads only the resolution)."""
+    from trace_tpu_torch.film.film import Film
+
+    cam.film = Film(cam.film.resolution, filename=cam.film.filename, **kw)
+    return cam
+
+
+def strata_gate(integ, dev):
+    """Wrap ``integ``'s camera so each sample's p_film is checked against
+    its stratum; returns (the per-sample results, undo)."""
+    import torch
+
+    cam, seen = integ.camera, []
+    gen = cam.generate_ray_differentials
+    pix = integ.pixel_grid(dev).to(torch.float32)
+    xs, ys = integ.sampler.x_samples, integ.sampler.y_samples
+
+    def check(p_film, u_lens, u_time):
+        s = len(seen) % (xs * ys)
+        sx, sy = s % xs, s // xs
+        off = p_film - pix
+        ok = ((off[:, 0] >= sx / xs) & (off[:, 0] <= (sx + 1) / xs)
+              & (off[:, 1] >= sy / ys) & (off[:, 1] <= (sy + 1) / ys))
+        seen.append(dict(sample=s, lanes=int(ok.numel()),
+                         outside=int((~ok).sum())))
+        return gen(p_film, u_lens, u_time)
+
+    cam.generate_ray_differentials = check
+    return seen, lambda: delattr(cam, "generate_ray_differentials")
+
+
+def slice11(dev, card, scene, t_all):
+    """Phase 11: the render loop's public surface (module docstring)."""
+    import copy
+
+    import torch
+    from trace_tpu_torch import (BoxFilter, GaussianFilter, RenderStats,
+                                 StratifiedSampler, TriangleFilter,
+                                 WhittedIntegrator)
+    from trace_tpu_torch.core import spectrum as spec
+    from trace_tpu_torch.core.vec import V3
+    from trace_tpu_torch.film.film import Film
+    from trace_tpu_torch.io.png import write_png
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import intersect as TI
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.utils.stats import trace_profile
+    from trace_tpu_torch.wavefront import geom as WG
+
+    tmp = tempfile.gettempdir()
+    acc = scene.accel
+    out = {}
+
+    def counts_zero():
+        sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
+        TI.intersect_kernel.reset_counts()
+        acc.skipped_chunks = 0
+
+    def counts():
+        return dict(sweep=sweep_kernel.launches,
+                    f32=sweep_kernel.arm_launches["f32"],
+                    prologue=block_entry_kernel.launches,
+                    intersect=TI.intersect_kernel.launches,
+                    skipped=acc.skipped_chunks)
+
+    # -- 11a: stratified 1M Whitted -----------------------------------------
+    t0 = time.perf_counter()
+    stats = RenderStats()
+    integ = WhittedIntegrator(
+        mesh_heavy.build_camera(256, os.path.join(
+            tmp, "chip_smoke_strat.png")),
+        StratifiedSampler(2, 2, seed=0), max_depth=2, stats=stats)
+    strata, undo = strata_gate(integ, dev)
+    counts_zero()
+    try:
+        state, calls, _ = record_sweep_calls(integ.render, scene)
+    finally:
+        undo()
+    launches = counts()
+    img = image(integ, state)
+    integ.camera.film.save_png(state)
+    outside = sum(r["outside"] for r in strata)
+    if len(strata) != 4 or outside:
+        raise AssertionError(f"11a: film samples outside their strata: "
+                             f"{strata}")
+    if launches["sweep"] <= 0 or launches["prologue"] != launches["sweep"] \
+            or launches["f32"] != launches["sweep"]:
+        raise AssertionError(f"11a did not run the kernels: {launches}")
+    agree, pro, _ = check_launches("11a", acc, calls)
+    n_calls = len(calls)
+    del calls
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    integ.stats = None
+    times, _ = timed_frames(integ, scene)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    nonzero = float((img > 0).any(-1).mean())
+    busy = device_busy("11a", t0, card, "stratified frame",
+                       lambda: integ.render(scene), float(np.mean(times)))
+    out["mesh1m_whitted_256_strat2x2"] = dict(
+        launches=launches, sweep_calls=n_calls, strata=strata,
+        agreement=agree, prologue=pro, frame_ms=times,
+        ms=float(np.mean(times)), peak_gib=peak, stats=stats.as_dict(),
+        nonzero=nonzero, busy=busy)
+    log("11a", t0, f"mesh1m_whitted_256_strat2x2 (StratifiedSampler(2, 2), "
+        f"4 spp): every film sample in its stratum ({strata}); launches "
+        f"{launches}, {n_calls} sweep calls, every launch equal to "
+        f"sweep_plain with the same steps "
+        f"({sum(t.get('launches', 0) for t in agree.values())} checked), "
+        f"prologue bit-equal ({pro}); frames "
+        f"{[round(x, 2) for x in times]} ms (mean "
+        f"{float(np.mean(times)):.2f}); peak {peak:.3f} GiB; RenderStats "
+        f"{stats.as_dict()}; non-zero pixels {nonzero:.3f}; card {card}")
+    if not (np.isfinite(img).all() and nonzero > 0.05):
+        raise AssertionError("11a: the frame")
+
+    # -- 11b: crop and filters ----------------------------------------------
+    t0 = time.perf_counter()
+    frames = {}
+    for label, kw in (
+            ("gaussian_full", dict(filter=GaussianFilter((2.0, 2.0)))),
+            ("gaussian_crop", dict(filter=GaussianFilter((2.0, 2.0)),
+                                   crop=CROP)),
+            ("box", dict(filter=BoxFilter((0.5, 0.5)))),
+            ("triangle", dict(filter=TriangleFilter((2.0, 2.0))))):
+        cam = film_like(mesh_heavy.build_camera(256, os.path.join(
+            tmp, f"chip_smoke_{label}.png")), **kw)
+        it = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+        counts_zero()
+        state = it.render(scene)
+        c = counts()
+        img = cam.film.save_png(state)
+        frames[label] = dict(film=cam.film, img=img, launches=c,
+                             png=cam.film.filename)
+        log("11b", t0, f"{label}: {img.shape[1]}x{img.shape[0]} pixels, "
+            f"launches {c}, finite {bool(np.isfinite(img).all())}, max "
+            f"{float(img.max()):.4f}")
+        if not (np.isfinite(img).all() and img.max() > 0.05
+                and c["sweep"] > 0 and c["prologue"] == c["sweep"]):
+            raise AssertionError(f"11b {label}: the frame or its launches")
+    film = frames["gaussian_crop"]["film"]
+    (cx0, cy0), (cx1, cy1) = film.crop_min, film.crop_max
+    window = frames["gaussian_full"]["img"][cy0 - 1:cy1, cx0 - 1:cx1]
+    crop_img = frames["gaussian_crop"]["img"]
+    diff = np.abs(crop_img - window)
+    inner, ring = float(diff[1:-1, 1:-1].max()), float(diff.max())
+    out["crop"] = dict(crop=CROP, crop_min=film.crop_min,
+                       crop_max=film.crop_max, interior_max_abs=inner,
+                       ring_max_abs=ring,
+                       launches={k: v["launches"] for k, v in frames.items()})
+    log("11b", t0, f"the {film.width}x{film.height} crop against the full "
+        f"frame's window: interior max abs {inner:.3e} (gate 1e-6), outer "
+        f"ring {ring:.3e} (the reference's footprint reaches one pixel past "
+        f"the cropped film's sample bounds); card {card}")
+    if inner > 1e-6:
+        raise AssertionError(f"11b: the crop is not the full frame's window: "
+                             f"{inner}")
+
+    # -- 11c: Scene's queries on the 1M mesh --------------------------------
+    t0 = time.perf_counter()
+    cam = mesh_heavy.build_camera(256, "unused.png")
+    o, d, tm = camera_rays(cam, dev)
+    o, d = o.arr(), d.arr()
+    counts_zero()
+    hit = scene.intersect(o, d, tm)
+    occ = scene.intersect_p(o, d, tm)
+    q_launches = counts()
+    torch.cuda.synchronize()
+    if q_launches["sweep"] <= 0 or q_launches["intersect"]:
+        raise AssertionError(f"11c: the queries' launches {q_launches}")
+    # intersect_p is the sources' raw any-hit; intersect's records pass the
+    # detail phase's watertight recompute, which (exact edges off) drops a
+    # few hits the sweep finds on shared edges. So intersect_p must equal
+    # the closest-hit sources' raw masks, and hold every record's hit.
+    raw_t = scene.accel.intersect(o, d, tm, False)[0]
+    raw_s = WG.spheres_closest(scene.sphere_cols, V3.of(o), V3.of(d), tm)[0]
+    occ_differs = int((occ != (raw_t | raw_s)).sum())
+    dropped = int((occ & ~hit.valid).sum())
+    missing = int((hit.valid & ~occ).sum())
+    brute = TI.attach(copy.copy(scene))
+    sel = torch.randperm(o.shape[0], generator=torch.Generator().manual_seed(
+        0))[:4096].to(dev)
+    counts_zero()
+    ref = brute.intersect(o[sel], d[sel], tm[sel])
+    oracle_launches = counts()["intersect"]
+    sub = dict(valid=hit.valid[sel], t=hit.t[sel], prim=hit.prim_id[sel])
+    both = sub["valid"] & ref.valid
+    t_rel = ((sub["t"] - ref.t).abs() / ref.t.abs().clamp_min(1.0))[both]
+    ids_differ = both & (sub["prim"] != ref.prim_id)
+    ties = 0
+    for lane in torch.nonzero(ids_differ).flatten().tolist():
+        # A tie when the sweep's triangle, tested alone by brute force,
+        # gives the same t as the brute force's pick.
+        tri = int(sub["prim"][lane]) - scene.n_spheres
+        if tri < 0:
+            continue
+        tr = scene.triangles
+        panel, ids = TI.pack_tris(tr.v0[tri:tri + 1], tr.v1[tri:tri + 1],
+                                  tr.v2[tri:tri + 1])
+        rays, _ = TI.pack_rays(o[sel][lane:lane + 1], d[sel][lane:lane + 1],
+                               tm[sel][lane:lane + 1])
+        bt, _ = TI.intersect_plain(rays, torch.from_numpy(panel).to(dev),
+                                   torch.from_numpy(ids).to(dev))
+        ties += int(bool(bt[0] == ref.t[lane]))
+    q = dict(rays=o.shape[0], hits=int(hit.valid.sum()),
+             occluded=int(occ.sum()), occ_differs_from_raw_hit=occ_differs,
+             edge_hits_dropped_by_detail=dropped, hit_not_occluded=missing,
+             launches=q_launches, oracle_rays=4096,
+             oracle_launches=oracle_launches,
+             hit_mismatch=int((sub["valid"] != ref.valid).sum()),
+             t_max_rel=float(t_rel.max()) if t_rel.numel() else 0.0,
+             ids_differ=int(ids_differ.sum()), ids_tied=ties)
+    q["untied_id_mismatch"] = q["ids_differ"] - ties
+    q["query_ms"] = cuda_ms(lambda: scene.intersect(o, d, tm), 3)
+    q["query_p_ms"] = cuda_ms(lambda: scene.intersect_p(o, d, tm), 3)
+    # utils.stats.trace_profile around one any-hit query: a Chrome trace
+    # holding the card's kernels.
+    with trace_profile(os.path.join(tmp, "chip_smoke_trace11")) as prof:
+        scene.intersect_p(o, d, tm)
+    with open(prof.path) as f:
+        events = json.load(f).get("traceEvents", [])
+    q["trace_kernel_events"] = sum(1 for e in events
+                                   if e.get("cat") == "kernel")
+    q["trace_sweep_events"] = sum(1 for e in events
+                                  if e.get("cat") == "kernel"
+                                  and "sweep_kernel" in e.get("name", ""))
+    out["scene_queries"] = q
+    log("11c", t0, f"Scene.intersect / intersect_p on {q['rays']} camera "
+        f"rays of the 1M mesh: {q['hits']} hits, {q['occluded']} occluded "
+        f"(differ from the sources' raw hits: {occ_differs}; occluded "
+        f"without a record, the sweep's edge hits the watertight detail "
+        f"phase drops: {dropped}; records not occluded: {missing}), "
+        f"launches {q_launches}, "
+        f"{q['query_ms']:.2f} / {q['query_p_ms']:.2f} ms; on 4096 of them "
+        f"against the brute-force intersect.cu route ({oracle_launches} "
+        f"launches): hit mismatches {q['hit_mismatch']}, t max rel "
+        f"{q['t_max_rel']:.2e} (gate {T_RTOL}), ids differ {q['ids_differ']} "
+        f"({ties} ties); trace_profile of intersect_p: "
+        f"{q['trace_kernel_events']} kernel events, "
+        f"{q['trace_sweep_events']} of the sweep; card {card}")
+    if occ_differs or missing or q["hit_mismatch"] \
+            or q["t_max_rel"] > T_RTOL \
+            or q["untied_id_mismatch"] or oracle_launches <= 0 \
+            or q["trace_sweep_events"] <= 0:
+        raise AssertionError(f"11c: the queries disagree: {q}")
+
+    # -- 11d: the scatter splat at full width -------------------------------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    film = Film((512, 512))
+    n = SPLAT_SAMPLES
+    p = torch.rand((n, 2), generator=gen, device=dev) * 514.0 - 1.0
+    L = torch.rand((n, 3), generator=gen, device=dev)
+    w = torch.rand(n, generator=gen, device=dev)
+    s0 = film.initial_state(dev)
+    a = film.add_samples(s0, p, L, w)
+    b = film.add_samples(s0, p, L, w)
+    torch.cuda.synchronize()
+    repeat = torch.equal(a.xyz, b.xyz) and torch.equal(a.weight_sum,
+                                                       b.weight_sum)
+    cpu = film.add_samples(film.initial_state("cpu"), p.cpu(), L.cpu(),
+                           w.cpu())
+    card_cpu = bool(torch.equal(a.xyz.cpu(), cpu.xyz)
+                    and torch.equal(a.weight_sum.cpu(), cpu.weight_sum))
+    # The card sums each pixel's entries in an order of its own (a sort,
+    # then a reduction per index), the CPU one after another: equal to
+    # the last bits of the sums.
+    card_cpu_rel = max(float(((x.cpu() - y).abs() / y.abs().clamp_min(
+        1e-30))[y.abs() > 1e-3].max()) for x, y in (
+        (a.xyz, cpu.xyz), (a.weight_sum, cpu.weight_sum)))
+    (x0, y0), (x1, y1) = film.sample_bounds()
+    gw, gh = x1 - x0 + 1, y1 - y0 + 1
+    gy, gx = torch.meshgrid(torch.arange(y0, y1 + 1, device=dev),
+                            torch.arange(x0, x1 + 1, device=dev),
+                            indexing="ij")
+    pix = torch.stack([gx.reshape(-1), gy.reshape(-1)], 1).float()
+    pg = pix + torch.rand(pix.shape, generator=gen, device=dev)
+    Lg = torch.rand((pix.shape[0], 3), generator=gen, device=dev)
+    wg = torch.rand(pix.shape[0], generator=gen, device=dev) * 0.5 + 0.5
+    sc = film.add_samples(s0, pg, Lg, wg)
+    gr = film.add_samples_grid(s0, pg, Lg, wg, (x0, y0), (gh, gw))
+    rel = lambda x, y: float(((x - y).abs() / y.abs().clamp_min(1e-30))
+                             .max())
+    ws_ok = bool(torch.allclose(sc.weight_sum, gr.weight_sum, rtol=2e-6,
+                                atol=2e-6))
+    xyz_ok = bool(torch.allclose(sc.xyz, gr.xyz, rtol=2e-5, atol=2e-6))
+    # Splats, a tenth of them outside the film: dropped, not clamped.
+    ps = torch.rand((n, 2), generator=gen, device=dev) * 563.2 - 25.6
+    inside = ((ps >= 1.0) & (ps < 513.0)).all(-1)
+    sp = film.add_splats(s0, ps, L)
+    want = float(spec.rgb_to_xyz(L[inside]).double().sum())
+    got = float(sp.splat_xyz.double().sum())
+    dropped_ok = abs(got - want) <= 1e-5 * abs(want)
+    splat = dict(samples=n, film=(512, 512), repeat_bit_equal=repeat,
+                 card_equals_cpu=card_cpu, card_cpu_max_rel=card_cpu_rel,
+                 grid_lanes=int(pix.shape[0]),
+                 grid_weight_rel=rel(sc.weight_sum, gr.weight_sum),
+                 grid_xyz_rel=rel(sc.xyz[gr.xyz > 1e-3],
+                                  gr.xyz[gr.xyz > 1e-3]),
+                 grid_ok=ws_ok and xyz_ok, splats_inside=int(inside.sum()),
+                 splat_sum=got, splat_sum_want=want)
+    splat["add_samples_ms"] = cuda_ms(lambda: film.add_samples(s0, p, L, w), 5)
+    splat["add_splats_ms"] = cuda_ms(lambda: film.add_splats(s0, ps, L), 5)
+    splat["grid_ms"] = cuda_ms(lambda: film.add_samples_grid(
+        s0, pg, Lg, wg, (x0, y0), (gh, gw)), 5)
+    splat["grid_as_scatter_ms"] = cuda_ms(lambda: film.add_samples(
+        s0, pg, Lg, wg), 5)
+    out["splat"] = splat
+    log("11d", t0, f"add_samples on {n} samples over a 512^2 film: the same "
+        f"bits twice {repeat}, equal to the CPU's {card_cpu} (max rel "
+        f"{card_cpu_rel:.2e}); "
+        f"{splat['add_samples_ms']:.3f} ms; on the {splat['grid_lanes']}-lane "
+        f"grid against add_samples_grid: weights rel "
+        f"{splat['grid_weight_rel']:.2e}, xyz rel {splat['grid_xyz_rel']:.2e} "
+        f"(gates: 1e-6, and test_film_grid.py's: {splat['grid_ok']}), "
+        f"{splat['grid_as_scatter_ms']:.3f} ms vs the grid's "
+        f"{splat['grid_ms']:.3f} ms; add_splats {splat['add_splats_ms']:.3f} "
+        f"ms, {splat['splats_inside']} of {n} inside, xyz sum {got:.3f} "
+        f"(want {want:.3f}); card {card}")
+    if not (repeat and splat["grid_ok"] and dropped_ok
+            and card_cpu_rel <= 1e-5
+            and splat["grid_weight_rel"] <= 1e-6
+            and splat["grid_xyz_rel"] <= 1e-6):
+        raise AssertionError(f"11d: the splats: {splat}")
+
+    # -- 11e: compare.py's CLI on 11b's PNGs -------------------------------
+    t0 = time.perf_counter()
+    win_png = os.path.join(tmp, "chip_smoke_gaussian_window.png")
+    write_png(win_png, window[::-1])
+    h, w_ = crop_img.shape[:2]
+    res = subprocess.run(
+        [sys.executable, "-m", "trace_tpu_torch.utils.compare",
+         frames["gaussian_crop"]["png"], win_png, "--crop", "1", "1",
+         str(w_ - 1), str(h - 1)], cwd=REPO, capture_output=True,
+        text=True, timeout=120)
+    metrics = json.loads(res.stdout) if res.returncode == 0 else None
+    out["compare_cli"] = dict(rc=res.returncode, metrics=metrics)
+    log("11e", t0, f"python -m trace_tpu_torch.utils.compare (crop vs the "
+        f"full frame's window, inside the ring): rc {res.returncode}, "
+        f"{res.stdout.strip()} {res.stderr.strip()[-300:]}")
+    if res.returncode != 0 or metrics["mse"] > 1e-6:
+        raise AssertionError(f"11e: compare: {out['compare_cli']}")
+    log(11, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -3233,6 +3620,24 @@ def main() -> int:
         lights3_path_launches=l3["path"]["launches"]["prologue"],
         lights3_sppm_launches=l3_sppm["entry_launches"],
         lights3_sppm_skipped_chunks=l3_sppm["skipped_chunks"])
+
+    # -- 11: the render loop's public surface -------------------------------
+    del s10
+    torch.cuda.empty_cache()
+    s11 = slice11(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice11.json"), "w") as f:
+        json.dump(dict(card=card, **s11), f, indent=1)
+    s11a = s11["mesh1m_whitted_256_strat2x2"]["launches"]
+    s11b = s11["crop"]["launches"]
+    s11c = s11["scene_queries"]
+    public = dict(
+        strat_whitted_launches=s11a["sweep"],
+        filter_frame_launches={k: v["sweep"] for k, v in s11b.items()},
+        scene_query_launches=s11c["launches"]["sweep"])
+    public_pro = dict(
+        strat_whitted_launches=s11a["prologue"],
+        filter_frame_launches={k: v["prologue"] for k, v in s11b.items()},
+        scene_query_launches=s11c["launches"]["prologue"])
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
@@ -3262,7 +3667,7 @@ def main() -> int:
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
-             **inst, **lights3),
+             **inst, **lights3, **public),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -3290,10 +3695,11 @@ def main() -> int:
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
-             **env_pro, **inst_pro, **lights3_pro),
-        entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
-              frames["fused_5k"]["launches"], fused["max_abs_err"], fused,
-              source="trace_tpu_torch/csrc/intersect.cu"),
+             **env_pro, **inst_pro, **lights3_pro, **public_pro),
+        dict(entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
+                   frames["fused_5k"]["launches"], fused["max_abs_err"],
+                   fused, source="trace_tpu_torch/csrc/intersect.cu"),
+             scene_query_oracle_launches=s11c["oracle_launches"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -25,7 +25,9 @@ def test_every_module_is_listed():
                  "models.sphere", "models.caustic_glass",
                  "models.env_studio", "accel.instances",
                  "models.sphere_field", "io.png", "materials.textures",
-                 "wavefront.lights", "film.png"):
+                 "wavefront.lights", "film.png", "sampler.distribution",
+                 "sampler.stratified", "utils.stats", "utils.compare",
+                 "io.obj"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -71,6 +73,36 @@ def test_package_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
+def test_package_import_builds_nothing_and_leaves_cuda_alone():
+    # The top-level package with JAX blocked and no card visible: its
+    # exports import, no kernel library is built or loaded, CUDA is not
+    # initialised.
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['trace_tpu'] = None\n"
+            "import torch, trace_tpu_torch as T\n"
+            "from trace_tpu_torch.ops import sweep, intersect\n"
+            "assert all(hasattr(T, n) for n in T.__all__)\n"
+            "libs = (sweep.sweep_kernel, sweep.block_entry_kernel, "
+            "intersect.intersect_kernel)\n"
+            "assert all(k.lib._dll is None for k in libs)\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print(len(T.__all__))")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(trace_tpu_torch.__all__)
+
+
+def test_exports_are_the_jax_packages():
+    import trace_tpu
+
+    assert trace_tpu_torch.__all__ == trace_tpu.__all__
+    for name in trace_tpu_torch.__all__:
+        assert getattr(trace_tpu_torch, name).__name__.rsplit(".")[-1] == \
+            getattr(trace_tpu, name).__name__.rsplit(".")[-1], name
+
+
 def _default_devices():
     import inspect
 
@@ -78,6 +110,7 @@ def _default_devices():
     from trace_tpu_torch.models import (_run, caustic_glass, cornell,
                                         env_studio, mesh_heavy, sphere,
                                         sphere_field, spheres)
+    from trace_tpu_torch.film.film import Film
     from trace_tpu_torch.scene import SceneBuilder
 
     dflt = lambda f: inspect.signature(f).parameters["device"].default
@@ -86,6 +119,7 @@ def _default_devices():
                      env_studio, sphere_field)}
     out["models.sphere.render"] = dflt(sphere.render)
     out["SceneBuilder.build"] = dflt(SceneBuilder.build)
+    out["Film.initial_state"] = dflt(Film.initial_state)
     out["SPPMIntegrator"] = dflt(SPPMIntegrator)
     out["sppm.initial_state"] = dflt(initial_state)
     out["_run.parser --device"] = _run.parser(

@@ -15,7 +15,10 @@ render (which parts from op-by-op JAX on the camera rays' last bit on
 half the lanes, ROADMAP C; the port follows op-by-op JAX,
 test_torch_sppm.py); a golden equals the JAX render made in the same test
 to 1e-5; chunk settings change only the association of the pair sums
-(rtol 1e-5); resume and reruns are bit-exact.
+(rtol 1e-5); resume and reruns are bit-exact. One port render per case at
+its default settings (the ``port_renders`` fixture) serves the render,
+chunk and resume tests; the rerun that must repeat it is a render of its
+own.
 """
 import os
 
@@ -34,6 +37,7 @@ from trace_tpu_torch.models import mesh_heavy as TMH
 from trace_tpu_torch.models import spheres as TSph
 from trace_tpu_torch.ops import sweep as TS
 from trace_tpu_torch.utils import checkpoint as TCk
+from trace_tpu_torch.utils.stats import RenderStats
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 MSE_GATE = 5e-4
@@ -92,16 +96,29 @@ def _render(name, scene, **over):
     return integ, state, integ.to_image(state, 2).numpy()
 
 
+@pytest.fixture(scope="module")
+def port_renders(port_scenes):
+    """Per case, one port render at the case's settings, with stats: the
+    render test's, the chunk test's reference and the resume test's full
+    run (each a fresh render with the same inputs before)."""
+    out = {}
+    for name in CASES:
+        stats = RenderStats()
+        integ, state, img = _render(name, port_scenes[name], stats=stats)
+        out[name] = dict(state=state, img=img, stats=stats.as_dict())
+    return out
+
+
 def _fields_equal(a, b):
     return all(torch.equal(getattr(a, k), getattr(b, k))
                for k in ("ld", "tau", "radius", "n", "phi", "m"))
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_render_matches_jitted_jax(jax_runs, port_scenes, name):
+def test_render_matches_jitted_jax(jax_runs, port_renders, name):
     launches = TS.sweep_kernel.launches
-    stats = {}
-    integ, state, img = _render(name, port_scenes[name], stats=stats)
+    run = port_renders[name]
+    state, img, stats = run["state"], run["img"], run["stats"]
     assert TS.sweep_kernel.launches == launches   # CPU: the plain version
     jimg = jax_runs[name]["img"]
     m = mse(img, jimg)
@@ -125,8 +142,9 @@ def test_golden_equals_live_jax(jax_runs, name):
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_chunk_settings_change_only_association(port_scenes, name):
-    _, a, img_a = _render(name, port_scenes[name])
+def test_chunk_settings_change_only_association(port_scenes, port_renders,
+                                                name):
+    a, img_a = port_renders[name]["state"], port_renders[name]["img"]
     _, b, img_b = _render(name, port_scenes[name],
                           pixel_chunk=CASES[name]["pixel_chunk"],
                           pair_chunk=333)
@@ -138,9 +156,10 @@ def test_chunk_settings_change_only_association(port_scenes, name):
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_resume_is_bit_exact_and_reruns_repeat(port_scenes, name, tmp_path):
+def test_resume_is_bit_exact_and_reruns_repeat(port_scenes, port_renders,
+                                               name, tmp_path):
     scene = port_scenes[name]
-    _, full, _ = _render(name, scene)
+    full = port_renders[name]["state"]
     _, again, _ = _render(name, scene)
     assert _fields_equal(full, again)
     integ = _port(name)

@@ -12,6 +12,14 @@ from trace_tpu_torch.core.vec import V3 as TV3
 from trace_tpu_torch.shapes.sphere import Spheres
 from trace_tpu_torch.shapes.triangle import Triangles
 
+# One intra-op thread per test process. The suite runs one process per
+# core (pytest-xdist), and torch's default of one thread per core in each
+# oversubscribes the cores: small-tensor loops (SPPM's pair chunks, the
+# sweep's plain version) then wait on spinning threads. Every pytest
+# worker imports this module while it collects the port's tests.
+torch.set_num_threads(1)
+
+
 def warm_vector_math():
     """Call the vector-math functions of the env lookups and samplers once
     before any test does.

@@ -42,7 +42,8 @@ identical data. Keys (all numpy):
   then intersects through the fused brute-force accelerator.
 
 ``sppm_state_from_numpy`` carries an SPPM state across the same way, so a
-run of the JAX package resumes in the port; ``triangles_from_jax`` and
+run of the JAX package resumes in the port; ``film_state_from_numpy`` a
+film state with its splats; ``triangles_from_jax`` and
 ``transform_from_jax`` carry a frame's geometry and motion.
 """
 from __future__ import annotations
@@ -181,6 +182,18 @@ def sppm_state_from_numpy(src, device):
     return SPPMState(**{
         k: torch.from_numpy(np.array(v, dtypes.get(k, np.float32))).to(
             device) for k, v in zip(names, vals)})
+
+
+def film_state_from_numpy(src, device):
+    """The JAX package's FilmState (xyz [H, W, 3], weight_sum [H, W],
+    splat_xyz [H, W, 3]; an object or a dict of arrays) -> the port's
+    FilmState on ``device``, float32."""
+    from .film.film import FilmState
+
+    get = src.get if isinstance(src, dict) else (
+        lambda k: getattr(src, k))
+    return FilmState(*[torch.from_numpy(np.array(get(k), np.float32)).to(
+        device) for k in FilmState._fields])
 
 
 def triangles_from_jax(tris) -> Triangles:

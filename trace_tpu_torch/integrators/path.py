@@ -12,11 +12,11 @@ class PathIntegrator(SamplerIntegrator):
     bounces. ``li_impl`` other than "auto"/"planar" raises."""
 
     def __init__(self, camera, sampler=None, max_depth: int = 5,
-                 rr_depth: int = 3, li_impl: str = "auto"):
+                 rr_depth: int = 3, li_impl: str = "auto", stats=None):
         if li_impl not in ("auto", "planar"):
             raise NotImplementedError(
                 f"li_impl={li_impl!r}: only the planar path is ported")
-        super().__init__(camera, sampler, max_depth)
+        super().__init__(camera, sampler, max_depth, stats=stats)
         self.rr_depth = int(rr_depth)
 
     def li(self, scene, rd, keys):

@@ -27,11 +27,13 @@ relit frames (``render_frames``) run the same stepwise path on a scene
 view (integrators/common.py).
 
 Not ported, and refused with NotImplementedError: the fused and unrolled
-iteration blocks and the sharded passes (``mesh``); scenes the planar
-wavefront cannot render (several lights unless all are delta lights, so
-an environment light renders alone) raise as in wavefront/path.py. The
-environment light emits photons from a disk of the scene's bounding
-radius on the side of a direction its texel tables pick.
+iteration blocks and the sharded passes (``mesh``). Any mix of lights
+renders (the camera pass picks one light per lane); a scene whose
+materials the planar wavefront cannot shade raises, as in
+wavefront/path.py. The environment light emits photons from a disk of
+the scene's bounding radius on the side of a direction its texel tables
+pick. ``stats`` (a utils.stats.RenderStats) gathers the JAX twin's
+per-iteration counters, at the cost of a few host reads.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from ..core.math import scatter_add as _scatter_add
 from ..core.vec import V3
 from ..lights import lights as light_mod
 from ..sampler import uniform as U
@@ -152,24 +155,6 @@ def _to_grid(p, lo, res, inv_extent):
     return in_bounds, torch.clamp(g, min=torch.zeros_like(res), max=res - 1)
 
 
-def _scatter_add(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor):
-    """dst[idx] += val with duplicates, in place, adding in the same order
-    on every run. On the CPU this is a serial loop in index order (as the
-    JAX scatter); on CUDA, PyTorch's deterministic algorithm (a stable
-    sort of the indices, then a sum per index) in place of atomics."""
-    if not dst.is_cuda:
-        dst.index_put_((idx,), val, accumulate=True)
-        return dst
-    was = torch.are_deterministic_algorithms_enabled()
-    warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        dst.index_put_((idx,), val, accumulate=True)
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn)
-    return dst
-
-
 @dataclass
 class PairTables:
     """Loop-invariant row tables of one iteration's pair pass."""
@@ -200,14 +185,14 @@ def pair_tables(vp: VisiblePoints, radius, sp_p, sp_d, sp_beta,
 class SPPMIntegrator:
     """SPPM over the planar wavefront. Runs on ``device`` (the card unless
     the caller asks for the CPU); the scene must live there too.
-    ``stats`` (optional dict) gathers per-iteration counters, at the cost
-    of host reads."""
+    ``stats`` (optional utils.stats.RenderStats) gathers per-iteration
+    counters, at the cost of host reads."""
 
     def __init__(self, camera, initial_search_radius: float = 1.0,
                  max_depth: int = 5, n_iterations: int = 64,
                  photons_per_iteration: int = -1, write_frequency: int = 0,
                  pixel_chunk: int = PIXEL_CHUNK, pair_chunk: int = PAIR_CHUNK,
-                 seed: int = 0, stats: dict | None = None, mesh=None,
+                 seed: int = 0, stats=None, mesh=None,
                  shard_camera: bool = False, fused_iterations: bool = False,
                  fused_unroll: bool = False, device="cuda"):
         if mesh is not None or shard_camera:
@@ -524,7 +509,7 @@ class SPPMIntegrator:
             "splat_records": int((splat["count"] > 0).sum()),
         }
         for k, v in add.items():
-            self.stats[k] = self.stats.get(k, 0) + v
+            self.stats.add(k, v)
 
     def save(self, state: SPPMState, iteration: int, path: str | None = None):
         film = self.camera.film

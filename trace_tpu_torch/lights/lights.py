@@ -12,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import numpy as np
+import torch
 
 POINT = 0  # kind codes as in the JAX package
 SPOT = 1
@@ -262,3 +263,29 @@ def power(lights: Lights) -> np.ndarray:
     out = np.where(far[:, None], p_dist, out)
     return np.where((lights.kind == AREA)[:, None], p_area,
                     out).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Blackbody emission (the reference's emission.jl:12-58)
+# ---------------------------------------------------------------------------
+
+
+def blackbody(wavelengths_nm, temperature) -> torch.Tensor:
+    """Planck's law radiance, float32, for wavelengths in nm (a tensor,
+    or anything ``torch.as_tensor`` takes, on its device)."""
+    lam = torch.as_tensor(wavelengths_nm, dtype=torch.float32) * 1e-9
+    c = 299792458.0
+    h = 6.62606957e-34
+    kb = 1.3806488e-23
+    return (2.0 * h * c * c) / (
+        lam ** 5 * (torch.exp((h * c) / (lam * kb * temperature)) - 1.0))
+
+
+def blackbody_normalized(wavelengths_nm, temperature) -> torch.Tensor:
+    """``blackbody`` divided by its peak (Wien's displacement law), so the
+    peak is 1."""
+    le = blackbody(wavelengths_nm, temperature)
+    lam_max = 2.8977721e-3 / temperature * 1e9
+    peak = blackbody(torch.tensor([lam_max], dtype=torch.float32,
+                                  device=le.device), temperature)
+    return le / peak[0]

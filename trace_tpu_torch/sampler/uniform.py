@@ -82,6 +82,23 @@ def uniform_lanes(keys: torch.Tensor, cols: int) -> torch.Tensor:
     return (bits >> 9).to(torch.float32) * (2.0 ** -23)
 
 
+def split(key_: torch.Tensor, num: int) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of one key [2] -> [num, 2]: with
+    partitionable counters, key i hashes the counter pair (0, i), which is
+    ``fold_in(key, i)``."""
+    return fold_in(key_, torch.arange(num, dtype=torch.int64,
+                                      device=key_.device))
+
+
+def uniform(key_: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)`` of one key [2]: element
+    i of the row-major flattening hashes the counter pair (0, i)."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return uniform_lanes(key_[None], n).reshape(tuple(shape))
+
+
 def pixel_ids(pixel_xy: torch.Tensor) -> torch.Tensor:
     """(y << 16) | x on the 1-based raster coordinates."""
     x = pixel_xy[:, 0].to(torch.int64)

@@ -3,17 +3,22 @@ trace_tpu/scene.py).
 
 ``SceneBuilder.build(device)`` packs the spheres, triangles, lights and
 materials on the host and moves every table the render reads onto
-``device`` once: the card unless the caller asks for the CPU. Above 64 triangles (the JAX package's ``use_bvh``
-threshold) it attaches the sparse sweep (ops/sweep.py): the CUDA kernel
+``device`` once: the card unless the caller asks for the CPU. Above 64
+triangles (the JAX package's ``use_bvh`` threshold; ``use_bvh`` forces
+either side) it attaches the sparse sweep (ops/sweep.py): the CUDA kernel
 for a CUDA device, its plain PyTorch version on the CPU. Scenes of 1-64
 triangles intersect them by brute force over the [rays, triangles] grid
-(wavefront/geom.py), as the JAX package does. ``exact_shared_edges=True``
-makes shared mesh edges watertight: the sweep runs its certified
-epilogue, the brute-force grid and the winner detail phase the
-double-single edge fallback. A mesh given ``emission`` is a diffuse area
-light; ``light(infinite_light(...))`` adds the environment light, whose
-texel tables go to the device with the light table and whose disk is
-the scene's bounding sphere. Image textures' mip tables go to the device
+(wavefront/geom.py, ``chunk_size`` triangles a pass), as the JAX package
+does. ``Scene.intersect`` / ``intersect_p`` / ``unoccluded`` /
+``transmittance`` / ``area_light_radiance`` are the JAX Scene's ray
+queries over the same routes the integrators take; they return the
+port's planar hit records (wavefront/geom.py::HitP).
+``exact_shared_edges=True`` makes shared mesh edges watertight: the sweep
+runs its certified epilogue, the brute-force grid and the winner detail
+phase the double-single edge fallback. A mesh given ``emission`` is a
+diffuse area light; ``light(infinite_light(...))`` adds the environment
+light, whose texel tables go to the device with the light table and whose
+disk is the scene's bounding sphere. Image textures' mip tables go to the device
 with the scene. ``instanced_mesh`` and ``instanced_spheres``
 add many transformed copies of one base (accel/instances.py): the base is
 stored once, each copy adds a row of a transform table, and the base's own
@@ -30,6 +35,8 @@ import torch
 
 from .accel import instances as inst_mod
 from .accel.clusters import build_clusters
+from .core.ray import SPAWN_EPS
+from .core.vec import V3
 from .lights import lights as light_mod
 from .materials import textures
 from .ops.sweep import SweepAccelerator, SweepTables
@@ -52,14 +59,26 @@ BLOCK_RAYS = 32
 RAY_CHUNK = 65536
 MAX_PRIMS_PER_LEAF = 4
 BRUTE_FORCE_MAX_TRIS = 64
+CHUNK_SIZE = 2048
+# SceneBuilder.build's accelerators: the JAX package's names. The sweep
+# serves "auto" and "pallas_sweep"; the per-ray BVH walks are not ported.
+SWEEP_ACCELERATORS = ("auto", "pallas_sweep")
+UNPORTED_ACCELERATORS = ("clusters", "wbvh")
 
 
-def sweep_tables(tris) -> SweepTables | None:
-    """The sweep's tables for a triangle table above 64 triangles (leaf
-    64 x group 8), else None: the brute-force grid serves it."""
-    if tri_mod.num_triangles(tris) <= BRUTE_FORCE_MAX_TRIS:
+def sweep_tables(tris, use_bvh: bool | None = None,
+                 max_prims_per_leaf: int = MAX_PRIMS_PER_LEAF
+                 ) -> SweepTables | None:
+    """The sweep's tables (leaf 64 x group 8) for a triangle table above
+    64 triangles, or for any with ``use_bvh=True``; None (the brute-force
+    grid serves it) for 64 or fewer, for none, or with ``use_bvh=False``.
+    ``max_prims_per_leaf``: the SAH build's leaf size."""
+    n = tri_mod.num_triangles(tris)
+    if use_bvh is None:
+        use_bvh = n > BRUTE_FORCE_MAX_TRIS
+    if not use_bvh or n == 0:
         return None
-    return SweepTables(build_clusters(tris, LEAF_TRIS, MAX_PRIMS_PER_LEAF),
+    return SweepTables(build_clusters(tris, LEAF_TRIS, max_prims_per_leaf),
                        GROUP)
 
 
@@ -130,34 +149,53 @@ class SceneBuilder:
     def light(self, entry: dict) -> None:
         self._lights.append(entry)
 
-    def build(self, device="cuda", exact_shared_edges: bool = False
-              ) -> "Scene":
+    def build(self, device="cuda", exact_shared_edges: bool = False,
+              chunk_size: int = CHUNK_SIZE, use_bvh: bool | None = None,
+              max_prims_per_leaf: int = MAX_PRIMS_PER_LEAF,
+              accelerator: str = "auto") -> "Scene":
+        """The scene on ``device``. ``use_bvh``: None attaches the sweep
+        above 64 triangles, True at any count, False never (brute force,
+        ``chunk_size`` triangles a pass). ``accelerator``: "auto" or
+        "pallas_sweep" (the sweep); the JAX package's "clusters" and
+        "wbvh" raise NotImplementedError (ROADMAP A.6)."""
+        if accelerator in UNPORTED_ACCELERATORS:
+            raise NotImplementedError(
+                f"accelerator={accelerator!r}: the per-ray BVH walks are not "
+                f"ported (ROADMAP A.6); use 'auto' or 'pallas_sweep'")
+        if accelerator not in SWEEP_ACCELERATORS:
+            raise ValueError(f"unknown accelerator {accelerator!r}")
         spheres = sph_mod.pack_spheres(self._spheres)
         tris = tri_mod.concat_triangles(self._tri_parts)
         tri_light = (np.concatenate(self._tri_light) if self._tri_light
                      else np.zeros(0, np.int32))
         lights = light_mod.pack_lights(self._lights, tris)
         return Scene(spheres, tris, self._materials, lights, device,
-                     sweep_tables=sweep_tables(tris),
+                     sweep_tables=sweep_tables(tris, use_bvh,
+                                               max_prims_per_leaf),
                      exact_edges=exact_shared_edges, tri_light_id=tri_light,
-                     instanced=self._instanced)
+                     instanced=self._instanced, chunk_size=chunk_size,
+                     brute_force=use_bvh is False)
 
 
 class Scene:
     def __init__(self, spheres, triangles, materials, lights, device,
                  sweep_tables: SweepTables | None = None,
                  exact_edges: bool = False, tri_light_id=None,
-                 instanced=()):
+                 instanced=(), chunk_size: int = CHUNK_SIZE,
+                 brute_force: bool = False):
         self.device = torch.device(device)
         self.exact_edges = bool(exact_edges)
+        self.chunk_size = int(chunk_size)
         self.spheres = spheres
         self.materials = list(materials)
         WM.check_materials(self.materials)
         textures.upload(self.materials, self.device)
         self.n_spheres = sph_mod.num_spheres(spheres)
         self.n_triangles = tri_mod.num_triangles(triangles)
-        if self.n_triangles > BRUTE_FORCE_MAX_TRIS and sweep_tables is None:
-            raise ValueError("more than 64 triangles need the sweep tables")
+        if self.n_triangles > BRUTE_FORCE_MAX_TRIS and sweep_tables is None \
+                and not brute_force:
+            raise ValueError("more than 64 triangles need the sweep tables "
+                             "(or brute_force=True)")
         dev = self.device
         self.sphere_cols = (G.sphere_cols(spheres, dev)
                             if self.n_spheres else None)
@@ -241,3 +279,52 @@ class Scene:
         view = copy.copy(self)
         view._set_geometry(triangles, accel)
         return view
+
+    # -- ray queries (the JAX Scene's, over the integrators' routes) ------
+
+    def intersect(self, o, d, t_max, time=None) -> G.HitP:
+        """Closest hit over the scene -> the planar hit record (HitP).
+        o, d: [N, 3]; t_max: [N]. Sources are reduced in the JAX order,
+        spheres, triangles, then each instanced geometry, and where they
+        tie the earlier one wins."""
+        from .wavefront import whitted as WF
+
+        if time is None:
+            time = torch.zeros(o.shape[0], dtype=torch.float32,
+                               device=o.device)
+        return WF.closest_hit(self, V3.of(o), V3.of(d), t_max, time)
+
+    def intersect_p(self, o, d, t_max) -> torch.Tensor:
+        """Any-hit occlusion [N] bool: some source hits within t_max."""
+        from .wavefront import whitted as WF
+
+        return WF.any_hit(self, V3.of(o), V3.of(d), t_max)
+
+    def unoccluded(self, p0, p1, time=None, n_geom=None) -> torch.Tensor:
+        """Shadow-ray test p0 -> p1 [N] bool: a ray along the unnormalised
+        p1 - p0 with t_max 1 - 1e-4, its origin moved by 1e-6 of it and,
+        with ``n_geom`` ([N, 3], the surface's geometric normal), nudged
+        along the normal by a scale-aware epsilon (PBRT's spawn)."""
+        from .wavefront import whitted as WF
+
+        a, b = V3.of(p0), V3.of(p1)
+        if n_geom is not None:
+            return WF.unoccluded(self, a, b, V3.of(n_geom))
+        d = b - a
+        t_max = torch.full(a.x.shape, WF.SHADOW_T_MAX, dtype=torch.float32,
+                           device=a.x.device)
+        return ~WF.any_hit(self, a + d * SPAWN_EPS, d, t_max)
+
+    def transmittance(self, p0, p1, time=None) -> torch.Tensor:
+        """Beam transmittance [N, 3] between two points: every primitive
+        carries a material, so the reference's walk over hits reduces to
+        1 where unoccluded and 0 elsewhere."""
+        vis = self.unoccluded(p0, p1, time)
+        return torch.where(vis[:, None], 1.0, 0.0).repeat(1, 3)
+
+    def area_light_radiance(self, hit: G.HitP, wo) -> torch.Tensor:
+        """Emitted radiance [N, 3] toward ``wo`` ([N, 3] or V3) at hits on
+        emissive triangles, zero elsewhere."""
+        if not isinstance(wo, V3):
+            wo = V3.of(wo)
+        return WL.area_light_radiance(self, hit, wo).arr()

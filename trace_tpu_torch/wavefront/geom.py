@@ -272,18 +272,43 @@ def _tri_grid(cols, o: V3, d: V3, t_max, exact_edges: bool):
     return _watertight(*cols, ob, db, t_max[:, None], exact_edges)
 
 
-def triangles_closest(cols, o: V3, d: V3, t_max, exact_edges: bool = False):
+def _chunks(cols, chunk):
+    """(start, cols) over [start, start + chunk) column slices; one slice
+    of everything without ``chunk``."""
+    t = cols[0].x.shape[1]
+    step = chunk or max(t, 1)
+    for s in range(0, t, step):
+        yield s, tuple(V3(v.x[:, s:s + step], v.y[:, s:s + step],
+                          v.z[:, s:s + step]) for v in cols)
+
+
+def triangles_closest(cols, o: V3, d: V3, t_max, exact_edges: bool = False,
+                      chunk: int | None = None):
     """Closest triangle hit: (hit [N], t [N], idx [N] i32); among equal
     t the lowest index wins. ``exact_edges``: the double-single edge
-    fallback, as the JAX package's packed intersect_all."""
-    hit, t, _, _, _ = _tri_grid(cols, o, d, t_max, exact_edges)
-    best, idx = torch.where(hit, t, INF).min(dim=-1)
+    fallback, as the JAX package's packed intersect_all. ``chunk``: at
+    most this many triangles a pass (a running min, as the JAX twin's
+    chunked reduction; the same result)."""
+    best = idx = None
+    for s, part in _chunks(cols, chunk):
+        hit, t, _, _, _ = _tri_grid(part, o, d, t_max, exact_edges)
+        b, i = torch.where(hit, t, INF).min(dim=-1)
+        if best is None:
+            best, idx = b, i
+        else:
+            better = b < best
+            best = torch.where(better, b, best)
+            idx = torch.where(better, i + s, idx)
     return torch.isfinite(best), best, idx.to(torch.int32)
 
 
-def triangles_anyhit(cols, o: V3, d: V3, t_max, exact_edges: bool = False):
-    hit = _tri_grid(cols, o, d, t_max, exact_edges)[0]
-    return hit.any(dim=-1)
+def triangles_anyhit(cols, o: V3, d: V3, t_max, exact_edges: bool = False,
+                     chunk: int | None = None):
+    occ = None
+    for _, part in _chunks(cols, chunk):
+        h = _tri_grid(part, o, d, t_max, exact_edges)[0].any(dim=-1)
+        occ = h if occ is None else occ | h
+    return occ
 
 
 # ---------------------------------------------------------------------------

@@ -73,10 +73,10 @@ def _triangles(scene, o: V3, d: V3, t_max, live, any_hit: bool):
         return scene.accel.intersect(o.arr(), d.arr(), tm, any_hit)
     if any_hit:
         h = G.triangles_anyhit(scene.triangle_cols, o, d, tm,
-                               scene.exact_edges)
+                               scene.exact_edges, scene.chunk_size)
         return h, None, None
     return G.triangles_closest(scene.triangle_cols, o, d, tm,
-                               scene.exact_edges)
+                               scene.exact_edges, scene.chunk_size)
 
 
 def closest_hit(scene, o: V3, d: V3, t_max, time, live=None) -> G.HitP:
