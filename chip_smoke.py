@@ -5,7 +5,7 @@
 
 Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep, prologue and intersect kernels (one nvcc each,
+  1. build: the sweep, prologue, intersect and walk kernels (one nvcc each,
      in parallel, sm_90a) with ptxas's registers and spills per kernel
      arm, the sweep's warps per CTA, and the SAH builder (g++);
   2. kernel vs plain, on the main paths' own launches:
@@ -239,6 +239,34 @@ Phases (each prints lines with its seconds; any failure raises):
         film; each splat timed;
      e. python -m trace_tpu_torch.utils.compare on 11b's crop PNG and
         the full frame's window inside the ring: exit 0, MSE <= 1e-6.
+ 12. the BVH accelerators (details in chiprun_out/slice12.json):
+     a. the 1M mesh behind a WBVHAccelerator (Scene.with_geometry; tree
+        depth, nodes, MB, host build s); every intersect call of the
+        Whitted 256^2 depth-2 frame through the walk kernel and
+        walk_plain in both limits ("wbvh", "bvh"), in the accelerator's
+        ray order: hits, ids and per-ray counts equal, t within T_RTOL
+        (t bits reported); per call the kernel's ms, node visits and
+        triangle tests, bound; the camera call's plain ms; the
+        coincident-centroid leaf and the on-plane rays, bit-equal and
+        right;
+     b. 4096 of the frame's camera rays, the walk against the brute-force
+        watertight grid: hits equal, t within T_RTOL, ids equal but for
+        ties; the walk's hit masks against the sweep's on the frame's
+        calls, reported;
+     c. the Whitted frame on wbvh and on the sweep (same seed): MSE < 5e-4;
+        walk launches a frame (counts set to 0 before the render, read
+        after; no sweep launch); frames timed (a warm one, then 3), peak
+        GiB, device busy;
+     d. SPPM at mesh1m_sppm_256's settings (256^2, 65536 photons, depth
+        5, radius 0.3; a warm iteration and two timed) on wbvh and on the
+        sweep: finite, pixels gathered within 10% of the sweep's; each
+        call of one iteration (camera and photon depths) on the same rays
+        through the walk kernel and the sweep's prologue and sweep
+        kernels, and each accelerator's whole intersect, device ms;
+     e. the 5k mesh at 32^2 on accelerator="clusters" and bvh.attach
+        against mesh_heavy5k_32.npy, MSE < 5e-4; 16384 of the 1M camera
+        rays through clusters (leaf 64, stage 128): ms, stages, hits
+        against the walk's.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -249,7 +277,9 @@ in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d),
 and in the instanced stand-in frame (9c, with its agreement) and one of
 its SPPM iterations (9d), and in the three-light textured 1M frames and
 SPPM iteration (10b), and in phase 11's stratified frame, filter frames
-and Scene queries; intersect with the queries' brute-force oracle's),
+and Scene queries; intersect with the queries' brute-force oracle's;
+bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
+timed on 12a's camera call),
 the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -450,6 +480,12 @@ def ptxas_summary(logtext: str) -> list:
                                 p == "1", s == "1")
             elif "intersect_kernel" in name:
                 name = "intersect"
+            elif "bvh_walk_kernel" in name:
+                w = re.search(r"bvh_walk_kernelILb(\d)ELb(\d)ELb(\d)E", name)
+                arms = zip(("any_hit", "bvh", "stats"),
+                           w.groups() if w else "000")
+                name = "_".join(["bvh_walk"] + [k for k, b in arms
+                                                if b == "1"])
             elif "prologue_kernel" in name:
                 name = "prologue"
             elif "entry_kernel" in name:
@@ -862,7 +898,7 @@ def device_busy(phase, t0, card, what, run, unprofiled_ms):
                 kernels=int(sum(e.count for e in on_dev)),
                 top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                      for e in top])
-    for name in ("prologue_kernel", "sweep_kernel"):
+    for name in ("prologue_kernel", "sweep_kernel", "bvh_walk_kernel"):
         mine = [e for e in on_dev if name in e.key]
         busy[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
                       int(sum(e.count for e in mine)))
@@ -872,7 +908,9 @@ def device_busy(phase, t0, card, what, run, unprofiled_ms):
         f"in {busy['kernels']} kernels; prologue kernel "
         f"{busy['prologue_kernel'][0]:.2f} ms in "
         f"{busy['prologue_kernel'][1]} launches, sweep "
-        f"{busy['sweep_kernel'][0]:.2f} ms in {busy['sweep_kernel'][1]}; "
+        f"{busy['sweep_kernel'][0]:.2f} ms in {busy['sweep_kernel'][1]}, "
+        f"walk {busy['bvh_walk_kernel'][0]:.2f} ms in "
+        f"{busy['bvh_walk_kernel'][1]}; "
         f"top {busy['top']}; card {card}")
     if dev_ms <= 0:
         raise AssertionError("the profiler saw no device time")
@@ -2058,11 +2096,13 @@ def record_walks(geom):
     return calls
 
 
-def sppm_iterations(phase, t0, card, integ, scene, acc, n):
+def sppm_iterations(phase, t0, card, integ, scene, acc, n, walk=False):
     """``n`` SPPM iterations (the first warm), each with its phases' ms
-    and its sweep and prologue launches and chunks skipped."""
+    and its sweep and prologue launches and chunks skipped; with ``walk``
+    (a BVH walk accelerator) its walk launches instead, and no sweep."""
     import torch
     from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.ops.bvh_walk import walk_kernel
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
 
@@ -2080,6 +2120,7 @@ def sppm_iterations(phase, t0, card, integ, scene, acc, n):
             marks.clear()
             sweep_kernel.reset_counts()
             block_entry_kernel.reset_counts()
+            walk_kernel.reset_counts()
             acc.skipped_chunks = 0
             a = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -2091,7 +2132,8 @@ def sppm_iterations(phase, t0, card, integ, scene, acc, n):
                        sweep_launches=sweep_kernel.launches,
                        f32_launches=sweep_kernel.arm_launches["f32"],
                        entry_launches=block_entry_kernel.launches,
-                       skipped_chunks=acc.skipped_chunks)
+                       skipped_chunks=acc.skipped_chunks,
+                       walk_launches=walk_kernel.launches)
             prev = a
             for name, ev in marks:
                 row[f"{name}_ms"] = prev.elapsed_time(ev)
@@ -2102,10 +2144,16 @@ def sppm_iterations(phase, t0, card, integ, scene, acc, n):
                     f"{nm.strip('_')} {row[nm.strip('_') + '_ms']:.2f}"
                     for nm in SPPM_PHASES) + f" ms; sweep launches "
                 f"{row['sweep_launches']}, prologue {row['entry_launches']}"
-                f", chunks skipped {row['skipped_chunks']}; card {card}")
-            if row["sweep_launches"] <= 0 or row["f32_launches"] != \
+                f", chunks skipped {row['skipped_chunks']}, walk launches "
+                f"{row['walk_launches']}; card {card}")
+            if walk:
+                if row["walk_launches"] <= 0 or row["sweep_launches"] \
+                        or row["entry_launches"]:
+                    raise AssertionError(f"[{phase}] the SPPM iteration did "
+                                         f"not run the walk alone: {row}")
+            elif row["sweep_launches"] <= 0 or row["f32_launches"] != \
                     row["sweep_launches"] or row["entry_launches"] != \
-                    row["sweep_launches"]:
+                    row["sweep_launches"] or row["walk_launches"]:
                 raise AssertionError(f"[{phase}] the SPPM iteration did not "
                                      f"run the kernels: {row}")
     finally:
@@ -3125,6 +3173,516 @@ def slice11(dev, card, scene, t_all):
     return out
 
 
+# Phase 12's bound for the walk kernel (csrc/bvh_walk.cu's note): FP32
+# instructions a node visit (per slab axis two subtractions, two
+# multiplies, two NaN tests, a min and a max; then the tn / tf reductions,
+# the pad and three compares) and a triangle test (the watertight test:
+# the degenerate cross product, three shears, three edge functions, the
+# sign tests, the scaled t and the division), and the bytes of a node row
+# and a triangle row: the bound reads each distinct row a launch's walks
+# touch once (the kernel's marks), however often the walks revisit it.
+WALK_NODE_OPS = 32
+WALK_TRI_OPS = 80
+WALK_NODE_BYTES = 32
+WALK_TRI_BYTES = 48
+WALK_SRC = "trace_tpu_torch/csrc/bvh_walk.cu"
+WALK_REPLACES = ("trace_tpu/accel/wbvh.py:115, "
+                 "trace_tpu/accel/bvh.py:275")
+
+
+def walk_marked(acc, o, d, tm, any_hit, limit="wbvh", plain=False):
+    """One walk of these rays with the counts and the row marks, by the
+    kernel or (``plain``) walk_plain: (t, id, stats, seen u8 [M + T])."""
+    import torch
+    from trace_tpu_torch.accel.wbvh import walk_plain
+    from trace_tpu_torch.ops.bvh_walk import walk_kernel
+
+    seen = torch.zeros(acc.nodes.shape[0] + acc.tris.shape[0],
+                       dtype=torch.uint8, device=o.device)
+    out = (walk_plain if plain else walk_kernel)(
+        acc.nodes, acc.tris, o, d, tm, any_hit=any_hit, limit=limit,
+        stack_depth=acc.stack_depth, collect_stats=True, seen=seen)
+    return (*out, seen)
+
+
+def walk_bound(stats, seen, n_nodes, n):
+    """The walk launch's bound from this run's walks: the node visits' and
+    triangle tests' instructions, or the bytes that must come from memory:
+    each distinct node row and triangle row the walks touched (``seen``,
+    the first ``n_nodes`` entries the nodes') once, the rays (o, d, t_max)
+    read and the outputs (t, id) written."""
+    visits, tests = int(stats[0].sum()), int(stats[1].sum())
+    nodes, rows = int(seen[:n_nodes].sum()), int(seen[n_nodes:].sum())
+    ms, by = bound(visits * WALK_NODE_OPS + tests * WALK_TRI_OPS,
+                   nodes * WALK_NODE_BYTES + rows * WALK_TRI_BYTES + n * 36)
+    return dict(bound_ms=ms, bound_by=by, nodes_touched=nodes,
+                rows_touched=rows)
+
+
+def walk_compare(k, p):
+    """The walk kernel's (t, id[, stats]) against the plain version's: hits,
+    ids and t bits that differ, t beyond T_RTOL, the max abs t difference,
+    the per-ray counts that differ."""
+    import torch
+
+    (kt, ki), (pt, pi) = k[:2], p[:2]
+    both = (ki >= 0) & (pi >= 0)
+    dt = (kt - pt).abs()
+    out = dict(hit_mismatch=int(((ki >= 0) != (pi >= 0)).sum()),
+               id_mismatch=int((ki != pi).sum()),
+               t_bits_mismatch=int((kt.view(torch.int32)
+                                    != pt.view(torch.int32)).sum()),
+               t_beyond_tol=int((both & (dt > T_RTOL * pt.abs().clamp_min(
+                   1.0))).sum()),
+               max_abs_err=float(dt[both].max()) if bool(both.any()) else 0.0,
+               n_found=int((ki >= 0).sum()))
+    if len(k) > 2:
+        out["stats_mismatch"] = int((k[2] != p[2]).sum())
+    if len(k) > 3:
+        out["seen_mismatch"] = int((k[3] != p[3]).sum())
+    return out
+
+
+def walk_disagrees(c) -> bool:
+    return bool(c["hit_mismatch"] or c["id_mismatch"] or c["t_beyond_tol"]
+                or c.get("stats_mismatch") or c.get("seen_mismatch"))
+
+
+def walk_orders(acc, o, d, tm):
+    """The rays in both orders the walk accelerator can launch them:
+    {"arrival": as given, "sorted": by sort_key}, the accelerator's own
+    (``sort_rays``) first."""
+    import torch
+    from trace_tpu_torch.accel.clusters import sort_key
+
+    perm = torch.argsort(sort_key(o, d, acc.world_lo, acc.world_inv_extent),
+                         stable=True)
+    orders = {"arrival": (o, d, tm),
+              "sorted": (o[perm].contiguous(), d[perm].contiguous(),
+                         tm[perm].contiguous())}
+    first = "sorted" if acc.sort_rays else "arrival"
+    return {first: orders[first], **orders}
+
+
+def walk_sort_ms(acc, o, d, tm, anyh, reps):
+    """Device ms of the accelerator's whole intersect on these rays
+    without the sort and with it: (unsorted, sorted)."""
+    keep = acc.sort_rays
+    try:
+        out = []
+        for flag in (False, True):
+            acc.sort_rays = flag
+            out.append(cuda_ms(lambda: acc.intersect(o, d, tm, anyh), reps))
+    finally:
+        acc.sort_rays = keep
+    return tuple(out)
+
+
+def sweep_call_ms(acc, o, d, tm, anyh):
+    """Device ms of the sweep accelerator's kernels on one call: the
+    prologue kernel's and the sweep kernel's, summed over the chunks it
+    launches (3 launches each), and the launches."""
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+
+    perm = acc.coherence_order(o, d, tm)
+    o, d, tm = o[perm], d[perm], tm[perm]
+    pro = swp = 0.0
+    starts = acc.live_chunks(tm)
+    for s in starts:
+        sl = slice(s, s + acc.ray_chunk)
+        a = (acc.s_lo, acc.s_hi, *acc.pad_rays(o[sl], d[sl], tm[sl]),
+             acc.block_rays)
+        pro += cuda_ms(lambda: block_entry_kernel(*a), 3)
+        args = acc.prologue(o[sl], d[sl], tm[sl])
+        swp += cuda_ms(lambda: sweep_kernel(*args, acc.panel, acc.block_rays,
+                                            anyh, certified=acc.certified),
+                       3)
+    return pro, swp, len(starts)
+
+
+def walk_cases(dev):
+    """The walk's two traps on the card (tests/test_torch_wbvh.py's
+    inputs): a leaf of 9 triangles sharing one centroid, whose nearest
+    triangle along the rays is the last, 8; and rays whose origin lies on
+    the node planes x = k of a flat 8 x 8 grid, straight down with +0.0
+    and -0.0 components, every one a hit. -> {name: (nodes, tris, o, d,
+    check(t, id) -> bool)}."""
+    import torch
+    from trace_tpu_torch.accel import bvh as B
+    from trace_tpu_torch.accel import wbvh as W
+    from trace_tpu_torch.core import transform as TT
+    from trace_tpu_torch.shapes import triangle as tri_mod
+
+    def packed(idx, verts):
+        tt = tri_mod.pack_triangle_mesh(TT.identity(), idx, verts)
+        bvh = B.build_bvh(tri_mod.world_bounds_np(tt), 4)
+        return (torch.from_numpy(W.pack_nodes(bvh)).to(dev),
+                torch.from_numpy(W.pack_leaf_tris(tt, np.asarray(
+                    bvh.prim_order, np.int64))).to(dev))
+
+    z = 0.1 * np.arange(1, 10, dtype=np.float32)
+    p = np.stack([np.ones(9), np.ones(9), z], -1).astype(np.float32)
+    q = np.array([-0.5, 0.5, 0.0], np.float32)
+    verts = np.concatenate([p, -p, np.repeat(q[None], 9, 0)], 0)
+    idx = np.stack([np.arange(9), np.arange(9) + 9, np.arange(9) + 18], -1)
+    rng = np.random.default_rng(4)
+    xy = (rng.uniform(0.02, 0.3, 16)[:, None] * np.ones(2)
+          + rng.uniform(0.3, 0.6, 16)[:, None] * q[None, :2])
+    o = np.concatenate([xy, np.full((16, 1), 10.0)], 1).astype(np.float32)
+    d = np.tile(np.float32([0.0, 0.0, -1.0]), (16, 1))
+    cases = {"centroid_leaf": (*packed(idx, verts), o, d,
+                               lambda t, i: bool((i == 8).all()))}
+    n = 8
+    xs = np.arange(n + 1, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs, indexing="ij")
+    verts = np.stack([gx, gy, np.zeros_like(gx)], -1).reshape(-1, 3)
+    ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    v00 = (ii * (n + 1) + jj).reshape(-1)
+    idx = np.concatenate([np.stack([v00, v00 + n + 1, v00 + 1], -1),
+                          np.stack([v00 + 1, v00 + n + 1, v00 + n + 2], -1)])
+    m = 64
+    rng = np.random.default_rng(7)
+    o = np.stack([rng.integers(0, n + 1, m).astype(np.float32),
+                  np.where(np.arange(m) % 2 == 0, rng.integers(0, n + 1, m),
+                           rng.uniform(0, n, m)).astype(np.float32),
+                  np.full(m, 5.0, np.float32)], -1)
+    d = np.stack([np.where(np.arange(m) % 4 < 2, 0.0, -0.0),
+                  np.where(np.arange(m) % 3 == 0, -0.0, 0.0),
+                  np.full(m, -1.0)], -1).astype(np.float32)
+    cases["on_plane"] = (*packed(idx, verts), o, d, lambda t, i: bool(
+        (i >= 0).all() and (t == 5.0).all()))
+    return {k: (nd, tr, torch.from_numpy(o_).to(dev),
+                torch.from_numpy(d_).to(dev), ok)
+            for k, (nd, tr, o_, d_, ok) in cases.items()}
+
+
+def slice12(dev, card, scene, t_all):
+    """Phase 12: the BVH accelerators (module docstring). ``scene`` is the
+    1M mesh_heavy scene on its sweep."""
+    import torch
+    from trace_tpu_torch.accel import bvh as B
+    from trace_tpu_torch.accel import wbvh as W
+    from trace_tpu_torch.accel.clusters import (ClusterAccelerator,
+                                                build_clusters)
+    from trace_tpu_torch.core.vec import V3
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops.bvh_walk import walk_kernel
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.shapes import triangle as tri_mod
+    from trace_tpu_torch.wavefront import geom as WG
+
+    tmp = tempfile.gettempdir()
+    sacc = scene.accel
+    out = {}
+
+    def counts_zero():
+        sweep_kernel.reset_counts()
+        block_entry_kernel.reset_counts()
+        walk_kernel.reset_counts()
+
+    # -- 12a: the walk kernel against its plain version ---------------------
+    t0 = time.perf_counter()
+    view = scene.with_geometry(scene.triangles, None)
+    W.attach(view)
+    wacc = view.accel
+    tree = dict(depth=wacc.depth, nodes=int(wacc.nodes.shape[0]),
+                stack_depth=wacc.stack_depth,
+                nodes_mb=wacc.nodes.numel() * 4 / 1e6,
+                tris_mb=wacc.tris.numel() * 4 / 1e6,
+                host_build_s=time.perf_counter() - t0)
+    log("12a", t0, f"wbvh over the {scene.n_triangles}-triangle mesh: tree "
+        f"{tree}")
+    if not isinstance(wacc, W.WBVHAccelerator) or wacc.depth + 2 > \
+            wacc.stack_depth:
+        raise AssertionError(f"[12a] no walk accelerator: {tree}")
+    png = os.path.join(tmp, "chip_smoke_wbvh_256.png")
+    integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
+                              U.UniformSampler(1, seed=0), max_depth=2)
+    calls = record_calls(integ, view)
+    labels = ["camera", "shadow", "specular", "specular shadow"]
+    agree, rows = {}, []
+    own = "sorted" if wacc.sort_rays else "arrival"
+    for (o, d, tm, anyh), name in zip(calls, labels):
+        orders = walk_orders(wacc, o, d, tm)
+        so, sd, st = orders[own]
+        for lim in ("wbvh", "bvh"):
+            k = walk_marked(wacc, so, sd, st, anyh, lim)
+            p = walk_marked(wacc, so, sd, st, anyh, lim, plain=True)
+            torch.cuda.synchronize()
+            c = walk_compare(k, p)
+            agree[f"{name} {lim}"] = c
+            if walk_disagrees(c):
+                raise AssertionError(f"[12a] walk kernel disagrees with "
+                                     f"plain: {name} {lim} {c}")
+            if lim == "wbvh":
+                kw = dict(any_hit=anyh, limit=lim,
+                          stack_depth=wacc.stack_depth)
+                row = dict(launch=name, lanes=o.shape[0], order=own,
+                           visits=int(k[2][0].sum()),
+                           tests=int(k[2][1].sum()),
+                           max_visits=int(k[2][0].max()))
+                for order, (xo, xd, xt) in orders.items():
+                    row[f"{order}_ms"] = cuda_ms(lambda: walk_kernel(
+                        wacc.nodes, wacc.tris, xo, xd, xt, **kw), 10)
+                row["ms"] = row[f"{own}_ms"]
+                row.update(walk_bound(k[2], k[3], wacc.nodes.shape[0],
+                                      o.shape[0]))
+                (row["intersect_unsorted_ms"],
+                 row["intersect_sorted_ms"]) = walk_sort_ms(wacc, o, d, tm,
+                                                            anyh, 10)
+                if name == "camera":
+                    row["plain_ms"] = cuda_ms(lambda: W.walk_plain(
+                        wacc.nodes, wacc.tris, so, sd, st, **kw), 1)
+                rows.append(row)
+                log("12a", t0, f"{name}: {row}; card {card}")
+        log("12a", t0, f"{name} ({o.shape[0]} rays, any_hit {anyh}, "
+            f"{own} order): kernel vs plain, both limits: "
+            f"{agree[f'{name} wbvh']}, {agree[f'{name} bvh']}")
+    for name, (nd, tr, o, d, ok) in walk_cases(dev).items():
+        tm = torch.full((o.shape[0],), float("inf"), device=dev)
+        for lim in ("wbvh", "bvh"):
+            kw = dict(any_hit=False, limit=lim, stack_depth=W.STACK_CAP)
+            k = walk_kernel(nd, tr, o, d, tm, **kw)
+            p = W.walk_plain(nd, tr, o, d, tm, **kw)
+            torch.cuda.synchronize()
+            c = walk_compare(k, p)
+            agree[f"{name} {lim}"] = c
+            log("12a", t0, f"{name} {lim}: {c}")
+            if walk_disagrees(c) or c["t_bits_mismatch"] or not ok(*k):
+                raise AssertionError(f"[12a] {name} {lim}: {c}")
+    out["tree"], out["agreement"], out["launches"] = tree, agree, rows
+
+    # -- 12b: against brute force, and against the sweep -------------------
+    t0 = time.perf_counter()
+    o, d, tm, _ = calls[0]
+    every = torch.arange(4096, device=dev) * (o.shape[0] // 4096)
+    o4, d4, t4 = o[every], d[every], tm[every]
+    h, t, i = wacc.intersect(o4, d4, t4, False)
+    bh, bt, bi = WG.triangles_closest(view.triangle_cols, V3.of(o4),
+                                      V3.of(d4), t4, chunk=8192)
+    apart = (i != bi) & h
+    # An id apart is a tie where the walk's triangle has the brute force's t.
+    tri = view.triangles
+    vs = [V3.of(torch.as_tensor(getattr(tri, f)).to(dev)[i.long()])
+          for f in ("v0", "v1", "v2")]
+    _, tw, _, _, _ = WG._watertight(*vs, V3.of(o4), V3.of(d4), t4)
+    brute = dict(hit_mismatch=int((h != bh).sum()),
+                 t_beyond_tol=int((h & ((t - bt).abs() > T_RTOL * bt.abs()
+                                        )).sum()),
+                 ids_apart=int(apart.sum()),
+                 untied_ids_apart=int((apart & (tw != bt)).sum()),
+                 n_found=int(h.sum()))
+    log("12b", t0, f"4096 camera rays, walk vs brute force "
+        f"(G.triangles_closest): {brute}")
+    if brute["hit_mismatch"] or brute["t_beyond_tol"] \
+            or brute["untied_ids_apart"] or brute["n_found"] < 100:
+        raise AssertionError(f"[12b] walk vs brute force: {brute}")
+    vs_sweep = {}
+    for (o, d, tm, anyh), name in zip(calls, labels):
+        hw = wacc.intersect(o, d, tm, anyh)[0]
+        hs = sacc.intersect(o, d, tm, anyh)[0]
+        vs_sweep[name] = dict(walk_only=int((hw & ~hs).sum()),
+                              sweep_only=int((hs & ~hw).sum()),
+                              hits=int(hw.sum()))
+    log("12b", t0, f"hit masks, walk (watertight) vs sweep (Moller-"
+        f"Trumbore), same calls: {vs_sweep}")
+    out["brute"], out["walk_vs_sweep"] = brute, vs_sweep
+
+    # -- 12c: frames ---------------------------------------------------------
+    t0 = time.perf_counter()
+    counts_zero()
+    state = integ.render(view)
+    torch.cuda.synchronize()
+    frame_launches = walk_kernel.launches
+    if frame_launches <= 0 or sweep_kernel.launches \
+            or block_entry_kernel.launches:
+        raise AssertionError(f"[12c] the wbvh frame ran walk "
+                             f"{frame_launches}, sweep "
+                             f"{sweep_kernel.launches} launches")
+    img_w = image(integ, state)
+    integ_s = WhittedIntegrator(mesh_heavy.build_camera(256, os.path.join(
+        tmp, "chip_smoke_sweep_256.png")), U.UniformSampler(1, seed=0),
+        max_depth=2)
+    img_s = image(integ_s, integ_s.render(scene))
+    mse = float(np.mean((img_w - img_s) ** 2))
+    frames = {}
+    for label, it, sc in (("wbvh", integ, view), ("sweep", integ_s, scene)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, _ = timed_frames(it, sc)
+        frames[label] = dict(times=times, ms=float(np.mean(times)),
+                             peak_gib=torch.cuda.max_memory_allocated()
+                             / 2**30)
+    busy = device_busy("12c", t0, card, "wbvh frame",
+                       lambda: integ.render(view), frames["wbvh"]["ms"])
+    integ.camera.film.save_png(state)
+    log("12c", t0, f"Whitted 256^2 on wbvh vs the sweep: MSE {mse:.3e} "
+        f"(gate {MSE_GATE}); walk launches a frame {frame_launches}; frames "
+        f"{frames}; PNG {png}; card {card}")
+    if not (np.isfinite(img_w).all() and mse < MSE_GATE):
+        raise AssertionError(f"[12c] wbvh frame vs sweep: MSE {mse}")
+    out["whitted"] = dict(mse_vs_sweep=mse, walk_launches=frame_launches,
+                          frames=frames, busy=busy)
+
+    # -- 12d: SPPM, mesh1m_sppm_256's settings -------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kw = dict(initial_search_radius=0.3, max_depth=5, n_iterations=3,
+              photons_per_iteration=65536, seed=0, device=dev)
+    sppm = {}
+    for label, sc in (("wbvh", view), ("sweep", scene)):
+        sinteg = SPPMIntegrator(mesh_heavy.build_camera(256, os.path.join(
+            tmp, f"chip_smoke_sppm_{label}_256.png")), **kw)
+        sinteg.check_scene(sc)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        srows, sstate = sppm_iterations("12d", t0, card, sinteg, sc,
+                                        sc.accel, 3, walk=label == "wbvh")
+        img = sinteg.to_image(sstate, 3)
+        sppm[label] = dict(iterations=srows,
+                           pixels_gathered=int((sstate.tau.sum(-1) > 0)
+                                               .sum()),
+                           finite=bool(torch.isfinite(img).all()),
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2**30)
+    gw, gs = sppm["wbvh"]["pixels_gathered"], sppm["sweep"]["pixels_gathered"]
+    brief = {k: (v["pixels_gathered"], v["finite"], v["peak_gib"])
+             for k, v in sppm.items()}
+    log("12d", t0, f"SPPM 256^2, 65536 photons, depth 5, r0 0.3 (pixels "
+        f"gathered, finite, peak GiB): {brief}; card {card}")
+    if not sppm["wbvh"]["finite"] or gw <= 0 or abs(gw - gs) > 0.1 * gs:
+        raise AssertionError(f"[12d] wbvh SPPM: gathered {gw} vs the "
+                             f"sweep's {gs}, finite "
+                             f"{sppm['wbvh']['finite']}")
+    # One iteration's calls on the walk, by pass and depth; each replayed
+    # through both accelerators on the same (o, d, t_max).
+    sinteg = SPPMIntegrator(mesh_heavy.build_camera(256, os.path.join(
+        tmp, "chip_smoke_sppm_tagged.png")), **dict(kw, n_iterations=1))
+    phase = ["camera"]
+    for name, label in (("_camera_pass_all", "camera"),
+                        ("_photon_walk_all", "photon")):
+        def tagged(*a, _fn=getattr(sinteg, name), _label=label, **k):
+            phase[0] = _label
+            return _fn(*a, **k)
+        setattr(sinteg, name, tagged)
+    scalls, tags = [], []
+    traced = wacc.intersect
+
+    def record(o, d, t_max, any_hit):
+        scalls.append((o.clone(), d.clone(), t_max.clone(), any_hit))
+        tags.append(phase[0])
+        return traced(o, d, t_max, any_hit)
+
+    wacc.intersect = record
+    try:
+        sinteg.render(view)
+    finally:
+        del wacc.intersect
+    per_depth, depth = [], {"camera": 0, "photon": 0}
+    for (o, d, tm, anyh), ph in zip(scalls, tags):
+        if not anyh:
+            depth[ph] += 1
+        name = f"{ph} {'shadow' if anyh else 'depth'} {depth[ph]}"
+        orders = walk_orders(wacc, o, d, tm)
+        wk = dict(any_hit=anyh, limit="wbvh", stack_depth=wacc.stack_depth)
+        _, _, stats, seen = walk_marked(wacc, *orders[own], anyh)
+        row = dict(call=name, lanes=o.shape[0],
+                   live=int((tm > 0).sum()), order=own,
+                   visits=int(stats[0].sum()), max_visits=int(
+                       stats[0].max()), tests=int(stats[1].sum()))
+        for order, (xo, xd, xt) in orders.items():
+            row[f"walk_{order}_ms"] = cuda_ms(lambda: walk_kernel(
+                wacc.nodes, wacc.tris, xo, xd, xt, **wk), 3)
+        row["walk_ms"] = row[f"walk_{own}_ms"]
+        row.update(walk_bound(stats, seen, wacc.nodes.shape[0], o.shape[0]))
+        (row["prologue_ms"], row["sweep_ms"],
+         row["sweep_launches"]) = sweep_call_ms(sacc, o, d, tm, anyh)
+        (row["walk_intersect_unsorted_ms"],
+         row["walk_intersect_sorted_ms"]) = walk_sort_ms(wacc, o, d, tm,
+                                                         anyh, 3)
+        row["walk_intersect_ms"] = row[
+            "walk_intersect_sorted_ms" if wacc.sort_rays
+            else "walk_intersect_unsorted_ms"]
+        row["sweep_intersect_ms"] = cuda_ms(
+            lambda: sacc.intersect(o, d, tm, anyh), 3)
+        per_depth.append(row)
+        log("12d", t0, f"{row}; card {card}")
+    if not any(t == "photon" for t in tags):
+        raise AssertionError("[12d] no photon calls through the walk")
+    out["sppm"], out["sppm_per_depth"] = sppm, per_depth
+
+    # -- 12e: clusters and bvh ---------------------------------------------
+    t0 = time.perf_counter()
+    golden = np.load(GOLDEN)
+    small = {}
+    for label in ("clusters", "bvh"):
+        if label == "bvh":
+            sc = B.attach(mesh_heavy.build_scene(5000, device=dev))
+        else:
+            sc = mesh_heavy.build_scene(5000, device=dev,
+                                        accelerator="clusters")
+        counts_zero()
+        cam32 = mesh_heavy.build_camera(32, os.path.join(
+            tmp, f"chip_smoke_32_{label}.png"))
+        it = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0),
+                               max_depth=2)
+        img = image(it, it.render(sc))
+        small[label] = dict(mse=float(np.mean((img - golden) ** 2)),
+                            accel=type(sc.accel).__name__,
+                            walk_launches=walk_kernel.launches,
+                            sweep_launches=sweep_kernel.launches)
+        log("12e", t0, f"golden 32^2 on {label}: {small[label]}")
+        if not (np.isfinite(img).all() and small[label]["mse"] < MSE_GATE) \
+                or small[label]["sweep_launches"] \
+                or (label == "bvh") != (small[label]["walk_launches"] > 0):
+            raise AssertionError(f"[12e] {label}: {small[label]}")
+    t1 = time.perf_counter()
+    cacc = ClusterAccelerator(build_clusters(tri_mod.to_numpy(
+        scene.triangles), 64, 4), dev, stage_clusters=128)
+    cbuild = time.perf_counter() - t1
+    o, d, tm, _ = calls[0]     # 64 rows from the first that sees terrain
+    first = int(wacc.intersect(o, d, tm, False)[0].nonzero()[0, 0])
+    o16, d16, t16 = (x[first:first + 16384] for x in (o, d, tm))
+    torch.cuda.reset_peak_memory_stats()
+    cacc.stats = {}
+    hc = cacc.intersect(o16, d16, t16, False)
+    stages = cacc.stats["stages"]
+    c_ms = cuda_ms(lambda: cacc.intersect(o16, d16, t16, False), 1)
+    hw = wacc.intersect(o16, d16, t16, False)
+    clusters = dict(host_build_s=cbuild, clusters=int(cacc.clusters.c_lo
+                                                      .shape[0]),
+                    stages=stages, ms=c_ms,
+                    walk_ms=cuda_ms(lambda: wacc.intersect(o16, d16, t16,
+                                                           False), 3),
+                    hits=int(hc[0].sum()),
+                    vs_walk_hit_mismatch=int((hc[0] != hw[0]).sum()),
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log("12e", t0, f"clusters (leaf 64, stage 128) on 16384 of the 1M "
+        f"camera rays: {clusters}; card {card}")
+    if clusters["hits"] < 1000:
+        raise AssertionError(f"[12e] clusters found too few hits: "
+                             f"{clusters}")
+    out["goldens"], out["clusters_1m"] = small, clusters
+
+    # The kernels line's row: the camera call's times, launches per frame
+    # and per SPPM iteration.
+    cam = rows[0]
+    out["entry"] = {
+        "name": "bvh_walk", "route": "cuda", "source": WALK_SRC,
+        "replaces": WALK_REPLACES, "launches": frame_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in agree.values()),
+        "ms": cam["ms"], "plain_ms": cam["plain_ms"],
+        "bound_ms": cam["bound_ms"], "bound_by": cam["bound_by"],
+        "library_ms": None,
+        "sppm_launches": sppm["wbvh"]["iterations"][1]["walk_launches"],
+        "bvh_limit_5k_frame_launches": small["bvh"]["walk_launches"]}
+    log(12, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -3143,6 +3701,7 @@ def main() -> int:
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops import intersect as TI
     from trace_tpu_torch.ops import sweep as TS
+    from trace_tpu_torch.ops.bvh_walk import walk_kernel
     from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
                                            sweep_plain)
     from trace_tpu_torch.sampler import uniform as U
@@ -3161,13 +3720,14 @@ def main() -> int:
 
     # -- 1: builds, one nvcc per source, in parallel ------------------------
     t0 = time.perf_counter()
-    libs = (sweep_kernel, block_entry_kernel, TI.intersect_kernel)
+    libs = (sweep_kernel, block_entry_kernel, TI.intersect_kernel,
+            walk_kernel)
     with ThreadPoolExecutor() as ex:   # nvcc runs outside the GIL
         list(ex.map(lambda k: k.lib.load(), libs))
     t_nvcc = time.perf_counter() - t0
     native.load()
     regs = ptxas_summary("".join(k.lib.build_log for k in libs))
-    log(1, t0, f"built sweep, prologue and intersect kernels (nvcc "
+    log(1, t0, f"built sweep, prologue, intersect and walk kernels (nvcc "
         f"{t_nvcc:.2f} s, in parallel) and SAH builder; sweep CTA: "
         f"{TS.SWEEP_WARPS} warps per {TS.KERNEL_BLOCK_RAYS} rays; "
         f"registers/spill "
@@ -3638,8 +4198,15 @@ def main() -> int:
         strat_whitted_launches=s11a["prologue"],
         filter_frame_launches={k: v["prologue"] for k, v in s11b.items()},
         scene_query_launches=s11c["launches"]["prologue"])
+    # -- 12: the BVH accelerators -------------------------------------------
+    del s11
+    torch.cuda.empty_cache()
+    s12 = slice12(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice12.json"), "w") as f:
+        json.dump(dict(card=card, **s12), f, indent=1)
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
-        json.dump(dict(card=card, warps=TS.SWEEP_WARPS, frames=frames,
+        json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
+                       frames=frames,
                        per_launch=per_launch, dead_chunk=dead_chunk,
                        prologue_agreement=[pro_tot, e_pro]), f, indent=1)
 
@@ -3700,6 +4267,7 @@ def main() -> int:
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
                    fused, source="trace_tpu_torch/csrc/intersect.cu"),
              scene_query_oracle_launches=s11c["oracle_launches"]),
+        s12["entry"],
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

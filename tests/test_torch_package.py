@@ -27,7 +27,7 @@ def test_every_module_is_listed():
                  "models.sphere_field", "io.png", "materials.textures",
                  "wavefront.lights", "film.png", "sampler.distribution",
                  "sampler.stratified", "utils.stats", "utils.compare",
-                 "io.obj"):
+                 "io.obj", "accel.bvh", "accel.wbvh", "ops.bvh_walk"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -80,10 +80,10 @@ def test_package_import_builds_nothing_and_leaves_cuda_alone():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['trace_tpu'] = None\n"
             "import torch, trace_tpu_torch as T\n"
-            "from trace_tpu_torch.ops import sweep, intersect\n"
+            "from trace_tpu_torch.ops import sweep, intersect, bvh_walk\n"
             "assert all(hasattr(T, n) for n in T.__all__)\n"
             "libs = (sweep.sweep_kernel, sweep.block_entry_kernel, "
-            "intersect.intersect_kernel)\n"
+            "intersect.intersect_kernel, bvh_walk.walk_kernel)\n"
             "assert all(k.lib._dll is None for k in libs)\n"
             "assert not torch.cuda.is_initialized()\n"
             "print(len(T.__all__))")
@@ -92,6 +92,48 @@ def test_package_import_builds_nothing_and_leaves_cuda_alone():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) == len(trace_tpu_torch.__all__)
+
+
+def _path_strings(path):
+    """(line, string) of every string constant in a Python file, docstrings
+    apart, that names a path under the JAX package: the bare directory
+    name "trace_tpu" (a path component, as os.path.join takes it) or
+    "trace_tpu/..."."""
+    tree = ast.parse(open(path).read())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [(node.lineno, node.value) for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs
+            and (node.value == "trace_tpu" or "trace_tpu/" in node.value
+                 or "trace_tpu\\" in node.value)]
+
+
+def test_no_file_of_the_port_reads_the_jax_package(tmp_path):
+    # The port keeps its own copy of everything it needs: no string in its
+    # code names a path under trace_tpu/ to open or compile, and the SAH
+    # builder compiles the port's own source. (chip_smoke.py's kernel line
+    # names the TPU kernels each one replaces, as labels.)
+    from trace_tpu_torch.accel import native
+
+    paths = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    bad = {p: _path_strings(p) for p in paths if _path_strings(p)}
+    assert not bad, bad
+    assert len(paths) > 60
+    assert os.path.samefile(native.SOURCE, os.path.join(
+        PKG_DIR, "csrc", "bvh_builder.cpp"))
+    # The check sees the route the port used to take.
+    probe = tmp_path / "_path_probe.py"
+    probe.write_text('"""trace_tpu/native is named here only."""\n'
+                     'import os\n'
+                     'SOURCE = os.path.join("..", "trace_tpu", "native")\n')
+    assert [line for line, _ in _path_strings(str(probe))] == [3]
 
 
 def test_exports_are_the_jax_packages():

@@ -289,9 +289,30 @@ def test_use_bvh_true_puts_a_small_mesh_through_the_sweep():
 
 
 @pytest.mark.parametrize("accelerator", ["clusters", "wbvh"])
-def test_unported_accelerators_raise(accelerator):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        _port_mesh_builder().build(device="cpu", accelerator=accelerator)
+def test_accelerators_install_their_type(accelerator):
+    from trace_tpu_torch.accel.clusters import ClusterAccelerator
+    from trace_tpu_torch.accel.wbvh import WBVHAccelerator
+
+    b = _port_mesh_builder()
+    scene = b.build(device="cpu", accelerator=accelerator)
+    kind = {"clusters": ClusterAccelerator, "wbvh": WBVHAccelerator}
+    assert isinstance(scene.accel, kind[accelerator])
+    # At 64 triangles or fewer, or with use_bvh=False, no accelerator.
+    assert b.build(device="cpu", accelerator=accelerator,
+                   use_bvh=False).accel is None
+    sweep = b.build(device="cpu")
+    lo, hi = sweep.world_lo, sweep.world_hi
+    js = type("S", (), dict(world_lo=lo, world_hi=hi))
+    o, d, tm = (_t(a) for a in _rays(js, 1024, seed=4))
+    got, want = scene.intersect(o, d, tm), sweep.intersect(o, d, tm)
+    assert torch.equal(got.valid, want.valid)
+    v = want.valid
+    np.testing.assert_allclose(got.t[v].numpy(), want.t[v].numpy(),
+                               rtol=1e-5, atol=1e-6)
+    tied = (got.t == want.t) & v
+    assert torch.equal(got.prim_id[tied], want.prim_id[tied])
+    assert torch.equal(scene.intersect_p(o, d, tm), sweep.intersect_p(
+        o, d, tm))
 
 
 def test_unknown_accelerator_raises():

@@ -1,10 +1,23 @@
-"""Cluster cut of the SAH tree, and the slab/sort helpers of the sweep
-(port of the build half of trace_tpu/accel/clusters.py).
+"""Cluster cut of the SAH tree, the slab/sort helpers of the sweep, and the
+demand-ordered cluster traversal (port of trace_tpu/accel/clusters.py).
 
 The SAH tree is cut into clusters of at most ``leaf_tris`` triangles in
-depth-first order; each cluster row carries its triangles'
+depth-first order; each cluster row carries its triangles' vertices and
 Moller-Trumbore constants. The build runs on the host (native C++,
 accel/native.py) and is bit-equal to the JAX package's.
+
+``traverse`` is the JAX package's dense cluster sweep, as tensor code (JAX
+runs it as plain XLA; it holds no Pallas kernel):
+
+1. one [N, C] slab pass gives every ray's entry distance to every cluster
+   (or, with ``super_size`` G > 1, to every union of G consecutive
+   clusters);
+2. clusters are ordered once by demand (how many rays enter them) and
+   swept in stages of ``stage_clusters``, each stage testing its
+   triangles against the whole ray batch (matmul-factored
+   Moller-Trumbore, or the watertight test);
+3. a lane retires when the least entry distance over the unswept stages
+   (a suffix-min over the demand order) passes its best hit.
 """
 from __future__ import annotations
 
@@ -14,21 +27,47 @@ import numpy as np
 import torch
 
 from ..shapes import triangle as tri_mod
+from ..wavefront.geom import _watertight
+from ..core.vec import V3
+from . import mxu as mxu_mod
 from . import native
+
+F32 = torch.float32
+INF = float("inf")
 
 
 class ClusterAccel(NamedTuple):
-    """Host numpy (the SAH build), or device tensors (accel/morton.py)."""
+    """Host numpy (the SAH build), or device tensors (accel/morton.py, or
+    a ClusterAccelerator's copy). ``s_lo``/``s_hi``, ``packed`` and
+    ``super_size`` serve ``traverse``; the sweep reads the first five."""
     c_lo: np.ndarray       # [C, 3] cluster AABBs
     c_hi: np.ndarray
     packed_mt: np.ndarray  # [C, 16L->%128] MT constants n|e1|e2|w|q|v0n
     tri_id: np.ndarray     # [C, L->%128] int32 global id; -1 = padding
     leaf_tris: int
+    s_lo: np.ndarray | None = None    # [S, 3] super AABBs, S = ceil(C/G)
+    s_hi: np.ndarray | None = None
+    packed: np.ndarray | None = None  # [C, 9L->%128] v0 | v1 | v2 rows
+    super_size: int = 1
+
+
+def _super_bounds(c_lo: np.ndarray, c_hi: np.ndarray, g: int):
+    """Union AABBs of groups of g consecutive clusters; the last group is
+    padded with the last cluster's box."""
+    c = c_lo.shape[0]
+    pad = (-c) % g
+    lo = np.concatenate([c_lo, np.repeat(c_lo[-1:], pad, axis=0)])
+    hi = np.concatenate([c_hi, np.repeat(c_hi[-1:], pad, axis=0)])
+    return (np.ascontiguousarray(lo.reshape(-1, g, 3).min(axis=1)),
+            np.ascontiguousarray(hi.reshape(-1, g, 3).max(axis=1)))
 
 
 def build_clusters(tris: tri_mod.Triangles, leaf_tris: int = 32,
-                   max_prims_per_leaf: int = 4) -> ClusterAccel:
-    """Build the SAH tree, then cut it at subtrees of <= leaf_tris prims."""
+                   max_prims_per_leaf: int = 4,
+                   super_size: int = 1) -> ClusterAccel:
+    """Build the SAH tree, then cut it at subtrees of <= leaf_tris prims.
+    With ``super_size`` G > 1 the cluster tables are padded to whole groups
+    of G (padding rows: the last cluster's box, tri_id -1, zero rows)."""
     bvh = native.build_bvh(tri_mod.world_bounds_np(tris), max_prims_per_leaf)
     order = bvh["prim_order"]
     nodes, starts, counts = native.cluster_cut(
@@ -39,24 +78,36 @@ def build_clusters(tris: tri_mod.Triangles, leaf_tris: int = 32,
     in_range = k_grid < counts[:, None]
     src = np.minimum(starts[:, None] + k_grid, len(order) - 1)
     tri_id = np.where(in_range, order[src], -1).astype(np.int32)
-    packed_mt = native.cluster_pack(tris.v0, tris.v1, tris.v2, tri_id,
-                                    leaf_tris)[0]
+    packed, packed_mt, _, _ = native.cluster_pack(tris.v0, tris.v1, tris.v2,
+                                                  tri_id, leaf_tris)
     tri_id = np.pad(tri_id, ((0, 0), (0, (-leaf_tris) % 128)),
                     constant_values=-1)
+    g = max(1, int(super_size))
+    s_lo, s_hi = _super_bounds(c_lo, c_hi, g)
+    pad = (-c_lo.shape[0]) % g
+    if pad:
+        c_lo = np.concatenate([c_lo, np.repeat(c_lo[-1:], pad, 0)])
+        c_hi = np.concatenate([c_hi, np.repeat(c_hi[-1:], pad, 0)])
+        packed = np.pad(packed, ((0, pad), (0, 0)))
+        packed_mt = np.pad(packed_mt, ((0, pad), (0, 0)))
+        tri_id = np.pad(tri_id, ((0, pad), (0, 0)), constant_values=-1)
     return ClusterAccel(np.ascontiguousarray(c_lo),
                         np.ascontiguousarray(c_hi), packed_mt, tri_id,
-                        int(leaf_tris))
+                        int(leaf_tris), s_lo, s_hi, packed, g)
 
 
 def refit_clusters(accel: ClusterAccel, v0, v1, v2) -> ClusterAccel:
-    """The clusters' bounds and constants for moved vertices (host numpy
-    [T, 3]) with the same topology, on the host as in the JAX package:
-    the constants through the build's double-precision route, the boxes
-    as the clusters' vertex AABBs, so a refit equals a static build of the
-    same clusters bit for bit."""
-    packed_mt, lo, hi = native.cluster_pack(v0, v1, v2, accel.tri_id,
-                                            accel.leaf_tris)
-    return accel._replace(c_lo=lo, c_hi=hi, packed_mt=packed_mt)
+    """The clusters' bounds, vertex rows and constants for moved vertices
+    (host numpy [T, 3]) with the same topology, on the host as in the JAX
+    package: the constants through the build's double-precision route,
+    the boxes as the clusters' vertex AABBs (and the supers' as their
+    unions), so a refit equals a static build of the same clusters bit
+    for bit."""
+    packed, packed_mt, lo, hi = native.cluster_pack(
+        v0, v1, v2, np.asarray(accel.tri_id), accel.leaf_tris)
+    s_lo, s_hi = _super_bounds(lo, hi, accel.super_size)
+    return accel._replace(c_lo=lo, c_hi=hi, packed_mt=packed_mt,
+                          packed=packed, s_lo=s_lo, s_hi=s_hi)
 
 
 def entry_boxes(lo: torch.Tensor, hi: torch.Tensor, o: torch.Tensor,
@@ -101,3 +152,266 @@ def sort_key(o: torch.Tensor, d: torch.Tensor, lo: torch.Tensor,
 
     morton = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
     return (octant << 21) | morton
+
+
+def sorted_chunks(o, d, t_max, lo, inv_extent, chunk: int, run,
+                  sort: bool = True):
+    """``run(o, d, t_max)`` -> a tuple of per-ray [n] tensors, over
+    ``chunk`` rays at a time (contiguous slices; one empty call for no
+    rays); with ``sort`` the rays go in stable :func:`sort_key` order and
+    the outputs come back in the caller's."""
+    n = o.shape[0]
+    order = None
+    if sort and n > 1:
+        order = torch.argsort(sort_key(o, d, lo, inv_extent), stable=True)
+        o, d, t_max = o[order], d[order], t_max[order]
+    outs = [run(o[s:s + chunk].contiguous(), d[s:s + chunk].contiguous(),
+                t_max[s:s + chunk].contiguous())
+            for s in range(0, max(n, 1), chunk)]
+    res = tuple(torch.cat(x) for x in zip(*outs))
+    if order is None:
+        return res
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n, device=order.device)
+    return tuple(x[inv] for x in res)
+
+
+# ---------------------------------------------------------------------------
+# Traversal
+# ---------------------------------------------------------------------------
+
+
+def _bf16_floor(x: torch.Tensor) -> torch.Tensor:
+    """f32 truncated onto the bf16 grid (the low 16 mantissa bits masked):
+    round toward zero, so a non-negative entry distance stays a lower
+    bound and +inf stays +inf; the cast of a value already on the grid is
+    exact."""
+    bits = x.contiguous().view(torch.int32) & -65536
+    return bits.view(F32).to(torch.bfloat16)
+
+
+def _stage_ids(perm: torch.Tensor, stage: int, h: int) -> torch.Tensor:
+    return perm[stage * h:(stage + 1) * h].long()
+
+
+def _test_stage(accel: ClusterAccel, stage: int, h: int, perm, o, d,
+                limit):
+    """One stage's h clusters (h*L triangles) against every ray with the
+    watertight test -> (best t [N], its triangle id [N])."""
+    l = accel.leaf_tris
+    seg = l * 3
+    cids = _stage_ids(perm, stage, h)
+    rows = accel.packed[cids]                                  # [h, P]
+
+    def col(k):
+        v = rows[:, k * seg:(k + 1) * seg].reshape(h * l, 3)
+        return V3(v[None, :, 0], v[None, :, 1], v[None, :, 2])
+
+    tid = accel.tri_id[cids][:, :l].reshape(h * l)
+    ob = V3(o[:, 0, None], o[:, 1, None], o[:, 2, None])
+    db = V3(d[:, 0, None], d[:, 1, None], d[:, 2, None])
+    hit, t, _, _, _ = _watertight(col(0), col(1), col(2), ob, db,
+                                  limit[:, None])
+    t = torch.where(hit & (tid[None, :] >= 0), t, INF)
+    best_t, j = t.min(dim=-1)
+    return best_t, tid[j]
+
+
+def _test_stage_mt(accel: ClusterAccel, stage: int, h: int, perm, o, d, m,
+                   limit, certified: bool = False):
+    """_test_stage with the matmul-factored Moller-Trumbore test: six [N, 3]
+    @ [3, h*L] products (f32; TF32 off). ``m`` = o x d per ray.
+    ``certified``: every boundary test widened by its rounding-error bound
+    (mxu.mt_epilogue_certified)."""
+    l = accel.leaf_tris
+    seg = l * 3
+    cids = _stage_ids(perm, stage, h)
+    rows = accel.packed_mt[cids]                               # [h, 16L]
+
+    def rhs(k):
+        return rows[:, k * seg:(k + 1) * seg].reshape(h, 3, l).transpose(
+            0, 1).reshape(3, h * l)
+
+    n_m, e1_m, e2_m, w_m, q_m = rhs(0), rhs(1), rhs(2), rhs(3), rhs(4)
+    v0n = rows[:, 5 * seg:5 * seg + l].reshape(h * l)
+    tid = accel.tri_id[cids][:, :l].reshape(h * l)
+    mm = torch.matmul
+    det = -mm(d, n_m)
+    u_det = mm(m, e2_m) - mm(d, w_m)
+    v_det = -mm(m, e1_m) - mm(d, q_m)
+    t_det = mm(o, n_m) - v0n[None, :]
+    if certified:
+        o_a, d_a = o.abs(), d.abs()
+        ma = mxu_mod.abs_cross(o_a, d_a)
+        eps = mxu_mod.MT_ERR_EPS
+        err_det = eps * mm(d_a, n_m.abs())
+        err_u = eps * (mm(ma, e2_m.abs()) + mm(d_a, w_m.abs()))
+        err_v = eps * (mm(ma, e1_m.abs()) + mm(d_a, q_m.abs()))
+        err_t = eps * (mm(o_a, n_m.abs()) + v0n.abs()[None, :])
+        ok, t = mxu_mod.mt_epilogue_certified(det, u_det, v_det, t_det,
+                                              err_det, err_u, err_v, err_t)
+    else:
+        ok, t = mxu_mod.mt_epilogue(det, u_det, v_det, t_det)
+    hit = ok & (t < limit[:, None]) & (tid[None, :] >= 0)
+    t = torch.where(hit, t, INF)
+    best_t, j = t.min(dim=-1)
+    return best_t, tid[j]
+
+
+def _stage_table(entry: torch.Tensor, h: int):
+    """(perm [K] i32 by descending demand, stable; entry_stage [N, S]: the
+    least entry of each stage of h columns in that order; S)."""
+    n, k = entry.shape
+    demand = torch.isfinite(entry).sum(dim=0)
+    perm = torch.argsort(-demand, stable=True).to(torch.int32)
+    entry_g = entry[:, perm.long()]
+    n_stages = -(-k // h)
+    pad = n_stages * h - k
+    if pad:
+        entry_g = torch.cat([entry_g, entry_g.new_full((n, pad), INF)], 1)
+    return perm, entry_g.reshape(n, n_stages, h).amin(dim=2), n_stages
+
+
+def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
+             any_hit: bool = False, use_mxu: bool = True,
+             entry_bf16: bool = True, certified: bool = False,
+             stats: dict | None = None):
+    """Closest-hit (or any-hit) through the dense demand-ordered cluster
+    sweep. ``accel`` holds tensors on the rays' device. Returns (hit [N]
+    bool, t [N], tri_id [N] i32). ``stats`` (a dict) receives the stages
+    swept."""
+    n = o.shape[0]
+    c = accel.c_lo.shape[0]
+    g = accel.super_size
+    dev = o.device
+    if g > 1:
+        # A super's entry lower-bounds its members': the demand order and
+        # the early-out stay conservative.
+        h = max(g, (min(stage_clusters, c) // g) * g)
+        entry = entry_boxes(accel.s_lo, accel.s_hi, o, d, t_max)  # [N, S]
+        if entry_bf16:
+            entry = _bf16_floor(entry)
+        perm_s, entry_stage, n_stages = _stage_table(entry, h // g)
+        perm = (perm_s[:, None] * g + torch.arange(
+            g, dtype=torch.int32, device=dev)[None, :]).reshape(-1)
+    else:
+        h = min(stage_clusters, c)
+        entry = entry_boxes(accel.c_lo, accel.c_hi, o, d, t_max)  # [N, C]
+        if entry_bf16:
+            entry = _bf16_floor(entry)
+        perm, entry_stage, n_stages = _stage_table(entry, h)
+    # Zero-padded to a whole last stage (it repeats cluster 0: harmless).
+    perm = torch.cat([perm, perm.new_zeros(n_stages * h - perm.shape[0])])
+    # suffix[:, s] = least entry over stages >= s; inf past the last.
+    suffix = torch.flip(torch.cummin(torch.flip(entry_stage, [1]), 1).values,
+                        [1])
+    suffix = torch.cat([suffix, suffix.new_full((n, 1), INF)], 1)
+
+    m = torch.stack([o[:, 1] * d[:, 2] - o[:, 2] * d[:, 1],
+                     o[:, 2] * d[:, 0] - o[:, 0] * d[:, 2],
+                     o[:, 0] * d[:, 1] - o[:, 1] * d[:, 0]], 1)
+    best_t = torch.full((n,), INF, dtype=F32, device=dev)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    s = 0
+    while s < n_stages and not bool(done.all()):
+        limit = torch.where(done, -INF, torch.minimum(best_t, t_max))
+        if use_mxu:
+            st, si = _test_stage_mt(accel, s, h, perm, o, d, m, limit,
+                                    certified)
+        else:
+            st, si = _test_stage(accel, s, h, perm, o, d, limit)
+        better = st < best_t
+        best_t = torch.where(better, st, best_t)
+        best_i = torch.where(better, si, best_i)
+        if any_hit:
+            # Retire on a hit only: JAX's best_t <= t_max also retires a
+            # lane with no hit when t_max = inf (ROADMAP C).
+            done = done | ((best_i >= 0) & (best_t <= t_max))
+        done = done | (suffix[:, s + 1] >= torch.minimum(best_t, t_max))
+        s += 1
+    if stats is not None:
+        stats["stages"] = stats.get("stages", 0) + s
+    hit = (best_i >= 0) & (best_t <= t_max)
+    return hit, torch.where(hit, best_t, INF), best_i.clamp_min(0)
+
+
+def to_device(accel: ClusterAccel, device) -> ClusterAccel:
+    """The accel's arrays as tensors on ``device``."""
+    def dev(a):
+        return None if a is None else torch.as_tensor(a).to(device)
+    return accel._replace(**{f: dev(getattr(accel, f)) for f in (
+        "c_lo", "c_hi", "packed_mt", "tri_id", "s_lo", "s_hi", "packed")})
+
+
+class ClusterAccelerator:
+    """Triangle closest-hit / any-hit through :func:`traverse` (the
+    interface of ops/sweep.py::SweepAccelerator). Rays go in chunks of
+    ``ray_chunk``, so the [rays x clusters] entry table stays bounded; a
+    batch of several chunks is coherence-sorted first (``sort_key``), so
+    each chunk's sweep retires early. ``certified``: the widened epilogue
+    (exact_shared_edges). On a card the stage products need full f32:
+    construction raises while ``torch.backends.cuda.matmul.allow_tf32``
+    is on."""
+
+    def __init__(self, accel: ClusterAccel, device, stage_clusters: int = 64,
+                 ray_chunk: int = 16384, sort_rays: bool = True,
+                 certified: bool = False):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and \
+                torch.backends.cuda.matmul.allow_tf32:
+            raise ValueError("the cluster traversal's stage products need "
+                             "full f32: torch.backends.cuda.matmul."
+                             "allow_tf32 is on")
+        self.stage_clusters = int(stage_clusters)
+        self.ray_chunk = int(ray_chunk)
+        self.sort_rays = bool(sort_rays)
+        self.certified = bool(certified)
+        self.stats = {}
+        self._load(accel)
+
+    def _load(self, accel: ClusterAccel) -> None:
+        self.clusters = accel
+        self.dev_clusters = to_device(accel, self.device)
+        lo = np.asarray(accel.c_lo).min(axis=0)
+        hi = np.asarray(accel.c_hi).max(axis=0)
+        self.world_lo = torch.from_numpy(lo).to(self.device)
+        self.world_inv_extent = torch.from_numpy(
+            (1.0 / np.maximum(hi - lo, 1e-12)).astype(np.float32)).to(
+                self.device)
+
+    def refit(self, v0, v1, v2) -> None:
+        """Refresh the clusters for moved vertices [T, 3] (host or device)
+        with the same topology (refit_clusters, on the host)."""
+        host = [x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+                for x in (v0, v1, v2)]
+        self._load(refit_clusters(self.clusters, *host))
+
+    def _run(self, o, d, t_max, any_hit):
+        return traverse(self.dev_clusters, o, d, t_max, self.stage_clusters,
+                        any_hit, certified=self.certified, stats=self.stats)
+
+    def intersect(self, o, d, t_max, any_hit: bool):
+        """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32)."""
+        if o.shape[0] <= self.ray_chunk:
+            return self._run(o, d, t_max, any_hit)
+        return sorted_chunks(o, d, t_max, self.world_lo,
+                             self.world_inv_extent, self.ray_chunk,
+                             lambda *r: self._run(*r, any_hit),
+                             self.sort_rays)
+
+
+def attach(scene, leaf_tris: int = 32, stage_clusters: int = 64,
+           max_prims_per_leaf: int = 4, ray_chunk: int = 16384,
+           super_size: int = 1, certified: bool | None = None):
+    """Build the cluster accelerator for the scene's triangles and install
+    it; ``certified`` defaults to the scene's exact_shared_edges."""
+    if scene.n_triangles == 0:
+        return scene
+    if certified is None:
+        certified = bool(scene.exact_edges)
+    acc = build_clusters(tri_mod.to_numpy(scene.triangles), leaf_tris,
+                         max_prims_per_leaf, super_size=super_size)
+    scene.accel = ClusterAccelerator(acc, scene.device, stage_clusters,
+                                     ray_chunk, certified=certified)
+    return scene

@@ -1,13 +1,11 @@
-"""The SAH BVH builder and cluster packer in C++, bound with ctypes.
+"""The SAH BVH builder, refit and cluster packer in C++, bound with ctypes.
 
-The source is the JAX package's ``trace_tpu/native/bvh_builder.cpp``,
-read by path (never imported, never edited). It is compiled at first use
-into this package's ``build/`` directory with
-``g++ -O3 -ffp-contract=off -shared -fPIC``: no ``-march=native``, so the
-library runs on whatever host builds it, and no FMA contraction, so the
-double-precision Moller-Trumbore constants round exactly like the JAX
-package's. The prebuilt ``libtrace_native.so`` next to the source is
-never loaded.
+The source is the port's own ``csrc/bvh_builder.cpp`` (a copy of the JAX
+package's builder, the same code). It is compiled at first use into this
+package's ``build/`` directory with ``g++ -O3 -ffp-contract=off -shared
+-fPIC``: no ``-march=native``, so the library runs on whatever host
+builds it, and no FMA contraction, so the double-precision
+Moller-Trumbore constants round exactly like the JAX package's.
 """
 from __future__ import annotations
 
@@ -20,8 +18,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(os.path.dirname(_PKG), "trace_tpu", "native",
-                      "bvh_builder.cpp")
+SOURCE = os.path.join(_PKG, "csrc", "bvh_builder.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libbvh_builder.so")
 
@@ -67,6 +64,10 @@ def load() -> ctypes.CDLL:
             lib.bvh_cluster_cut.argtypes = [
                 ctypes.c_int64, _I32, _I32, ctypes.c_int32, ctypes.c_int64,
                 _I32, _I64, _I64]
+            lib.bvh_refit.restype = None
+            lib.bvh_refit.argtypes = [
+                _F, ctypes.c_int64, ctypes.c_int64, _F, _F, _I32, _I32, _I32,
+                _I32]
             lib.cluster_pack.restype = None
             lib.cluster_pack.argtypes = [
                 _F, _F, _F, _I32, ctypes.c_int64, ctypes.c_int32,
@@ -112,6 +113,23 @@ def build_bvh(bounds: np.ndarray, max_prims_per_leaf: int = 4):
                 prim_order=order)
 
 
+def refit_bvh(bvh: dict, bounds: np.ndarray) -> dict:
+    """The tree's node bounds refreshed from primitive AABBs [T, 2, 3] of
+    moved geometry with the same topology: one bottom-up sweep (children
+    have larger indices than their parents). Returns a new dict; the
+    topology arrays are shared."""
+    lib = load()
+    lo = np.array(bvh["lo"], np.float32, order="C")
+    hi = np.array(bvh["hi"], np.float32, order="C")
+    right, start, count, order = (
+        np.ascontiguousarray(bvh[k], np.int32)
+        for k in ("right_child", "prim_start", "n_prims", "prim_order"))
+    b = np.ascontiguousarray(bounds, np.float32)
+    lib.bvh_refit(_fp(b), b.shape[0], lo.shape[0], _fp(lo), _fp(hi),
+                  _ip(right), _ip(start), _ip(count), _ip(order))
+    return dict(bvh, lo=lo, hi=hi)
+
+
 def cluster_cut(right_child: np.ndarray, n_prims: np.ndarray,
                 leaf_tris: int):
     """Cut the tree at subtrees of <= leaf_tris prims -> (nodes, starts,
@@ -131,11 +149,12 @@ def cluster_cut(right_child: np.ndarray, n_prims: np.ndarray,
 
 
 def cluster_pack(v0, v1, v2, tri_id: np.ndarray, leaf_tris: int):
-    """(packed_mt, lo, hi): Moller-Trumbore constants per cluster, computed
-    in double and rounded once: [C, 16*L padded to 128] rows n|e1|e2|w|q
-    (3L each, component-major) then v0.n (L), padding slots zero; and each
-    cluster's vertex AABB [C, 3] (an empty cluster gets lo 3e38, hi
-    -3e38)."""
+    """(packed, packed_mt, lo, hi): each cluster's vertex rows [C, 9*L
+    padded to 128] (v0 | v1 | v2, each L x 3 row-major, padding slots
+    zero); its Moller-Trumbore constants, computed in double and rounded
+    once: [C, 16*L padded to 128] rows n|e1|e2|w|q (3L each,
+    component-major) then v0.n (L), padding slots zero; and its vertex
+    AABB [C, 3] (an empty cluster gets lo 3e38, hi -3e38)."""
     lib = load()
     c = tri_id.shape[0]
     l = int(leaf_tris)
@@ -151,4 +170,4 @@ def cluster_pack(v0, v1, v2, tri_id: np.ndarray, leaf_tris: int):
     lib.cluster_pack(_fp(v0c), _fp(v1c), _fp(v2c), _ip(tid), c, l,
                      p_stride, mt_stride, _fp(packed), _fp(packed_mt),
                      _fp(lo), _fp(hi))
-    return packed_mt, lo, hi
+    return packed, packed_mt, lo, hi

@@ -44,7 +44,9 @@ identical data. Keys (all numpy):
 ``sppm_state_from_numpy`` carries an SPPM state across the same way, so a
 run of the JAX package resumes in the port; ``film_state_from_numpy`` a
 film state with its splats; ``triangles_from_jax`` and
-``transform_from_jax`` carry a frame's geometry and motion.
+``transform_from_jax`` carry a frame's geometry and motion;
+``linear_bvh`` and ``cluster_accel`` a JAX SAH tree and cluster tables,
+so the port's walks run on JAX's own trees.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ import numpy as np
 import torch
 
 from .accel import instances as inst_mod
+from .accel.bvh import LinearBVH
+from .accel.clusters import ClusterAccel
 from .core.transform import Transform
 from .lights import lights as light_mod
 from .materials import materials as M
@@ -207,6 +211,22 @@ def transform_from_jax(xf) -> Transform:
     """A JAX package Transform (m, inv_m) -> the port's, float32."""
     return Transform(np.asarray(xf.m, np.float32),
                      np.asarray(xf.inv_m, np.float32))
+
+
+def linear_bvh(bvh) -> LinearBVH:
+    """A JAX package LinearBVH (device or host arrays) -> the port's, of
+    host numpy arrays, field by field."""
+    return LinearBVH(*[np.asarray(getattr(bvh, f)) for f in
+                       LinearBVH._fields])
+
+
+def cluster_accel(accel) -> ClusterAccel:
+    """A JAX package ClusterAccel -> the port's, of host numpy arrays
+    (leaf_tris and super_size as ints)."""
+    return ClusterAccel(**{f: (int(getattr(accel, f))
+                               if f in ("leaf_tris", "super_size")
+                               else np.asarray(getattr(accel, f)))
+                           for f in ClusterAccel._fields})
 
 
 def _sweep_tables(arrays, prefix=""):

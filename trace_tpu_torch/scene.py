@@ -9,7 +9,10 @@ either side) it attaches the sparse sweep (ops/sweep.py): the CUDA kernel
 for a CUDA device, its plain PyTorch version on the CPU. Scenes of 1-64
 triangles intersect them by brute force over the [rays, triangles] grid
 (wavefront/geom.py, ``chunk_size`` triangles a pass), as the JAX package
-does. ``Scene.intersect`` / ``intersect_p`` / ``unoccluded`` /
+does. ``accelerator="wbvh"`` walks an SAH tree per ray instead
+(accel/wbvh.py: the CUDA walk kernel on a card), ``"clusters"`` sweeps the
+tree's clusters in demand order (accel/clusters.py, tensor code).
+``Scene.intersect`` / ``intersect_p`` / ``unoccluded`` /
 ``transmittance`` / ``area_light_radiance`` are the JAX Scene's ray
 queries over the same routes the integrators take; they return the
 port's planar hit records (wavefront/geom.py::HitP).
@@ -33,8 +36,9 @@ import copy
 import numpy as np
 import torch
 
+from .accel import clusters as clusters_mod
 from .accel import instances as inst_mod
-from .accel.clusters import build_clusters
+from .accel import wbvh as wbvh_mod
 from .core.ray import SPAWN_EPS
 from .core.vec import V3
 from .lights import lights as light_mod
@@ -61,9 +65,12 @@ MAX_PRIMS_PER_LEAF = 4
 BRUTE_FORCE_MAX_TRIS = 64
 CHUNK_SIZE = 2048
 # SceneBuilder.build's accelerators: the JAX package's names. The sweep
-# serves "auto" and "pallas_sweep"; the per-ray BVH walks are not ported.
+# serves "auto" and "pallas_sweep"; "wbvh" and "clusters" attach their own.
 SWEEP_ACCELERATORS = ("auto", "pallas_sweep")
-UNPORTED_ACCELERATORS = ("clusters", "wbvh")
+ACCELERATORS = SWEEP_ACCELERATORS + ("clusters", "wbvh")
+# The cluster traversal's (leaf, stage) sizes switch at this triangle
+# count (the JAX package's rule, trace_tpu/scene.py:168-171).
+CLUSTERS_LARGE_TRIS = 300_000
 
 
 def sweep_tables(tris, use_bvh: bool | None = None,
@@ -78,8 +85,8 @@ def sweep_tables(tris, use_bvh: bool | None = None,
         use_bvh = n > BRUTE_FORCE_MAX_TRIS
     if not use_bvh or n == 0:
         return None
-    return SweepTables(build_clusters(tris, LEAF_TRIS, max_prims_per_leaf),
-                       GROUP)
+    return SweepTables(clusters_mod.build_clusters(tris, LEAF_TRIS,
+                                                   max_prims_per_leaf), GROUP)
 
 
 def make_sweep(tables: SweepTables, device, certified: bool
@@ -156,25 +163,33 @@ class SceneBuilder:
         """The scene on ``device``. ``use_bvh``: None attaches the sweep
         above 64 triangles, True at any count, False never (brute force,
         ``chunk_size`` triangles a pass). ``accelerator``: "auto" or
-        "pallas_sweep" (the sweep); the JAX package's "clusters" and
-        "wbvh" raise NotImplementedError (ROADMAP A.6)."""
-        if accelerator in UNPORTED_ACCELERATORS:
-            raise NotImplementedError(
-                f"accelerator={accelerator!r}: the per-ray BVH walks are not "
-                f"ported (ROADMAP A.6); use 'auto' or 'pallas_sweep'")
-        if accelerator not in SWEEP_ACCELERATORS:
+        "pallas_sweep" (the sweep), "wbvh" (the per-ray BVH walk) or
+        "clusters" (the cluster traversal: leaf 32 and stage 64 below
+        300k triangles, else leaf 64 and stage 128), wherever ``use_bvh``
+        gives the scene an accelerator."""
+        if accelerator not in ACCELERATORS:
             raise ValueError(f"unknown accelerator {accelerator!r}")
         spheres = sph_mod.pack_spheres(self._spheres)
         tris = tri_mod.concat_triangles(self._tri_parts)
         tri_light = (np.concatenate(self._tri_light) if self._tri_light
                      else np.zeros(0, np.int32))
         lights = light_mod.pack_lights(self._lights, tris)
-        return Scene(spheres, tris, self._materials, lights, device,
-                     sweep_tables=sweep_tables(tris, use_bvh,
-                                               max_prims_per_leaf),
-                     exact_edges=exact_shared_edges, tri_light_id=tri_light,
-                     instanced=self._instanced, chunk_size=chunk_size,
-                     brute_force=use_bvh is False)
+        n = tri_mod.num_triangles(tris)
+        own = (accelerator not in SWEEP_ACCELERATORS and n > 0
+               and (n > BRUTE_FORCE_MAX_TRIS if use_bvh is None else use_bvh))
+        scene = Scene(spheres, tris, self._materials, lights, device,
+                      sweep_tables=None if own else sweep_tables(
+                          tris, use_bvh, max_prims_per_leaf),
+                      exact_edges=exact_shared_edges, tri_light_id=tri_light,
+                      instanced=self._instanced, chunk_size=chunk_size,
+                      brute_force=use_bvh is False or own)
+        if own and accelerator == "wbvh":
+            wbvh_mod.attach(scene, max_prims_per_leaf=max_prims_per_leaf)
+        elif own:
+            leaf, stage = (32, 64) if n < CLUSTERS_LARGE_TRIS else (64, 128)
+            clusters_mod.attach(scene, leaf_tris=leaf, stage_clusters=stage,
+                                max_prims_per_leaf=max_prims_per_leaf)
+        return scene
 
 
 class Scene:
