@@ -267,6 +267,29 @@ Phases (each prints lines with its seconds; any failure raises):
         against mesh_heavy5k_32.npy, MSE < 5e-4; 16384 of the 1M camera
         rays through clusters (leaf 64, stage 128): ms, stages, hits
         against the walk's.
+ 13. the sharded paths, parallel.render.render_sharded and
+     SPPMIntegrator(mesh=) (details in chiprun_out/slice13.json); ranks
+     are spawned processes that join a process group through a file
+     store in TMPDIR, build the 1M scene on cuda:0 and only load the
+     kernels phase 1 built:
+     a. two gloo ranks sharing cuda:0: bench config 4's Whitted frame
+        (256^2, 1 spp, depth 2, seed 0) and mesh1m_path_256 (depth 3),
+        then mesh1m_sppm_256's settings (65536 photons, depth 8, radius
+        0.3) with shard_camera=True, two iterations; each with its
+        launches counted from 0 and timed (CUDA events), run again for
+        the same bits; every sweep launch of rank 0 against sweep_plain
+        and the prologue bit-equal on every launched chunk; the
+        collectives timed in the runs and alone (median of 5 all_reduces
+        of each size). Gates: every rank the same bits; frames within
+        2e-6 of this process's single-device frames (also reported: equal
+        to the two shares' films summed here); SPPM's counters equal to
+        the single-device run's, n and m equal, ld within 2e-6, tau
+        within 1e-5 relative;
+     b. the same on one NCCL rank: the film bit-equal to the one-rank
+        scatter (render_share) and SPPM bit-equal to one device (where an
+        iteration's pairs fit one pair chunk);
+     c. two NCCL ranks on cuda:0 try one all_reduce: what the card does
+        is recorded (expected: refused, a duplicate GPU), not gated.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -277,7 +300,9 @@ in the env-lit 1M Whitted frame (8c) and one env SPPM iteration (8d),
 and in the instanced stand-in frame (9c, with its agreement) and one of
 its SPPM iterations (9d), and in the three-light textured 1M frames and
 SPPM iteration (10b), and in phase 11's stratified frame, filter frames
-and Scene queries; intersect with the queries' brute-force oracle's;
+and Scene queries, and a rank's in phase 13's sharded frames and SPPM
+iterations (gloo rank 0 of 2, the NCCL rank); intersect with the
+queries' brute-force oracle's;
 bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
 timed on 12a's camera call),
 the card's name and power limit, and
@@ -3683,6 +3708,409 @@ def slice12(dev, card, scene, t_all):
     return out
 
 
+# Phase 13: the sharded paths (parallel/render.py, parallel/sppm.py).
+SHARD_ATOL = 2e-6          # __graft_entry__.py:243, :264, :317
+SHARD_TAU_RTOL = 1e-5
+SHARD_FRAMES = (("whitted", 2), ("path", 3))   # config 4, mesh1m_path_256
+SHARD_SPPM = dict(initial_search_radius=0.3, max_depth=8, n_iterations=2,
+                  photons_per_iteration=65536, seed=0)
+SPPM_FIELDS = ("ld", "tau", "radius", "n", "m")
+RANK_TIMEOUT_S = 600
+
+
+def shard_camera_of(png):
+    from trace_tpu_torch.models import mesh_heavy
+
+    return mesh_heavy.build_camera(256, png)
+
+
+def timed_collectives(records):
+    """Wrap the port's one collective (parallel.render.all_sum, also as
+    parallel.sppm imported it): each call's bytes and wall ms (the stream
+    drained before and after) go to ``records``. Returns the undo."""
+    import torch
+    from trace_tpu_torch.parallel import render as PR
+    from trace_tpu_torch.parallel import sppm as PS
+
+    plain = PR.all_sum
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        plain(t, group)
+        torch.cuda.synchronize()
+        records.append((t.numel() * t.element_size(),
+                        1e3 * (time.perf_counter() - s)))
+        return t
+
+    PR.all_sum = PS.all_sum = timed
+
+    def undo():
+        PR.all_sum = PS.all_sum = plain
+    return undo
+
+
+def event_ms(fn):
+    """(fn's result, its ms between two CUDA events)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def rank13(rank, world, backend, init, out_dir, check, device):
+    """One rank of phase 13, spawned after phase 1 built the kernels (it
+    only loads them): the 1M scene on ``device``, a mesh of ``world`` ranks
+    over ``backend``; the sharded Whitted and path frames and two SPPM
+    iterations, each run twice (counts from 0 before the first); with
+    ``check``, rank 0 holds every sweep and prologue launch of the first
+    runs against their plain versions. Arrays and a JSON of counts and
+    times go to ``out_dir``."""
+    import torch
+    import torch.distributed as dist
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.parallel import render as PR
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.utils.stats import RenderStats
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    tag = f"13 {backend} r{rank}/{world}"
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world,
+                            **(dict(device_id=dev) if backend == "nccl"
+                               else {}))
+    try:
+        scene = mesh_heavy.build_scene(1_000_000, device=dev)
+        mesh = PR.make_mesh([dev] * world)
+        acc = scene.accel
+        log(tag, t0, f"scene built, mesh {mesh}")
+        coll = []
+        undo = timed_collectives(coll)
+        out = dict(rank=rank, world=world, backend=backend)
+
+        def counted(label, run, *args, **kw):
+            sweep_kernel.reset_counts()
+            block_entry_kernel.reset_counts()
+            acc.skipped_chunks = 0
+            dist.barrier()
+            calls = None
+            if check and rank == 0:
+                (res, calls, _), ms = event_ms(
+                    lambda: record_sweep_calls(run, *args, **kw))
+            else:
+                res, ms = event_ms(lambda: run(*args, **kw))
+            counts = dict(sweep=sweep_kernel.launches,
+                          f32=sweep_kernel.arm_launches["f32"],
+                          prologue=block_entry_kernel.launches,
+                          skipped=acc.skipped_chunks)
+            if counts["sweep"] <= 0 or counts["f32"] != counts["sweep"] \
+                    or counts["prologue"] != counts["sweep"]:
+                raise AssertionError(f"[{tag}] {label} did not run the "
+                                     f"kernels: {counts}")
+            row = dict(launches=counts, counted_ms=ms)
+            if calls is not None:
+                row["agreement"], row["prologue"], _ = check_launches(
+                    tag, acc, calls)
+                del calls
+            return res, row
+
+        for name, depth in SHARD_FRAMES:
+            cam = shard_camera_of("unused.png")
+            kw = dict(spp=1, max_depth=depth, seed=0, integrator=name)
+            PR.render_sharded(scene, cam, mesh, **kw)   # warm
+            del coll[:]
+            state, row = counted(name, PR.render_sharded, scene, cam, mesh,
+                                 **kw)
+            row["collectives"] = list(coll)
+            torch.cuda.reset_peak_memory_stats()
+            row["frame_ms"], row["rerun_same_bits"] = [], True
+            for _ in range(3):
+                dist.barrier()
+                again, ms = event_ms(
+                    lambda: PR.render_sharded(scene, cam, mesh, **kw))
+                row["frame_ms"].append(ms)
+                row["rerun_same_bits"] &= all(
+                    torch.equal(x, y) for x, y in zip(state, again))
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            for f, x in zip(("xyz", "weight_sum", "splat_xyz"), state):
+                np.save(os.path.join(out_dir, f"r{rank}_{name}_{f}.npy"),
+                        x.cpu().numpy())
+            np.save(os.path.join(out_dir, f"r{rank}_{name}_image.npy"),
+                    cam.film.to_image(state).cpu().numpy())
+            out[name] = row
+            checked = sum(t.get("launches", 0)
+                          for t in row.get("agreement", {}).values())
+            log(tag, t0, f"{name} depth {depth}: frames "
+                f"{[round(x, 2) for x in row['frame_ms']]} ms after a warm "
+                f"one and the counted one, same bits "
+                f"{row['rerun_same_bits']}, launches {row['launches']}, "
+                f"collectives "
+                f"{[(b, round(ms, 3)) for b, ms in row['collectives']]}, "
+                f"peak {row['peak_gib']:.3f} GiB"
+                + (f"; every launch equal to plain ({checked} checked), "
+                   f"prologue {row['prologue']}" if checked else ""))
+
+        stats = RenderStats()
+        integ = SPPMIntegrator(shard_camera_of("unused.png"), mesh=mesh,
+                               shard_axis="rays", shard_camera=True,
+                               device=dev, stats=stats, **SHARD_SPPM)
+        key = U.key(integ.seed, dev)
+        pixels = integ._pixel_grid(dev)
+        cdf, pmf = integ.light_distribution(scene)
+        state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                                 dev)
+        iters = []
+        for it in range(1, SHARD_SPPM["n_iterations"] + 1):
+            del coll[:]
+            pairs = stats.counters.get("photon_vp_pairs", 0)
+            state, row = counted(f"sppm {it}", integ.step, scene, state, it,
+                                 pixels, key, cdf, pmf)
+            row["collectives"] = list(coll)
+            row["pairs"] = stats.counters["photon_vp_pairs"] - pairs
+            iters.append(row)
+        counters = stats.as_dict()
+        torch.cuda.reset_peak_memory_stats()
+        again = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                                 dev)
+        iteration_ms = []
+        for it in range(1, SHARD_SPPM["n_iterations"] + 1):
+            dist.barrier()
+            again, ms = event_ms(lambda: integ.step(scene, again, it, pixels,
+                                                    key, cdf, pmf))
+            iteration_ms.append(ms)
+        same = all(torch.equal(getattr(state, f), getattr(again, f))
+                   for f in SPPM_FIELDS)
+        out["sppm"] = dict(iterations=iters, iteration_ms=iteration_ms,
+                           rerun_same_bits=same, stats=counters,
+                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        for f in SPPM_FIELDS:
+            np.save(os.path.join(out_dir, f"r{rank}_sppm_{f}.npy"),
+                    getattr(state, f).cpu().numpy())
+        log(tag, t0, f"sppm: iterations {[round(x, 2) for x in iteration_ms]}"
+            f" ms after the counted ones, launches "
+            f"{[r['launches'] for r in iters]}, collectives "
+            f"{[len(r['collectives']) for r in iters]} a iteration "
+            f"({sum(b for b, _ in iters[0]['collectives'])} B, "
+            f"{sum(ms for _, ms in iters[0]['collectives']):.2f} ms in the "
+            f"first), same bits again {same}, peak "
+            f"{out['sppm']['peak_gib']:.3f} GiB")
+        undo()
+        # The collectives alone: each size the runs summed, 5 all_reduces
+        # after a barrier (the runs' own records include waiting for the
+        # slower rank), median wall ms.
+        sizes = sorted({b for r in [out["whitted"], out["path"], *iters]
+                        for b, _ in r["collectives"]})
+        out["collective_ms"] = {}
+        for nbytes in sizes:
+            t = torch.zeros(nbytes // 4, dtype=torch.float32, device=dev)
+            times = []
+            for _ in range(5):
+                dist.barrier()
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                PR.all_sum(t, mesh.get_group("rays"))
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - s))
+            out["collective_ms"][nbytes] = float(np.median(times))
+        log(tag, t0, f"all_reduce alone, median of 5 (bytes: ms): "
+            f"{out['collective_ms']}")
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f, indent=1)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_pair13(rank, init):
+    """Two NCCL ranks on cuda:0: one all_reduce of one value (NCCL is
+    expected to refuse a GPU shared by two ranks)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=2)
+    try:
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        if float(t) != 2.0:
+            raise AssertionError(f"NCCL all_reduce gave {float(t)}")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(fn, args, nprocs):
+    """Start ``nprocs`` spawned ranks of ``fn(rank, *args)`` and wait for
+    them (RANK_TIMEOUT_S at most, then terminate them and raise); a rank
+    that raises fails the call."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + RANK_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            raise TimeoutError(f"ranks of {fn.__name__} still running after "
+                               f"{RANK_TIMEOUT_S} s")
+
+
+def load_rank(out_dir, rank, name):
+    return np.load(os.path.join(out_dir, f"r{rank}_{name}.npy"))
+
+
+def slice13(dev, card, scene, t_all):
+    """Phase 13: the sharded renders and SPPM (module docstring)."""
+    import torch
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.parallel import render as PR
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.utils.stats import RenderStats
+
+    out = {}
+    t0 = time.perf_counter()
+    # -- the single-device references, in this process ---------------------
+    ref = {}
+    for name, depth in SHARD_FRAMES:
+        cls = WhittedIntegrator if name == "whitted" else PathIntegrator
+        cam = shard_camera_of("unused.png")
+        integ = cls(cam, U.UniformSampler(1, seed=0), max_depth=depth)
+        times, state = timed_frames(integ, scene)
+        ref[name] = image(integ, state)
+        out[f"single_{name}_frame_ms"] = times
+        # The one-device scatter splat (render_sharded's own path on one
+        # rank), and the two ranks' shares summed here.
+        films = [PR.render_share(integ, scene, *PR.shard_pixels(
+            cam.film, r, n, dev)) for n in (1, 2) for r in range(n)]
+        ref[f"{name}_one"] = [x.cpu().numpy() for x in films[0]]
+        ref[f"{name}_two"] = [(a + b).cpu().numpy()
+                              for a, b in zip(films[1], films[2])]
+    stats = RenderStats()
+    integ = SPPMIntegrator(shard_camera_of("unused.png"), device=dev,
+                           stats=stats, **SHARD_SPPM)
+    st, out["single_sppm_ms"] = event_ms(lambda: integ.render(scene))
+    ref["stats"] = stats.as_dict()
+    pair_chunk = integ.pair_chunk
+    ref["sppm"] = {f: getattr(st, f).cpu().numpy() for f in SPPM_FIELDS}
+    log("13", t0, f"single-device references: Whitted frames "
+        f"{[round(x, 2) for x in out['single_whitted_frame_ms']]} ms, path "
+        f"{[round(x, 2) for x in out['single_path_frame_ms']]} ms (one warm "
+        f"before), the one-rank scatter and the two shares' films, "
+        f"{SHARD_SPPM} {out['single_sppm_ms']:.2f} ms (2 iterations); "
+        f"card {card}")
+    del films, st
+    torch.cuda.empty_cache()
+
+    def gates(label, out_dir, world, exact):
+        """Every rank the same bits; frames within SHARD_ATOL of the
+        single-device frames (exact: the one-rank scatter's film bit for
+        bit); SPPM's counters equal to the single-device run's, n and m
+        equal, ld within SHARD_ATOL, tau within SHARD_TAU_RTOL relative
+        (exact: every field bit for bit where each iteration's pairs fit
+        one pair chunk; beyond, one device adds the chunks into the
+        running sums and a mesh adds each chunk's own sum)."""
+        rows = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+                for r in range(world)]
+        res = dict(ranks=rows)
+        for name, _ in SHARD_FRAMES:
+            files = [f"{name}_{f}" for f in ("xyz", "weight_sum",
+                                             "splat_xyz", "image")]
+            same = all(np.array_equal(load_rank(out_dir, r, f),
+                                      load_rank(out_dir, 0, f))
+                       for r in range(world) for f in files)
+            img = load_rank(out_dir, 0, f"{name}_image")
+            err = float(np.abs(img - ref[name]).max())
+            film = [load_rank(out_dir, 0, f) for f in files[:3]]
+            vs_one = all(np.array_equal(a, b)
+                         for a, b in zip(film, ref[f"{name}_one"]))
+            vs_two = all(np.array_equal(a, b)
+                         for a, b in zip(film, ref[f"{name}_two"]))
+            res[name] = dict(ranks_same_bits=same, max_abs_err=err,
+                             equals_one_rank_scatter=vs_one,
+                             equals_two_shares_summed=vs_two,
+                             finite=bool(np.isfinite(img).all()))
+            log(label, t0, f"{name}: ranks same bits {same}, max |diff| "
+                f"against the single-device frame {err:.3e} (gate "
+                f"{SHARD_ATOL}), the film equal to the one-rank scatter's "
+                f"{vs_one}, to the two shares' films summed {vs_two}")
+            bad = not (same and res[name]["finite"] and err <= SHARD_ATOL
+                       and all(r[name]["rerun_same_bits"] for r in rows))
+            if bad or (exact and not vs_one):
+                raise AssertionError(f"[{label}] {name}: {res[name]}")
+        st = {f: load_rank(out_dir, 0, f"sppm_{f}") for f in SPPM_FIELDS}
+        same = all(np.array_equal(load_rank(out_dir, r, f"sppm_{f}"), st[f])
+                   for r in range(world) for f in SPPM_FIELDS)
+        s1 = ref["sppm"]
+        ld_err = float(np.abs(st["ld"] - s1["ld"]).max())
+        tau_rel = float((np.abs(st["tau"] - s1["tau"])
+                         / np.maximum(np.abs(s1["tau"]), 1e-30)).max())
+        counts_equal = all(np.array_equal(st[f], s1[f]) for f in ("n", "m"))
+        bits = all(np.array_equal(st[f], s1[f]) for f in SPPM_FIELDS)
+        gathered = int((st["tau"].sum(-1) > 0).sum())
+        pairs = [r["pairs"] for r in rows[0]["sppm"]["iterations"]]
+        stats_equal = all(r["sppm"]["stats"] == ref["stats"] for r in rows)
+        res["sppm"] = dict(ranks_same_bits=same, ld_max_abs_err=ld_err,
+                           tau_max_rel_err=tau_rel, n_m_equal=counts_equal,
+                           bit_equal=bits, pixels_gathered=gathered,
+                           pairs=pairs, stats_equal=stats_equal)
+        exact = exact and max(pairs) <= pair_chunk
+        log(label, t0, f"sppm: ranks same bits {same}, n and m equal "
+            f"{counts_equal}, ld max |diff| {ld_err:.3e} (gate "
+            f"{SHARD_ATOL}), tau max rel {tau_rel:.3e} (gate "
+            f"{SHARD_TAU_RTOL}), every field bit-equal {bits}, pixels "
+            f"gathered {gathered}, pairs {pairs} (chunk {pair_chunk}), "
+            f"counters equal to the single-device run's {stats_equal}")
+        if not (same and counts_equal and stats_equal
+                and ld_err <= SHARD_ATOL and tau_rel <= SHARD_TAU_RTOL
+                and gathered > 0
+                and all(r["sppm"]["rerun_same_bits"] for r in rows)) \
+                or (exact and not bits):
+            raise AssertionError(f"[{label}] sppm: {res['sppm']}")
+        return res
+
+    base = tempfile.mkdtemp(prefix="chip_smoke13_")
+    for label, backend, world in (("13a", "gloo", 2), ("13c", "nccl", 1)):
+        t0 = time.perf_counter()
+        out_dir = os.path.join(base, f"{backend}{world}")
+        os.makedirs(out_dir)
+        init = "file://" + os.path.join(base, f"store_{backend}{world}")
+        spawn_ranks(rank13, (world, backend, init, out_dir,
+                             backend == "gloo", str(dev)), world)
+        out[f"{backend}{world}"] = gates(label, out_dir, world,
+                                         exact=world == 1)
+        log(label, t0, f"{world} {backend} rank(s) on cuda:0: gates held; "
+            f"card {card}")
+
+    # -- NCCL with two ranks on one card -------------------------------------
+    t0 = time.perf_counter()
+    init = "file://" + os.path.join(base, "store_nccl_pair")
+    try:
+        spawn_ranks(nccl_pair13, (init,), 2)
+        outcome = "ran: two NCCL ranks shared cuda:0"
+    except Exception as e:   # the recorded experiment, not a gate
+        outcome = f"refused: {type(e).__name__}: " + " | ".join(
+            line.strip() for line in str(e).splitlines()
+            if "Duplicate" in line or "Error" in line)[:400]
+    out["nccl_two_ranks_one_card"] = outcome
+    log("13c", t0, f"two NCCL ranks on cuda:0: {outcome}")
+    log(13, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -4204,6 +4632,25 @@ def main() -> int:
     s12 = slice12(dev, card, scene, t_all)
     with open(os.path.join(REPO, "chiprun_out", "slice12.json"), "w") as f:
         json.dump(dict(card=card, **s12), f, indent=1)
+    # -- 13: the sharded paths ---------------------------------------------
+    torch.cuda.empty_cache()
+    s13 = slice13(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice13.json"), "w") as f:
+        json.dump(dict(card=card, **s13), f, indent=1)
+    sharded = {}
+    for key, row in (("gloo2_rank0", s13["gloo2"]["ranks"][0]),
+                     ("nccl1", s13["nccl1"]["ranks"][0])):
+        for part in ("whitted", "path"):
+            sharded[f"sharded_{part}_launches_{key}"] = \
+                row[part]["launches"]
+        sharded[f"sharded_sppm_launches_{key}"] = [
+            r["launches"] for r in row["sppm"]["iterations"]]
+    shard_sweep = {k: (v["sweep"] if isinstance(v, dict)
+                       else [x["sweep"] for x in v])
+                   for k, v in sharded.items()}
+    shard_pro = {k: (v["prologue"] if isinstance(v, dict)
+                     else [x["prologue"] for x in v])
+                 for k, v in sharded.items()}
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
                        frames=frames,
@@ -4234,7 +4681,7 @@ def main() -> int:
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
-             **inst, **lights3, **public),
+             **inst, **lights3, **public, **shard_sweep),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -4262,7 +4709,8 @@ def main() -> int:
                    library_key="prologue_torch_ms"),
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
-             **env_pro, **inst_pro, **lights3_pro, **public_pro),
+             **env_pro, **inst_pro, **lights3_pro, **public_pro,
+             **shard_pro),
         dict(entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
                    fused, source="trace_tpu_torch/csrc/intersect.cu"),

@@ -27,7 +27,8 @@ def test_every_module_is_listed():
                  "models.sphere_field", "io.png", "materials.textures",
                  "wavefront.lights", "film.png", "sampler.distribution",
                  "sampler.stratified", "utils.stats", "utils.compare",
-                 "io.obj", "accel.bvh", "accel.wbvh", "ops.bvh_walk"):
+                 "io.obj", "accel.bvh", "accel.wbvh", "ops.bvh_walk",
+                 "parallel.render", "parallel.sppm", "core.bounds"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -166,6 +167,13 @@ def _default_devices():
     out["sppm.initial_state"] = dflt(initial_state)
     out["_run.parser --device"] = _run.parser(
         "", resolution=8, spp=1, depth=1, output="x.png").get_default("device")
+    # The mesh's device type, when make_mesh is given no devices; a
+    # sharded render runs where its mesh and scene are.
+    from trace_tpu_torch.parallel import render
+
+    out["parallel.render.make_mesh"] = render.mesh_devices(
+        inspect.signature(render.make_mesh).parameters["devices"].default,
+        0, 1)[0]
     out["_run.sppm_main --device"] = _run.sppm_parser(
         "", resolution=8, iterations=1, depth=1,
         output="x.png").get_default("device")

@@ -564,10 +564,16 @@ def test_sphere_model_and_sppm_main_render_on_the_cpu(tmp_path, capsys):
 
 def test_left_out_paths_refuse():
     cam = TSph.build_camera(4, "unused.png")
-    for kw in (dict(mesh=object()), dict(shard_camera=True),
-               dict(fused_iterations=True), dict(fused_unroll=True)):
+    for kw in (dict(fused_iterations=True), dict(fused_unroll=True)):
         with pytest.raises(NotImplementedError):
             TSp.SPPMIntegrator(cam, device="cpu", **kw)
+    # The sharded passes are ported (tests/test_torch_parallel.py): a mesh
+    # must name the shard axis; shard_camera without one is ignored, as in
+    # the JAX package.
+    with pytest.raises(ValueError):
+        TSp.SPPMIntegrator(cam, device="cpu", mesh=object())
+    assert TSp.SPPMIntegrator(cam, device="cpu", shard_camera=True).mesh \
+        is None
     integ = TSp.SPPMIntegrator(cam, device="cpu")
     scene = TSph.build_scene(device="cpu")
     # Animated geometry and render_frames are ported

@@ -77,6 +77,25 @@ class SamplerIntegrator:
         grid = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
         return torch.from_numpy(grid).to(device)
 
+    def sample(self, scene, pixels, pix_f, ids, base_key, s: int, lo, scale):
+        """Sample pass ``s`` of the lanes ``pixels`` [N, 2] (``pix_f`` as
+        float32, ``ids`` their U.pixel_ids; ``lo``, ``scale`` from
+        stratum_arrays): identity-keyed camera samples jittered inside
+        their stratum, rays scaled by 1/sqrt(spp), ``li``. A lane's draw
+        depends only on its pixel, so any subset of the grid (a rank's
+        share in parallel.render) draws what the whole grid draws there.
+        -> (p_film [N, 2], sanitized radiance [N, 3], weight [N], aux)."""
+        spp = self.sampler.samples_per_pixel
+        ks = U.lane_keys(U.fold_in(base_key, s), ids)
+        p_film, u_lens, u_time = U.get_camera_samples_lanes(
+            U.fold_lanes(ks, 0), pixels)
+        p_film = pix_f + lo[s] + (p_film - pix_f) * scale[s]
+        rd, weight = self.camera.generate_ray_differentials(
+            p_film, u_lens, u_time)
+        rd = scale_differentials(rd, float(np.float32(1.0 / np.sqrt(spp))))
+        l, aux = self.li(scene, rd, U.fold_lanes(ks, 1))
+        return p_film, sanitize_radiance(l), weight, aux
+
     def render(self, scene, geometry=None, geometry_transform=None,
                geometry_accel=None) -> FilmState:
         """Render ``scene``. ``geometry`` (optional): a Triangles table with
@@ -109,16 +128,10 @@ class SamplerIntegrator:
         drops = torch.zeros((), dtype=torch.int64, device=dev)
         useful = torch.zeros((), dtype=torch.int64, device=dev)
         for s in range(spp):
-            ks = U.lane_keys(U.fold_in(base_key, s), ids)
-            p_film, u_lens, u_time = U.get_camera_samples_lanes(
-                U.fold_lanes(ks, 0), pixels)
-            p_film = pix_f + lo[s] + (p_film - pix_f) * scale[s]
-            rd, weight = self.camera.generate_ray_differentials(
-                p_film, u_lens, u_time)
-            rd = scale_differentials(rd, float(np.float32(1.0 / np.sqrt(spp))))
-            l, aux = self.li(scene, rd, U.fold_lanes(ks, 1))
-            state = film.add_samples_grid(state, p_film, sanitize_radiance(l),
-                                          weight, (x0, y0), grid_hw)
+            p_film, l, weight, aux = self.sample(scene, pixels, pix_f, ids,
+                                                 base_key, s, lo, scale)
+            state = film.add_samples_grid(state, p_film, l, weight, (x0, y0),
+                                          grid_hw)
             drops = drops + aux["queue_drops"]
             useful = useful + aux["useful_rays"]
         self.last_queue_drops = int(drops)
