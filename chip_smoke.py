@@ -290,6 +290,32 @@ Phases (each prints lines with its seconds; any failure raises):
         iteration's pairs fit one pair chunk);
      c. two NCCL ranks on cuda:0 try one all_reduce: what the card does
         is recorded (expected: refused, a duplicate GPU), not gated.
+ 14. SPPM's fused blocks, SPPMIntegrator(fused_iterations=True), one CUDA
+     graph a block (details in chiprun_out/slice14.json):
+     a. mesh1m_sppm_1024_fused1, bench config 3's settings on the 1M mesh
+        (1024^2, 262144 photons, depth 8, radius 0.075, seed 0),
+        fused_block=1, four iterations (the first warm) through render,
+        with the launch counts set to 0 before it: each block's state
+        bit-equal to the stepwise state of the same iteration (run first,
+        each iteration timed); each block's ms (CUDA events), the first
+        holding the eager warm-up and the capture (host ms of each), the
+        graph's replay alone, pair totals and pair chunks K, launches per
+        replay (counted while the graph was captured), peak GiB; every
+        32nd captured sweep launch and its prologue, and the last, held
+        after the replays against sweep_plain and prologue_plain (the
+        prologue bit for bit, the sweep's hits, ids and t bits); the
+        host syncs of one more block, counted by torch's sync debug mode
+        (one: the pair total's read); the device-busy share of a replay
+        (torch.profiler; "not measured" if it sees no device time); a
+        dead chunk's traversal captured as a graph of its own and timed
+        (the static route launches the chunks the stepwise path skips);
+     b. anim_relight_128_standin_fused2, bench config 5's settings on the
+        stand-in (as 7c: 128^2, 2 iterations of 65536 photons a frame,
+        depth 5, radius 0.055, moving lights and translation),
+        fused_block=2: two frames stepwise and fused, each frame bit-equal,
+        timed (the fused frame holding its view's warm-up and capture), the
+        replay alone, launches per replay, pair totals, K, peak GiB; the
+        device-busy share of a replay.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -301,8 +327,9 @@ and in the instanced stand-in frame (9c, with its agreement) and one of
 its SPPM iterations (9d), and in the three-light textured 1M frames and
 SPPM iteration (10b), and in phase 11's stratified frame, filter frames
 and Scene queries, and a rank's in phase 13's sharded frames and SPPM
-iterations (gloo rank 0 of 2, the NCCL rank); intersect with the
-queries' brute-force oracle's;
+iterations (gloo rank 0 of 2, the NCCL rank), and per replay and in
+the whole run of phase 14's fused 1024^2 block and config-5 frames;
+intersect with the queries' brute-force oracle's;
 bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
 timed on 12a's camera call),
 the card's name and power limit, and
@@ -895,11 +922,13 @@ def time_phases(integ, marks):
         setattr(integ, name, wrapped)
 
 
-def device_busy(phase, t0, card, what, run, unprofiled_ms):
+def device_busy(phase, t0, card, what, run, unprofiled_ms, require=True):
     """Profile one ``run()`` (torch.profiler, CPU and CUDA): its wall ms
     (CUDA events), the device's busy ms and share, the kernels launched,
     the top kernels by device time, and the prologue's and the sweep's
-    device ms and launches. Raises if the profiler saw no device time."""
+    device ms and launches. Raises if the profiler saw no device time,
+    unless ``require`` is false (a CUDA graph's replay: the share is then
+    reported as not measured)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -938,7 +967,9 @@ def device_busy(phase, t0, card, what, run, unprofiled_ms):
         f"{busy['bvh_walk_kernel'][1]}; "
         f"top {busy['top']}; card {card}")
     if dev_ms <= 0:
-        raise AssertionError("the profiler saw no device time")
+        if require:
+            raise AssertionError("the profiler saw no device time")
+        busy["share"] = "not measured (the profiler saw no device time)"
     return busy
 
 
@@ -4111,6 +4142,339 @@ def slice13(dev, card, scene, t_all):
     return out
 
 
+# Phase 14: the captured launches held against the plain versions, every
+# CAPTURE_STRIDE-th sweep launch of the block (and its prologue) and the
+# last. Their tensors stay referenced, so the graph's allocator cannot
+# reuse them, and a replay leaves its values in them.
+CAPTURE_STRIDE = 32
+FUSED_1024_ITERS = 4   # a warm iteration, then three
+FUSED_ANIM_SHIFTS = (0.1, 0.2)
+
+
+class CaptureRecorder:
+    """While a CUDA graph is captured, keep the tensors of every
+    ``stride``-th call of ops.sweep's prologue and sweep (the
+    accelerator's two launches a chunk): the prologue's inputs and
+    (order, suffix), the sweep's inputs and (best t, best slot)."""
+
+    def __init__(self, stride):
+        self.stride = stride
+        self.calls = []
+        self.n = 0
+
+    def __enter__(self):
+        import torch
+        from trace_tpu_torch.ops import sweep as TS
+
+        self.mod, self.fns = TS, (TS.prologue, TS.sweep)
+        pro, swp = self.fns
+
+        def prologue(*a):
+            res = pro(*a)
+            if torch.cuda.is_current_stream_capturing():
+                self.pending = (a, res)
+            return res
+
+        def sweep(*a, **k):
+            res = swp(*a, **k)
+            if torch.cuda.is_current_stream_capturing():
+                if self.n % self.stride == 0:
+                    self.calls.append(dict(prologue=self.pending, sweep=(
+                        a, k, res)))
+                self.last = dict(prologue=self.pending, sweep=(a, k, res))
+                self.n += 1
+            return res
+
+        TS.prologue, TS.sweep = prologue, sweep
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.prologue, self.mod.sweep = self.fns
+        if self.n and self.calls[-1] is not self.last:
+            self.calls.append(self.last)
+        self.pending = self.last = None
+
+    def check(self):
+        """Each kept launch against its plain version: prologue bit for
+        bit, sweep by compare() and t bits."""
+        import torch
+        from trace_tpu_torch.ops.sweep import prologue_plain, sweep_plain
+
+        pro, swp, rows = {}, {}, []
+        for c in self.calls:
+            pa, (ko, ks) = c["prologue"]
+            po, ps = prologue_plain(*pa)
+            sa, sk, (kt, ki) = c["sweep"]
+            pt, pi = sweep_plain(*sa, certified=sk["certified"],
+                                 err_eps=sk["err_eps"])
+            torch.cuda.synchronize()
+            accumulate(pro, dict(order_mismatch=int((ko != po).sum()),
+                                 suffix_bits_mismatch=int((
+                                     ks.view(torch.int32)
+                                     != ps.view(torch.int32)).sum())))
+            cmp = compare(kt, ki, pt, pi)
+            cmp["t_bits_mismatch"] = int((kt.view(torch.int32)
+                                          != pt.view(torch.int32)).sum())
+            accumulate(swp, cmp)
+            rows.append(dict(lanes=int(pa[4].numel()),
+                             live=int((pa[4] >= 0).sum()),
+                             any_hit=bool(sa[5]), found=cmp["n_found"]))
+        return pro, swp, rows
+
+
+def stepwise_iterations(integ, scene, n):
+    """``n`` stepwise iterations from a fresh state, each timed with CUDA
+    events -> (ms, states after each, sweep launches, chunks skipped)."""
+    import torch
+    from trace_tpu_torch.integrators import sppm as SP
+    from trace_tpu_torch.ops.sweep import sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+
+    dev = scene.device
+    pixels, key = integ._pixel_grid(dev), U.key(integ.seed, dev)
+    cdf, pmf = integ.light_distribution(scene)
+    state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
+                             dev)
+    ms, states, launches, skipped = [], [], [], []
+    for it in range(1, n + 1):
+        sweep_kernel.reset_counts()
+        scene.accel.skipped_chunks = 0
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state = integ.step(scene, state, it, pixels, key, cdf, pmf)
+        z.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(z))
+        states.append(state)
+        launches.append(sweep_kernel.launches)
+        skipped.append(scene.accel.skipped_chunks)
+    return ms, states, launches, skipped
+
+
+def timed_blocks(integ):
+    """Wrap ``integ._fused_block``: each block's ms (CUDA events, from its
+    call to its return, the host read included), pair totals and K, and
+    its state, in the returned list."""
+    import torch
+
+    rows = []
+    run = integ._fused_block
+
+    def block(scene, state, it, n, *a):
+        b = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        b.record()
+        res = run(scene, state, it, n, *a)
+        e.record()
+        torch.cuda.synchronize()
+        rows.append(dict(it=it, n=n, ms=b.elapsed_time(e),
+                         totals=integ.last_pair_totals.tolist(),
+                         pair_chunks=integ.fused_pair_chunks, state=res))
+        return res
+
+    integ._fused_block = block
+    return rows
+
+
+def replay_syncs(integ, scene, state, it):
+    """Host synchronisations in one more fused block (a replay), counted
+    by torch's sync debug mode ("warn")."""
+    import warnings
+
+    import torch
+    from trace_tpu_torch.sampler import uniform as U
+
+    dev = scene.device
+    args = (integ._pixel_grid(dev), U.key(integ.seed, dev),
+            *integ.light_distribution(scene))
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            integ._fused_block(scene, state, it, 1, *args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def slice14(dev, card, scene, t_all):
+    """Phase 14: SPPM's fused blocks, one CUDA graph a block (module
+    docstring)."""
+    import torch
+    from trace_tpu_torch.core import transform as T
+    from trace_tpu_torch.integrators.fused import kernel_counts
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.models import caustic_glass, caustic_moving
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import bvh_walk, intersect
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.shapes import triangle as tri_mod
+
+    def reset():
+        for k in (sweep_kernel, block_entry_kernel, bvh_walk.walk_kernel,
+                  intersect.intersect_kernel):
+            k.reset_counts()
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    # -- 14a: mesh1m_sppm_1024_fused1 -------------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    n_it = FUSED_1024_ITERS
+    kw = dict(initial_search_radius=0.075, max_depth=8, n_iterations=n_it,
+              photons_per_iteration=262144, seed=0, device=dev)
+    cam = mesh_heavy.build_camera(1024, os.path.join(
+        tmp, "chip_smoke_fused_1024.png"))
+    step_ms, step_states, step_launches, step_skipped = stepwise_iterations(
+        SPPMIntegrator(cam, **kw), scene, n_it)
+    log("14a", t0, f"stepwise 1024^2 iterations "
+        f"{[round(x, 2) for x in step_ms]} ms; sweep launches "
+        f"{step_launches}, chunks skipped {step_skipped}; card {card}")
+    fz = SPPMIntegrator(cam, fused_iterations=True, fused_block=1, **kw)
+    rows = timed_blocks(fz)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with CaptureRecorder(CAPTURE_STRIDE) as rec:
+        final = fz.render(scene)
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del fz._fused_block
+    cap = fz.fused_graphs.captures[0]
+    same = [states_equal(r["state"], s) for r, s in zip(rows, step_states)]
+    blocks_ms = [(r["it"], round(r["ms"], 2)) for r in rows]
+    log("14a", t0, f"fused_block=1: blocks {blocks_ms} ms (block 1 holds "
+        f"the warm-up {cap['warm_ms']:.1f} ms and the capture "
+        f"{cap['capture_ms']:.1f} ms, host); pair totals {[r['totals'] for r in rows]}, K "
+        f"{rows[-1]['pair_chunks']} of {fz.pair_chunk}; launches per replay "
+        f"{cap['launches']}; the run's launches {counts}; peak "
+        f"{peak:.2f} GiB; each block's state == stepwise: {same}; card "
+        f"{card}")
+    if len(rows) != n_it or not all(same) or len(fz.fused_graphs.captures) \
+            != 1 or cap["launches"]["sweep"] <= 0 \
+            or cap["launches"]["prologue"] != cap["launches"]["sweep"] \
+            or counts["sweep"] <= 0:
+        raise AssertionError(f"fused 1024^2 blocks: {len(rows)} blocks, "
+                             f"same {same}, captures "
+                             f"{fz.fused_graphs.captures}")
+    blk = next(iter(fz.fused_graphs.graphs.values()))
+    replay_ms = cuda_ms(blk.graph.replay, 3)
+    pro_tot, swp_tot, kept = rec.check()
+    log("14a", t0, f"graph replay alone {replay_ms:.2f} ms (CUDA events, "
+        f"mean of 3); {len(kept)} captured launches against the plain "
+        f"versions (lanes, live lanes, any-hit, hits: {kept}): prologue "
+        f"{pro_tot}, sweep {swp_tot}")
+    if prologue_disagrees(pro_tot) or disagrees(swp_tot) \
+            or swp_tot["t_bits_mismatch"] or len(kept) < 2:
+        raise AssertionError(f"captured launches disagree: {pro_tot} "
+                             f"{swp_tot}")
+    syncs = replay_syncs(fz, scene, rows[-2]["state"], n_it)
+    busy = device_busy("14a", t0, card, "fused block (replay)",
+                       lambda: blk.replay(rows[-2]["state"], n_it),
+                       replay_ms, require=False)
+    # The cost of launching chunks with no live lane (the fused body's
+    # static route): one such chunk's prologue, sweep and tensor ops,
+    # captured as a graph of their own and replayed, as in a block.
+    acc = scene.accel
+    dead = torch.zeros((acc.ray_chunk, 3), device=dev)
+    dead_args = (dead, dead + 1.0,
+                 torch.full((acc.ray_chunk,), -1.0, device=dev), False)
+    acc._traverse_chunk(*dead_args)
+    torch.cuda.synchronize()
+    dead_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(dead_graph):
+        acc._traverse_chunk(*dead_args)
+    dead_ms = cuda_ms(dead_graph.replay, 5)
+    img = fz.to_image(final, n_it)
+    finite = bool(torch.isfinite(img).all())
+    fz.save(final, n_it)
+    log("14a", t0, f"host syncs in one more block: {syncs} (the pair "
+        f"total's read); a dead chunk's traversal as a graph "
+        f"{dead_ms:.4f} ms, x {step_skipped[-1]} chunks the stepwise "
+        f"iteration skips = {dead_ms * step_skipped[-1]:.2f} ms; "
+        f"finite {finite}; card {card}")
+    if syncs != 1 or not finite:
+        raise AssertionError(f"fused block: {syncs} host syncs, finite "
+                             f"{finite}")
+    out["mesh1m_sppm_1024_fused1"] = dict(
+        stepwise_ms=step_ms, stepwise_sweep_launches=step_launches,
+        stepwise_skipped_chunks=step_skipped,
+        blocks=[{k: v for k, v in r.items() if k != "state"} for r in rows],
+        same_bits=same, capture=cap, run_launches=counts, peak_gib=peak,
+        replay_ms=replay_ms, kept_launches=kept, prologue=pro_tot,
+        sweep=swp_tot, host_syncs_per_block=syncs, busy=busy,
+        dead_chunk_ms=dead_ms)
+    del rows, step_states, blk, rec, fz, final, dead, dead_graph
+    torch.cuda.empty_cache()
+
+    # -- 14b: anim_relight_128_standin_fused2 -----------------------------
+    t0 = time.perf_counter()
+    scene5 = caustic_glass.scene_around(glass_standin(), dev)
+    base5 = tri_mod.to_device(scene5.triangles, dev)
+    kw5 = dict(initial_search_radius=0.055, max_depth=5, n_iterations=2,
+               photons_per_iteration=65536, device=dev)
+    png5 = os.path.join(tmp, "chip_smoke_fused_anim.png")
+    step5 = SPPMIntegrator(caustic_glass.build_camera(128, png5), **kw5)
+    fz5 = SPPMIntegrator(caustic_glass.build_camera(128, png5),
+                         fused_iterations=True, fused_block=2, **kw5)
+
+    def frame(integ, shift):
+        caustic_moving.set_frame_lights(scene5, shift)
+        return integ.render(scene5, n_iterations=2, geometry=base5,
+                            geometry_transform=T.translate(
+                                [0.0, 0.002 * shift, 0.0]))
+
+    def timed(fn):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = fn()
+        z.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(z), res
+
+    frame(step5, 0.0)   # warm
+    frames = []
+    for shift in FUSED_ANIM_SHIFTS:
+        s_ms, s_state = timed(lambda: frame(step5, shift))
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        f_ms, f_state = timed(lambda: frame(fz5, shift))
+        peak5 = torch.cuda.max_memory_allocated() / 2**30
+        counts5 = kernel_counts()
+        cap5 = fz5.fused_graphs.captures[-1]
+        blk5 = next(iter(fz5.fused_graphs.graphs.values()))
+        r_ms = cuda_ms(blk5.graph.replay, 3)
+        row = dict(shift=shift, stepwise_ms=s_ms, fused_ms=f_ms,
+                   replay_ms=r_ms, capture=cap5, run_launches=counts5,
+                   pair_totals=fz5.last_pair_totals.tolist(),
+                   pair_chunks=fz5.fused_pair_chunks, peak_gib=peak5,
+                   same_bits=states_equal(f_state, s_state),
+                   gathered=int((f_state.tau.sum(-1) > 0).sum()))
+        frames.append(row)
+        log("14b", t0, f"frame {shift}: stepwise {s_ms:.2f} ms, fused "
+            f"{f_ms:.2f} ms (warm-up {cap5['warm_ms']:.1f} ms and capture "
+            f"{cap5['capture_ms']:.1f} ms, host; the graph's replay alone "
+            f"{r_ms:.2f} ms); launches per replay {cap5['launches']}; pair "
+            f"totals {row['pair_totals']}, K {row['pair_chunks']}; peak "
+            f"{peak5:.2f} GiB; same bits {row['same_bits']}; pixels with "
+            f"tau > 0 {row['gathered']}; card {card}")
+        if not row["same_bits"] or cap5["n_iters"] != 2 \
+                or cap5["launches"]["sweep"] <= 0 or row["gathered"] <= 0 \
+                or counts5["sweep"] <= 0:
+            raise AssertionError(f"config-5 fused frame {shift}: {row}")
+    busy5 = device_busy("14b", t0, card, "fused block (replay)",
+                        lambda: blk5.replay(f_state, 1), r_ms,
+                        require=False)
+    fz5.save(f_state, 2)
+    out["anim_relight_128_standin_fused2"] = dict(
+        n_triangles=scene5.n_triangles, frames=frames, busy=busy5)
+    log(14, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -4651,6 +5015,21 @@ def main() -> int:
     shard_pro = {k: (v["prologue"] if isinstance(v, dict)
                      else [x["prologue"] for x in v])
                  for k, v in sharded.items()}
+    # -- 14: SPPM's fused blocks -------------------------------------------
+    del s13
+    torch.cuda.empty_cache()
+    s14 = slice14(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice14.json"), "w") as f:
+        json.dump(dict(card=card, **s14), f, indent=1)
+    c14 = s14["mesh1m_sppm_1024_fused1"]
+    a14 = s14["anim_relight_128_standin_fused2"]["frames"]
+    f14 = {name: dict(
+        fused_sppm_1024_launches_per_replay=c14["capture"]["launches"][name],
+        fused_sppm_1024_run_launches=c14["run_launches"][name],
+        anim_fused_launches_per_replay=[r["capture"]["launches"][name]
+                                        for r in a14],
+        anim_fused_run_launches=[r["run_launches"][name] for r in a14])
+        for name in ("sweep", "prologue")}
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
                        frames=frames,
@@ -4681,7 +5060,7 @@ def main() -> int:
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
-             **inst, **lights3, **public, **shard_sweep),
+             **inst, **lights3, **public, **shard_sweep, **f14["sweep"]),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -4710,7 +5089,7 @@ def main() -> int:
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
              **env_pro, **inst_pro, **lights3_pro, **public_pro,
-             **shard_pro),
+             **shard_pro, **f14["prologue"]),
         dict(entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
                    fused, source="trace_tpu_torch/csrc/intersect.cu"),

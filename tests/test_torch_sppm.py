@@ -564,9 +564,12 @@ def test_sphere_model_and_sppm_main_render_on_the_cpu(tmp_path, capsys):
 
 def test_left_out_paths_refuse():
     cam = TSph.build_camera(4, "unused.png")
-    for kw in (dict(fused_iterations=True), dict(fused_unroll=True)):
-        with pytest.raises(NotImplementedError):
-            TSp.SPPMIntegrator(cam, device="cpu", **kw)
+    # The fused blocks are ported (tests/test_torch_sppm_fused.py): their
+    # flags are kept, as in the JAX package; fused_cost_analysis (XLA's
+    # cost estimate, below) is still refused.
+    fz = TSp.SPPMIntegrator(cam, device="cpu", fused_iterations=True,
+                            fused_unroll=True)
+    assert fz.fused_iterations and fz.fused_unroll and fz.fused_block == 8
     # The sharded passes are ported (tests/test_torch_parallel.py): a mesh
     # must name the shard axis; shard_camera without one is ignored, as in
     # the JAX package.

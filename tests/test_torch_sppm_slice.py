@@ -18,7 +18,11 @@ to 1e-5; chunk settings change only the association of the pair sums
 (rtol 1e-5); resume and reruns are bit-exact. One port render per case at
 its default settings (the ``port_renders`` fixture) serves the render,
 chunk and resume tests; the rerun that must repeat it is a render of its
-own.
+own. Fused blocks (``fused_iterations``; the ``fused_renders`` fixture,
+each run once) equal ``port_renders`` bit for bit and meet the same gate
+against the jitted JAX render; they run pair chunks of 4096 (a fused block
+runs whole chunks, and on the CPU the pair sums do not depend on the
+chunking: the deterministic scatter adds the pairs in pair order).
 """
 import os
 
@@ -106,6 +110,23 @@ def port_renders(port_scenes):
         stats = RenderStats()
         integ, state, img = _render(name, port_scenes[name], stats=stats)
         out[name] = dict(state=state, img=img, stats=stats.as_dict())
+    return out
+
+
+# (case, fused_block, fused_unroll): mesh5k's two iterations in one
+# block, unrolled; shadows' in blocks of one and of two.
+FUSED = [("mesh5k", 2, True), ("shadows", 1, False), ("shadows", 2, False)]
+
+
+@pytest.fixture(scope="module")
+def fused_renders(port_scenes):
+    out = {}
+    for name, block, unroll in FUSED:
+        integ, state, img = _render(name, port_scenes[name],
+                                    fused_iterations=True, fused_block=block,
+                                    fused_unroll=unroll, pair_chunk=4096)
+        out[name, block] = dict(state=state, img=img,
+                                totals=integ.last_pair_totals)
     return out
 
 
@@ -199,3 +220,19 @@ def test_sweep_scene_of_the_jax_package_renders_alike(jax_runs):
     _, a, _ = _render("mesh5k", ported, n_iterations=1)
     _, b, _ = _render("mesh5k", own, n_iterations=1)
     assert _fields_equal(a, b)
+
+
+@pytest.mark.parametrize("name,block,unroll", FUSED)
+def test_fused_blocks_equal_stepwise(port_renders, fused_renders, name,
+                                     block, unroll):
+    run = fused_renders[name, block]
+    assert _fields_equal(run["state"], port_renders[name]["state"])
+    assert run["totals"].shape == (block,) and int(run["totals"][-1]) > 0
+
+
+@pytest.mark.parametrize("name,block,unroll", FUSED)
+def test_fused_blocks_match_jitted_jax(jax_runs, fused_renders, name, block,
+                                       unroll):
+    img = fused_renders[name, block]["img"]
+    assert np.isfinite(img).all()
+    assert mse(img, jax_runs[name]["img"]) < MSE_GATE

@@ -18,6 +18,7 @@ from ..core import math as m
 from ..core import transform as T
 from ..core import vec as V
 from ..core.ray import RayDifferentials
+from ..core.sync import device_constant
 from ..film.film import Film
 
 F32 = torch.float32
@@ -90,9 +91,9 @@ class PerspectiveCamera:
         dev = p_film.device
         o_c, d_c = self._one_ray(p_film, u_lens)
         ox_c, dx_c = self._one_ray(
-            p_film + torch.tensor([1.0, 0.0], dtype=F32, device=dev), u_lens)
+            p_film + device_constant((1.0, 0.0), F32, dev), u_lens)
         oy_c, dy_c = self._one_ray(
-            p_film + torch.tensor([0.0, 1.0], dtype=F32, device=dev), u_lens)
+            p_film + device_constant((0.0, 1.0), F32, dev), u_lens)
         c2w = self.camera_to_world
         time = m.lerp(float(np.float32(self.shutter_open)),
                       float(np.float32(self.shutter_close)), u_time)

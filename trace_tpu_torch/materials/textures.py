@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import transform as T
+from ..core.sync import device_constant
 
 F32 = torch.float32
 WRAPS = ("repeat", "clamp", "black")
@@ -62,6 +63,13 @@ class TransformMapping3D:
 # ---------------------------------------------------------------------------
 
 
+def _constant(v: np.ndarray, device) -> torch.Tensor:
+    """A host float32 value (scalar or RGB) on ``device``, made once."""
+    x = v.tolist()
+    return device_constant(tuple(x) if isinstance(x, list) else x,
+                           torch.float32, device)
+
+
 class Texture:
     def __call__(self, hit):
         raise NotImplementedError
@@ -81,7 +89,7 @@ class ConstantTexture(Texture):
 
     def __call__(self, hit):
         n = hit.t.shape[0]
-        v = torch.as_tensor(self.value, device=hit.t.device)
+        v = _constant(self.value, hit.t.device)
         return v.expand((n, 3) if self.is_spectral else (n,))
 
 
@@ -141,7 +149,7 @@ class BilerpTexture(Texture):
         st, _, _ = self.mapping(hit)
         s, t = st[..., 0], st[..., 1]
         dev = st.device
-        c = [torch.as_tensor(v, device=dev)
+        c = [_constant(v, dev)
              for v in (self.v00, self.v01, self.v10, self.v11)]
         if self.is_spectral:
             s, t = s[..., None], t[..., None]

@@ -35,6 +35,7 @@ import torch
 from ..accel.clusters import (ClusterAccel, entry_boxes, refit_clusters,
                               sort_key)
 from ..accel.mxu import MT_ERR_EPS, mt_epilogue, mt_epilogue_certified
+from ..core.sync import sync_free
 from .nvcc import CudaLibrary, check_tensors
 
 F32 = torch.float32
@@ -698,7 +699,9 @@ class SweepAccelerator:
         t_max < 0 are dead and sort last. Only the chunks that hold a live
         lane run the prologue and the sweep (``live_chunks``); the others
         get what the sweep gives a dead lane -- hit false, t +inf and the
-        triangle of slot 0 -- and count in ``skipped_chunks``."""
+        triangle of slot 0 -- and count in ``skipped_chunks``. In the
+        sync-free mode (core/sync.py) every chunk launches, with no host
+        read: a chunk with no live lane gives the same result."""
         n = o.shape[0]
         perm = self.coherence_order(o, d, t_max)
         o, d, t_max = o[perm], d[perm], t_max[perm]
@@ -709,7 +712,8 @@ class SweepAccelerator:
         t = torch.full((n,), INF, dtype=F32, device=o.device)
         idx = self.slot_to_tri[0].clamp_min(0).to(torch.int32).expand(
             n).clone()
-        starts = self.live_chunks(t_max)
+        starts = (range(0, n, c) if sync_free() else
+                  self.live_chunks(t_max))
         self.skipped_chunks += -(-n // c) - len(starts)
         for s in starts:
             hit[s:s + c], t[s:s + c], idx[s:s + c] = self._traverse_chunk(

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.sync import device_constant
+
 F32 = torch.float32
 M32 = 0xFFFFFFFF
 TWO_M32 = float(np.float32(2.3283064365386963e-10))   # 2^-32
@@ -74,8 +76,7 @@ def radical_inverses(dims, a: torch.Tensor, a_max: int | None = None
     if gen:
         bases = [int(PRIMES[dm]) for _, dm in gen]
         k = len(gen)
-        base = torch.tensor(bases, dtype=torch.int64,
-                            device=a.device)[:, None]
+        base = device_constant(tuple(bases), torch.int64, a.device)[:, None]
         inv_base = 1.0 / base.to(F32)
         cur = a[None, :].expand(k, -1)
         acc = torch.zeros((k, a.shape[0]), dtype=torch.int64, device=a.device)

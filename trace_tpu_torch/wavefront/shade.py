@@ -23,6 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import vec as V
+from ..core.sync import device_constant
 from ..core.vec import V3
 
 F32 = torch.float32
@@ -83,17 +84,10 @@ def can_match(kinds: SlotKinds, type_flags: int) -> bool:
                for k in kinds.lobes)
 
 
-_FLAG_TABLES = {}
-
-
 def lobe_flags(kind: torch.Tensor) -> torch.Tensor:
     # One table per device: building it per call would copy from the
     # host, and a host copy waits for the device to drain.
-    table = _FLAG_TABLES.get(kind.device)
-    if table is None:
-        table = torch.tensor(_FLAGS, dtype=torch.int32, device=kind.device)
-        _FLAG_TABLES[kind.device] = table
-    return table[kind.long()]
+    return device_constant(_FLAGS, torch.int32, kind.device)[kind.long()]
 
 
 def matches_flags(kind: torch.Tensor, type_flags: int) -> torch.Tensor:

@@ -12,8 +12,9 @@ pair phases read.
 
 Dead lanes go to the sweep with t_max = -1 (``closest_hit(live=)``);
 their results are masked out anyway. The walk stops once no lane is
-active, and the last depth samples no continuation: neither changes a
-result.
+active (in the sync-free mode, core/sync.py, it runs every depth: a
+depth with no active lane changes no value), and the last depth samples
+no continuation: neither changes a result.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS, scale_differentials
+from ..core.sync import sync_free
 from ..core.vec import V3
 from ..sampler import uniform as U
 from . import geom as G
@@ -146,7 +148,8 @@ def camera_pass_body(integ, scene, pixels, lane_valid, key):
                 (lobes.ng, lobes.ns, lobes.ss, lobes.ts), vp_frame[:4])
         ) + (torch.where(make_vp, lobes.eta, vp_frame[4]),)
         active = live & ~make_vp
-        if depth == integ.max_depth or not bool(active.any()):
+        if depth == integ.max_depth or (
+                not sync_free() and not bool(active.any())):
             break
 
         u0, u1 = WW.uniform2(U.fold_lanes(k_depth, 1))

@@ -12,7 +12,8 @@ does.
 
 Dead lanes go to the sweep with t_max = -1; the last depth samples no
 continuation, and once no photon is active the remaining levels record
-nothing: neither changes a record.
+nothing (in the sync-free mode, core/sync.py, they run and record zeros,
+the same records): neither changes a record.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import torch
 
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS
+from ..core.sync import sync_free
 from ..sampler import halton as H
 from . import lights as WL
 from . import materials as WM
@@ -67,7 +69,7 @@ def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
     zero_i = torch.zeros((c,), dtype=torch.int32, device=dev)
     levels = []
     for depth in range(1, depth_max + 1):
-        if depth > 1 and not bool(active.any()):
+        if depth > 1 and not sync_free() and not bool(active.any()):
             levels += [(zero3, zero3, zero3, zero_i, zero_i)] * (
                 depth_max + 1 - depth)
             break
