@@ -316,6 +316,27 @@ Phases (each prints lines with its seconds; any failure raises):
         timed (the fused frame holding its view's warm-up and capture), the
         replay alone, launches per replay, pair totals, K, peak GiB; the
         device-busy share of a replay.
+ 15. the walk kernel on bench config 3's 1M-ray calls (details in
+     chiprun_out/slice15.json):
+     a. mesh1m_sppm_1024_wbvh, config 3's settings (1024^2, 262144
+        photons, depth 8, radius 0.075, seed 0) on the 1M mesh behind
+        accelerator="wbvh": a warm iteration and two timed with their
+        phases' ms and walk launches (counts set to 0 before each), peak
+        GiB and the device-busy share of one more; then _fused1, blocks of
+        one iteration replayed as one CUDA graph each: each block's state
+        bit-equal to the stepwise state of the same iteration, its ms, the
+        replay alone, walk launches per replay, one host sync a block, the
+        busy share of a replay, peak GiB;
+     b. every walk call of one such iteration (camera closest and shadow
+        at each depth, photons at each depth; 1,048,576 and 262,144 rays)
+        and of 12a's Whitted frame: the kernel's device ms (10 launches
+        replayed as one CUDA graph, so no host time between launches is
+        counted), node visits, triangle tests, the longest walk, bound
+        and share; on the fixed 65,536 rays in the middle of each SPPM
+        call, the kernel against walk_plain (t bits, ids, per-ray counts,
+        marks equal) and the whole call's run on the same rays;
+     c. ptxas's registers, stack frame, spills and shared memory for
+        each of the walk kernel's eight arms.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -331,7 +352,9 @@ iterations (gloo rank 0 of 2, the NCCL rank), and per replay and in
 the whole run of phase 14's fused 1024^2 block and config-5 frames;
 intersect with the queries' brute-force oracle's;
 bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
-timed on 12a's camera call),
+timed on 12a's camera call, and with its launches in one stepwise 1024^2
+iteration and per fused replay of phase 15, the iteration's walk ms and
+the 1M camera call's ms and bound),
 the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -404,6 +427,30 @@ def cuda_ms(fn, reps):
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def graph_ms(fn, reps):
+    """Device ms of one ``fn()``: ``reps`` calls captured as one CUDA
+    graph, replayed once warm and once timed with CUDA events, so that no
+    host time between the launches is counted (cuda_ms counts it where a
+    launch is shorter than its Python call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
@@ -2152,10 +2199,12 @@ def record_walks(geom):
     return calls
 
 
-def sppm_iterations(phase, t0, card, integ, scene, acc, n, walk=False):
+def sppm_iterations(phase, t0, card, integ, scene, acc, n, walk=False,
+                    states=None):
     """``n`` SPPM iterations (the first warm), each with its phases' ms
     and its sweep and prologue launches and chunks skipped; with ``walk``
-    (a BVH walk accelerator) its walk launches instead, and no sweep."""
+    (a BVH walk accelerator) its walk launches instead, and no sweep;
+    with a list ``states``, each iteration's state appended to it."""
     import torch
     from trace_tpu_torch.integrators import sppm as SP
     from trace_tpu_torch.ops.bvh_walk import walk_kernel
@@ -2184,6 +2233,8 @@ def sppm_iterations(phase, t0, card, integ, scene, acc, n, walk=False):
             z = torch.cuda.Event(enable_timing=True)
             z.record()
             torch.cuda.synchronize()
+            if states is not None:
+                states.append(state)
             row = dict(iteration=it, ms=a.elapsed_time(z),
                        sweep_launches=sweep_kernel.launches,
                        f32_launches=sweep_kernel.arm_launches["f32"],
@@ -3356,6 +3407,40 @@ def sweep_call_ms(acc, o, d, tm, anyh):
     return pro, swp, len(starts)
 
 
+def tagged_walk_calls(integ, scene):
+    """Render with the SPPM integrator ``integ`` on ``scene`` and return
+    every intersect call of its accelerator, named by pass and depth:
+    [(name, o, d, t_max, any_hit)], names "camera depth 1", "camera
+    shadow 1", ..., "photon depth 1", ..."""
+    acc = scene.accel
+    phase = ["camera"]
+    passes = (("_camera_pass_all", "camera"), ("_photon_walk_all", "photon"))
+    for name, label in passes:
+        def tagged(*a, _fn=getattr(integ, name), _label=label, **k):
+            phase[0] = _label
+            return _fn(*a, **k)
+        setattr(integ, name, tagged)
+    calls, depth = [], {"camera": 0, "photon": 0}
+    traced = acc.intersect
+
+    def record(o, d, t_max, any_hit):
+        ph = phase[0]
+        depth[ph] += not any_hit
+        calls.append((f"{ph} {'shadow' if any_hit else 'depth'} "
+                      f"{depth[ph]}", o.clone(), d.clone(), t_max.clone(),
+                      any_hit))
+        return traced(o, d, t_max, any_hit)
+
+    acc.intersect = record
+    try:
+        integ.render(scene)
+    finally:
+        del acc.intersect
+        for name, _ in passes:
+            delattr(integ, name)
+    return calls
+
+
 def walk_cases(dev):
     """The walk's two traps on the card (tests/test_torch_wbvh.py's
     inputs): a leaf of 9 triangles sharing one centroid, whose nearest
@@ -3617,31 +3702,9 @@ def slice12(dev, card, scene, t_all):
     # through both accelerators on the same (o, d, t_max).
     sinteg = SPPMIntegrator(mesh_heavy.build_camera(256, os.path.join(
         tmp, "chip_smoke_sppm_tagged.png")), **dict(kw, n_iterations=1))
-    phase = ["camera"]
-    for name, label in (("_camera_pass_all", "camera"),
-                        ("_photon_walk_all", "photon")):
-        def tagged(*a, _fn=getattr(sinteg, name), _label=label, **k):
-            phase[0] = _label
-            return _fn(*a, **k)
-        setattr(sinteg, name, tagged)
-    scalls, tags = [], []
-    traced = wacc.intersect
-
-    def record(o, d, t_max, any_hit):
-        scalls.append((o.clone(), d.clone(), t_max.clone(), any_hit))
-        tags.append(phase[0])
-        return traced(o, d, t_max, any_hit)
-
-    wacc.intersect = record
-    try:
-        sinteg.render(view)
-    finally:
-        del wacc.intersect
-    per_depth, depth = [], {"camera": 0, "photon": 0}
-    for (o, d, tm, anyh), ph in zip(scalls, tags):
-        if not anyh:
-            depth[ph] += 1
-        name = f"{ph} {'shadow' if anyh else 'depth'} {depth[ph]}"
+    per_depth = []
+    scalls = tagged_walk_calls(sinteg, view)
+    for name, o, d, tm, anyh in scalls:
         orders = walk_orders(wacc, o, d, tm)
         wk = dict(any_hit=anyh, limit="wbvh", stack_depth=wacc.stack_depth)
         _, _, stats, seen = walk_marked(wacc, *orders[own], anyh)
@@ -3666,7 +3729,7 @@ def slice12(dev, card, scene, t_all):
             lambda: sacc.intersect(o, d, tm, anyh), 3)
         per_depth.append(row)
         log("12d", t0, f"{row}; card {card}")
-    if not any(t == "photon" for t in tags):
+    if not any(c[0].startswith("photon") for c in scalls):
         raise AssertionError("[12d] no photon calls through the walk")
     out["sppm"], out["sppm_per_depth"] = sppm, per_depth
 
@@ -4475,6 +4538,214 @@ def slice14(dev, card, scene, t_all):
     return out
 
 
+# Phase 15: the walk kernel on config 3's 1M-ray SPPM calls.
+WALK_SLICE = 65536    # rays of each call held against walk_plain
+SPPM_1024_WALK_ITERS = 3   # a warm iteration, then two
+
+
+def walk_ptxas(logtext: str) -> dict:
+    """ptxas's report of each bvh_walk arm: registers, stack frame (the
+    local memory a thread holds), spill stores and loads, static shared
+    memory, all in bytes but the registers."""
+    out, name, frame = {}, None, {}
+    for line in logtext.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            w = re.search(r"bvh_walk_kernelILb(\d)ELb(\d)ELb(\d)E",
+                          m.group(1))
+            arms = zip(("any_hit", "bvh", "stats"), w.groups()) if w else ()
+            name = "_".join(["bvh_walk"] + [k for k, b in arms if b == "1"]) \
+                if w else None
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = dict(zip(("stack_frame", "spill_stores", "spill_loads"),
+                             map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = dict(registers=int(m.group(1)), **frame,
+                             smem=int(smem.group(1)) if smem else 0)
+            name = None
+    return out
+
+
+def walk_call_row(wacc, name, o, d, tm, anyh, reps=10):
+    """One walk call through the kernel: device ms (graph_ms, ``reps``
+    launches), lanes, live lanes, node visits, triangle tests, the longest
+    walk, the bound and its share; and the counted run's (t, id, stats,
+    seen)."""
+    from trace_tpu_torch.ops.bvh_walk import walk_kernel
+
+    kw = dict(any_hit=anyh, limit=wacc.limit, stack_depth=wacc.stack_depth)
+    k = walk_marked(wacc, o, d, tm, anyh, wacc.limit)
+    row = dict(call=name, lanes=o.shape[0], live=int((tm > 0).sum()),
+               visits=int(k[2][0].sum()), tests=int(k[2][1].sum()),
+               max_visits=int(k[2][0].max()),
+               ms=graph_ms(lambda: walk_kernel(wacc.nodes, wacc.tris, o, d,
+                                               tm, **kw), reps))
+    row.update(walk_bound(k[2], k[3], wacc.nodes.shape[0], o.shape[0]))
+    row["share"] = row["bound_ms"] / row["ms"]
+    return row, k
+
+
+def walk_slice_check(wacc, o, d, tm, anyh, whole):
+    """The kernel against walk_plain on the fixed WALK_SLICE rays in the
+    middle of a call: t bits, ids, per-ray counts and marks (a launch of
+    the slice alone), and the whole call's counted run (``whole``) on the
+    same rays against that launch."""
+    import torch
+
+    s = max(0, (o.shape[0] - WALK_SLICE) // 2)
+    sl = slice(s, s + WALK_SLICE)
+    args = (o[sl], d[sl], tm[sl], anyh, wacc.limit)
+    k = walk_marked(wacc, *args)
+    t1 = time.perf_counter()
+    p = walk_marked(wacc, *args, plain=True)
+    torch.cuda.synchronize()
+    c = walk_compare(k, p)
+    c["plain_s"] = time.perf_counter() - t1
+    c["whole_call_differs"] = int(
+        (whole[0][sl].view(torch.int32) != k[0].view(torch.int32)).sum()
+        + (whole[1][sl] != k[1]).sum() + (whole[2][:, sl] != k[2]).sum())
+    c["slice"] = [s, s + o[sl].shape[0]]
+    return c
+
+
+def slice15(dev, card, scene, t_all):
+    """Phase 15: the walk kernel on mesh1m_sppm_1024_wbvh (module
+    docstring). ``scene`` is the 1M mesh_heavy scene on its sweep."""
+    import torch
+    from trace_tpu_torch.accel import wbvh as W
+    from trace_tpu_torch.integrators.fused import kernel_counts
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import bvh_walk, intersect
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+
+    def reset():
+        for k in (sweep_kernel, block_entry_kernel, bvh_walk.walk_kernel,
+                  intersect.intersect_kernel):
+            k.reset_counts()
+
+    tmp = tempfile.gettempdir()
+    out = dict(ptxas=walk_ptxas(bvh_walk.walk_kernel.lib.build_log))
+    t0 = time.perf_counter()
+    log("15c", t0, f"walk kernel arms (registers, stack frame, spills, "
+        f"smem): {out['ptxas']}")
+    # An earlier process's build leaves no log to read (phase 1 builds
+    # from source in a fresh checkout).
+    if bvh_walk.walk_kernel.lib.build_log and len(out["ptxas"]) != 8:
+        raise AssertionError(f"[15c] ptxas reported {len(out['ptxas'])} "
+                             f"walk arms, not 8")
+    # -- 15a: mesh1m_sppm_1024_wbvh, stepwise then fused ---------------------
+    torch.cuda.empty_cache()
+    view = scene.with_geometry(scene.triangles, None)
+    W.attach(view)
+    wacc = view.accel
+    n_it = SPPM_1024_WALK_ITERS
+    kw = dict(initial_search_radius=0.075, max_depth=8, n_iterations=n_it,
+              photons_per_iteration=262144, seed=0, device=dev)
+    cam = mesh_heavy.build_camera(1024, os.path.join(
+        tmp, "chip_smoke_wbvh_1024.png"))
+    integ = SPPMIntegrator(cam, **kw)
+    integ.check_scene(view)
+    states = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows, state = sppm_iterations("15a", t0, card, integ, view, wacc, n_it,
+                                  walk=True, states=states)
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    args = (integ._pixel_grid(dev), U.key(integ.seed, dev),
+            *integ.light_distribution(view))
+    step_busy = device_busy("15a", t0, card, "stepwise iteration",
+                            lambda: integ.step(view, state, n_it + 1, *args),
+                            float(np.mean([r["ms"] for r in rows[1:]])))
+    fz = SPPMIntegrator(cam, fused_iterations=True, fused_block=1, **kw)
+    blocks = timed_blocks(fz)
+    reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    final = fz.render(view)
+    counts = kernel_counts()
+    fused_peak = torch.cuda.max_memory_allocated() / 2**30
+    del fz._fused_block
+    cap = fz.fused_graphs.captures[0]
+    same = [states_equal(r["state"], s) for r, s in zip(blocks, states)]
+    blk = next(iter(fz.fused_graphs.graphs.values()))
+    replay_ms = cuda_ms(blk.graph.replay, 3)
+    syncs = replay_syncs(fz, view, blocks[-2]["state"], n_it)
+    fused_busy = device_busy("15a", t0, card, "fused block (replay)",
+                             lambda: blk.replay(blocks[-2]["state"], n_it),
+                             replay_ms, require=False)
+    img = fz.to_image(final, n_it)
+    finite = bool(torch.isfinite(img).all())
+    gathered = int((final.tau.sum(-1) > 0).sum())
+    fz.save(final, n_it)
+    log("15a", t0, f"fused_block=1 on wbvh: blocks "
+        f"{[(r['it'], round(r['ms'], 2)) for r in blocks]} ms (block 1 "
+        f"holds the warm-up {cap['warm_ms']:.1f} ms and the capture "
+        f"{cap['capture_ms']:.1f} ms, host); the graph's replay alone "
+        f"{replay_ms:.2f} ms; launches per replay {cap['launches']}; the "
+        f"run's launches {counts}; pair totals "
+        f"{[r['totals'] for r in blocks]}, K {blocks[-1]['pair_chunks']}; "
+        f"peak {fused_peak:.2f} GiB (stepwise {step_peak:.2f}); each "
+        f"block's state == stepwise: {same}; host syncs a block {syncs}; "
+        f"finite {finite}, pixels with tau > 0 {gathered}; card {card}")
+    if len(blocks) != n_it or not all(same) or syncs != 1 or not finite \
+            or gathered <= 0 or cap["launches"]["bvh_walk"] <= 0 \
+            or cap["launches"]["sweep"] or counts["sweep"] \
+            or len(fz.fused_graphs.captures) != 1:
+        raise AssertionError(f"[15a] fused wbvh blocks: same {same}, syncs "
+                             f"{syncs}, finite {finite}, gathered "
+                             f"{gathered}, launches {cap['launches']}")
+    out["mesh1m_sppm_1024_wbvh"] = dict(
+        iterations=rows, peak_gib=step_peak, busy=step_busy,
+        walk_launches=rows[-1]["walk_launches"])
+    out["mesh1m_sppm_1024_wbvh_fused1"] = dict(
+        blocks=[{k: v for k, v in r.items() if k != "state"}
+                for r in blocks], same_bits=same, capture=cap,
+        run_launches=counts, replay_ms=replay_ms, host_syncs_per_block=syncs,
+        busy=fused_busy, peak_gib=fused_peak, pixels_gathered=gathered)
+    del blocks, states, blk, fz, final, state
+    torch.cuda.empty_cache()
+
+    # -- 15b: every walk call of one iteration, and of 12a's frame ----------
+    t0 = time.perf_counter()
+    one = SPPMIntegrator(cam, **dict(kw, n_iterations=1))
+    calls = tagged_walk_calls(one, view)
+    whitted = WhittedIntegrator(mesh_heavy.build_camera(256, os.path.join(
+        tmp, "chip_smoke_wbvh_256.png")), U.UniformSampler(1, seed=0),
+        max_depth=2)
+    frame = [(f"whitted {name}", *c) for name, c in zip(
+        ("camera", "shadow", "specular", "specular shadow"),
+        record_calls(whitted, view))]
+    per_call = []
+    for name, o, d, tm, anyh in calls + frame:
+        row, k = walk_call_row(wacc, name, o, d, tm, anyh)
+        if not name.startswith("whitted"):   # 12a holds the frame's calls
+            row["vs_plain"] = c = walk_slice_check(wacc, o, d, tm, anyh, k)
+            if walk_disagrees(c) or c["t_bits_mismatch"] \
+                    or c["whole_call_differs"]:
+                raise AssertionError(f"[15b] {name}: the walk kernel "
+                                     f"disagrees with plain: {c}")
+        per_call.append(row)
+        log("15b", t0, f"{row}; card {card}")
+    sppm_ms = sum(r["ms"] for r in per_call
+                  if not r["call"].startswith("whitted"))
+    log("15b", t0, f"the 1024^2 iteration's {len(calls)} walk calls: "
+        f"{sppm_ms:.4f} ms of kernel in all; card {card}")
+    if not any(c[0].startswith("photon") for c in calls) \
+            or calls[0][1].shape[0] != one.n_pixels:
+        raise AssertionError(f"[15b] unexpected calls: "
+                             f"{[(c[0], c[1].shape[0]) for c in calls]}")
+    out["per_call"], out["sppm_1024_walk_ms"] = per_call, sppm_ms
+    log(15, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
@@ -5030,6 +5301,22 @@ def main() -> int:
                                         for r in a14],
         anim_fused_run_launches=[r["run_launches"][name] for r in a14])
         for name in ("sweep", "prologue")}
+    # -- 15: the walk kernel on config 3's 1M-ray calls --------------------
+    del s14
+    torch.cuda.empty_cache()
+    s15 = slice15(dev, card, scene, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice15.json"), "w") as f:
+        json.dump(dict(card=card, **s15), f, indent=1)
+    c15 = s15["mesh1m_sppm_1024_wbvh_fused1"]
+    walk15 = dict(
+        sppm_1024_launches=s15["mesh1m_sppm_1024_wbvh"]["walk_launches"],
+        fused_sppm_1024_launches_per_replay=c15["capture"]["launches"][
+            "bvh_walk"],
+        fused_sppm_1024_run_launches=c15["run_launches"]["bvh_walk"],
+        sppm_1024_walk_ms=s15["sppm_1024_walk_ms"],
+        camera_1m_ms=s15["per_call"][0]["ms"],
+        camera_1m_bound_ms=s15["per_call"][0]["bound_ms"])
+    log(15, t_all, "the whole run, phases 0-15")
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
                        frames=frames,
@@ -5094,7 +5381,7 @@ def main() -> int:
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
                    fused, source="trace_tpu_torch/csrc/intersect.cu"),
              scene_query_oracle_launches=s11c["oracle_launches"]),
-        s12["entry"],
+        dict(s12["entry"], **walk15),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

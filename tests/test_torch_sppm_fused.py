@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from trace_tpu_torch.accel import clusters as TC
+from trace_tpu_torch.accel import wbvh as TW
 from trace_tpu_torch.core import transform as T
 from trace_tpu_torch.core.sync import no_host_reads, sync_free
 from trace_tpu_torch.integrators import fused as F
@@ -320,6 +321,19 @@ def test_card_refuses_scenes_that_read_the_host():
     with pytest.raises(NotImplementedError, match="clusters traversal"):
         F.check_capturable(clus)
     F.check_capturable(_soup_scene())
+
+
+def test_wbvh_scene_fused_blocks_equal_stepwise(scenes):
+    """The soup behind the BVH walk (wbvh.attach on a view of the
+    scene): its walk reads nothing on the host, so the card may capture
+    it, and a fused block gives the stepwise bits."""
+    scene = TW.attach(scenes["soup"].with_geometry(scenes["soup"].triangles,
+                                                   None))
+    assert isinstance(scene.accel, TW.WBVHAccelerator)
+    F.check_capturable(scene)
+    runs = [_integ("soup", n_iterations=1, photons_per_iteration=2048,
+                   fused_iterations=f).render(scene) for f in (False, True)]
+    assert _equal(*runs) and float(runs[0].tau.sum()) > 0
 
 
 def test_fused_settings_and_cost_analysis():

@@ -34,9 +34,11 @@ from .clusters import sorted_chunks
 F32 = torch.float32
 I32 = torch.int32
 INF = float("inf")
-# Rays a launch: the kernel runs a thread a ray, and the card holds ~270k
-# threads at once (132 SMs x 2048), so one launch a call fills it best;
-# the JAX package's 16384 a chunk would leave it mostly idle.
+# Rays a launch: the kernel runs a thread a ray, and a launch lasts as
+# long as its slowest warp, so one launch a call overlaps every walk of the
+# call with the longest (the card holds ~170k of its threads at once, 132
+# SMs x 10 CTAs of 128); the JAX package's 16384 a chunk would run the
+# longest walks one chunk after another.
 RAY_CHUNK = 1 << 20
 
 

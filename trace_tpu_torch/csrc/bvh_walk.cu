@@ -42,11 +42,35 @@
 // and tests the rays' own walks need, or the bytes that must come from
 // HBM (each distinct node row, 32 B, and triangle row, 48 B, the walks
 // touch, once; the rays and the outputs), whichever is more. The
-// counting arm marks the rows it touches for that. The design is the
-// simple one: one thread a ray, 128 threads a CTA, node rows read as two
-// float4 and triangle rows as three, the stack in local memory. Rays come
-// in the caller's order (WBVHAccelerator's sort_rays, off by default,
-// sorts them for coherence first).
+// counting arm marks the rows it touches for that. What holds it back
+// instead is a call's longest walks: up to ~600 visits on the 1M
+// terrain's grazing rays, each a dependent node load, ~290 ns a visit
+// on an idle H100 and more under load; a 1M-ray call lasts about twice
+// its longest walk (PERF.md section 6). The design: one thread a ray,
+// 128 threads a CTA, node rows read as two float4 and triangle rows as
+// three, the stack of node indices in local memory; and three changes,
+// each measured faster on the same calls:
+//   - a ray that walks nothing (t_max not > 0, or NaN: most lanes of a
+//     wavefront's later depths) reads only its t_max and writes its miss,
+//     so a 1M-lane call with a few thousand live lanes is done with its
+//     dead lanes in a few microseconds instead of after a pass of loads
+//     and divisions on every lane;
+//   - the watertight test returns at its first failed condition (edge
+//     signs, det, the t range, a degenerate triangle) and divides only
+//     for a triangle that passes: a leaf's misses cost a few dozen
+//     instructions, and a warp's lanes at leaves hold its other lanes
+//     back less;
+//   - the slab's NaN heal is one test of a + b (NaN exactly when a or b is,
+//     or when they are infinities of opposite sign, whose min and max are
+//     -inf and +inf anyway) and fminf / fmaxf, with no branch.
+// Not kept, each measured slower on this card on the same calls
+// (PERF.md section 6): persistent warps taking rays from a counter, the
+// while-while loop, both children's rows at each step with the far
+// child's slab key on the stack, the first child's row loaded with its
+// parent's, the next triangle's row loaded early, 64-thread CTAs, a
+// 40-register bound, and an L2 persisting window over the node rows. Rays
+// come in the caller's order (WBVHAccelerator's sort_rays, off by
+// default, sorts them for coherence first).
 //
 // Layouts (all contiguous):
 //   nodes f32 [M, 8]:  lo.xyz, hi.xyz, link (leaf: first row of its
@@ -85,18 +109,16 @@ __device__ __forceinline__ void perm3(const Ray &r, float wx, float wy,
   vz = r.m0 ? wx : (r.m1 ? wy : wz);
 }
 
-// One axis of the slab test, NaN-propagating min/max then healed.
+// One axis of the slab test, NaN-propagating min/max then healed. The
+// slab's result is a set of comparisons, so fminf / fmaxf's choice
+// between -0.0 and +0.0 cannot change it.
 __device__ __forceinline__ void near_far(float lo, float hi, float o,
                                          float inv, float &n, float &f) {
   const float a = (lo - o) * inv;
   const float b = (hi - o) * inv;
-  if (isnan(a) || isnan(b)) {
-    n = -CUDART_INF_F;
-    f = CUDART_INF_F;
-  } else {
-    n = a < b ? a : b;
-    f = a > b ? a : b;
-  }
+  const bool open = isnan(a + b);
+  n = open ? -CUDART_INF_F : fminf(a, b);
+  f = open ? CUDART_INF_F : fmaxf(a, b);
 }
 
 __device__ __forceinline__ bool slab(const Ray &r, float4 a, float4 b,
@@ -121,16 +143,12 @@ __device__ __forceinline__ void shear(const Ray &r, float vx, float vy,
 }
 
 // The watertight test (wavefront/geom.py::_watertight, exact_edges off):
-// whether the ray hits the triangle with 0 < t <= t_lim; t on a hit.
+// whether the ray hits the triangle with 0 < t <= t_lim; t on a hit. The
+// plain version's conditions, tested in order of cost; t is computed
+// only for a hit, the only case in which the caller reads it.
 __device__ __forceinline__ bool watertight(const Ray &r, float4 p, float4 q,
                                            float4 s, float t_lim, float &t) {
   // v0 = p.xyz, v1 = (p.w, q.x, q.y), v2 = (q.z, q.w, s.x)
-  const float ax = q.z - p.x, ay = q.w - p.y, az = s.x - p.z;  // v2 - v0
-  const float bx = p.w - p.x, by = q.x - p.y, bz = q.y - p.z;  // v1 - v0
-  const float cx = ay * bz - az * by;
-  const float cy = az * bx - ax * bz;
-  const float cz = ax * by - ay * bx;
-  const bool degenerate = cx * cx + cy * cy + cz * cz == 0.0f;
   float x0, y0, z0, x1, y1, z1, x2, y2, z2;
   shear(r, p.x, p.y, p.z, x0, y0, z0);
   shear(r, p.w, q.x, q.y, x1, y1, z1);
@@ -138,15 +156,23 @@ __device__ __forceinline__ bool watertight(const Ray &r, float4 p, float4 q,
   const float e0 = x1 * y2 - y1 * x2;
   const float e1 = x2 * y0 - y2 * x0;
   const float e2 = x0 * y1 - y0 * x1;
-  const bool mixed = (e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) &&
-                     (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f);
+  if ((e0 < 0.0f || e1 < 0.0f || e2 < 0.0f) &&
+      (e0 > 0.0f || e1 > 0.0f || e2 > 0.0f))
+    return false;  // the edge functions' signs are mixed
   const float det = e0 + e1 + e2;
+  if (det == 0.0f) return false;
   const float ts = e0 * (z0 * r.sz) + e1 * (z1 * r.sz) + e2 * (z2 * r.sz);
-  const bool bad_neg = det < 0.0f && (ts >= 0.0f || ts < t_lim * det);
-  const bool bad_pos = det > 0.0f && (ts <= 0.0f || ts > t_lim * det);
-  const float inv_det = 1.0f / (det == 0.0f ? 1.0f : det);
-  t = ts * inv_det;
-  return !degenerate && !mixed && det != 0.0f && !bad_neg && !bad_pos;
+  if (det < 0.0f ? (ts >= 0.0f || ts < t_lim * det)
+                 : (ts <= 0.0f || ts > t_lim * det))
+    return false;
+  const float ax = q.z - p.x, ay = q.w - p.y, az = s.x - p.z;  // v2 - v0
+  const float bx = p.w - p.x, by = q.x - p.y, bz = q.y - p.z;  // v1 - v0
+  const float cx = ay * bz - az * by;
+  const float cy = az * bx - ax * bz;
+  const float cz = ax * by - ay * bx;
+  if (cx * cx + cy * cy + cz * cz == 0.0f) return false;  // degenerate
+  t = ts * (1.0f / det);
+  return true;
 }
 
 template <bool kAnyHit, bool kBvhLimit, bool kStats>
@@ -161,6 +187,16 @@ __global__ void __launch_bounds__(kThreads)
                     uint8_t *__restrict__ tri_seen, int n, int stack_depth) {
   const int lane = blockIdx.x * kThreads + threadIdx.x;
   if (lane >= n) return;
+  const float tm = t_max[lane];
+  if (!(tm > 0.0f)) {  // walks nothing
+    out_t[lane] = CUDART_INF_F;
+    out_i[lane] = -1;
+    if (kStats) {
+      stats[lane] = 0;
+      stats[n + lane] = 0;
+    }
+    return;
+  }
   Ray r;
   r.ox = o[3 * lane];
   r.oy = o[3 * lane + 1];
@@ -182,12 +218,11 @@ __global__ void __launch_bounds__(kThreads)
   r.sz = inv_dz;
   const bool negx = r.ix < 0.0f, negy = r.iy < 0.0f, negz = r.iz < 0.0f;
 
-  const float tm = t_max[lane];
   float bt = tm;
   int32_t bi = -1;
   int stack[kStackCap];
   int sp = 0;
-  int cur = tm > 0.0f ? 0 : -1;
+  int cur = 0;
   int visits = 0, tests = 0;
   while (cur >= 0) {
     ++visits;

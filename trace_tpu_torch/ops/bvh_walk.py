@@ -54,14 +54,18 @@ class WalkKernel:
             (o, F32, (n, 3)), (d, F32, (n, 3)), (t_max, F32, (n,)))
             + (() if seen is None else (
                 (seen, torch.uint8, (m + tris.shape[0],)),)))
-        if dev.type != "cuda" or limit not in LIMITS \
-                or not 1 <= stack_depth <= STACK_CAP \
-                or any(t.data_ptr() % 16 for t in (nodes, tris)) \
-                or (seen is not None and not collect_stats):
-            raise ValueError(f"bvh walk kernel: CUDA tensors, limit in "
-                             f"{LIMITS}, 1 <= stack_depth <= {STACK_CAP}, "
-                             f"nodes and tris 16-byte aligned, seen only "
-                             f"with collect_stats")
+        for bad, what in (
+                (limit not in LIMITS, f"limit in {LIMITS}"),
+                (not 1 <= stack_depth <= STACK_CAP,
+                 f"1 <= stack_depth <= {STACK_CAP}"),
+                (any(t.data_ptr() % 16 for t in (nodes, tris)),
+                 "nodes and tris 16-byte aligned"),
+                (seen is not None and not collect_stats,
+                 "seen only with collect_stats"),
+                (dev.type != "cuda", "CUDA tensors (walk_plain takes the "
+                 "CPU's)")):
+            if bad:
+                raise ValueError(f"bvh walk kernel: wants {what}")
         launch = self.lib.load()
         out_t = torch.empty(n, dtype=F32, device=dev)
         out_i = torch.empty(n, dtype=torch.int32, device=dev)
