@@ -337,6 +337,43 @@ Phases (each prints lines with its seconds; any failure raises):
         marks equal) and the whole call's run on the same rays;
      c. ptxas's registers, stack frame, spills and shared memory for
         each of the walk kernel's eight arms.
+16. the last public signatures of the JAX package on the card (details
+    in chiprun_out/slice16.json):
+     a. bench config 4 with its own arguments (pixel_chunk=1 << 16,
+        spp_per_dispatch=1) on the 1M mesh: the 256^2 1-spp frame and the
+        512^2 4-spp frame (264,196 lanes in 5 chunks x 4 samples), each a
+        warm frame (launches counted from 0) and two timed, peak GiB,
+        useful_rays, queue_drops (0), workload Mrays/s; every 32nd sweep
+        launch of the 512^2 frame's warm render, and the last, against
+        sweep_plain and its prologue against prologue_plain, bit for bit;
+        the 512^2 frame as one chunk (its ms and peak GiB) against the
+        chunked one, MSE < 1e-8;
+     b. Whitted sort_materials=True against False on 16a's 256^2 frame:
+        bit-equal or MSE < 1e-8, queue_drops 0 for both (phases 5b and 5c
+        render bench configs 1 and 2 with bench.py's pixel_chunk);
+     c. fused SPPM blocks (fused_block=1, three iterations, 256^2, 65536
+        photons, depth 5, radius 0.3) on 9c's 100 instanced stand-ins and
+        on the 5k mesh behind clusters.attach (leaf 64, stage 16: several
+        stages a call, and the stepwise calls must stop early in some of
+        them while the fused ones run them all): each block's state
+        bit-equal to the stepwise state of its iteration (the instance
+        walk's first block takes its pair buffer at the walk's bound, the
+        later ones at the size its counts give), the replay alone,
+        launches per replay, one host sync a block, the busy share of a
+        replay, overflow reruns; after scene.bump_version() a block
+        captures anew;
+     d. on row 6's call (66,688 camera rays x 5,000 triangles) the matmul
+        route (accel/mxu.py::MXUAccelerator) against csrc/intersect.cu:
+        hits and untied ids equal, t within 2e-6 relative, and each
+        route's t within t's certified error bound (MT_ERR_EPS) of the
+        f64 t; the gap's cause, each route's four dot products on every
+        pair redone as a chain of FMAs and as the kernel's sum of rounded
+        products, against each route's t bits; both graph-timed (the
+        matmul route is intersect's library ms); the 5k golden 32^2
+        through mxu.attach, MSE < 5e-4;
+     e. SPPMIntegrator.fused_cost_analysis at 14a's settings: flops and
+        bytes, and their shares of the FP32 and HBM peaks over 14a's
+        replay ms (each <= 100%).
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -354,7 +391,8 @@ intersect with the queries' brute-force oracle's;
 bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
 timed on 12a's camera call, and with its launches in one stepwise 1024^2
 iteration and per fused replay of phase 15, the iteration's walk ms and
-the 1M camera call's ms and bound),
+the 1M camera call's ms and bound; sweep and prologue also with their
+launches in 16a's two config-4 frames),
 the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -384,6 +422,11 @@ ENV_STUDIO_GOLDEN = os.path.join(REPO, "tests", "goldens",
 MESH_ENV_GOLDEN = os.path.join(REPO, "tests", "goldens",
                                "mesh_heavy5k_env_32.npy")
 MSE_GATE = 5e-4
+# Phases 2-15 render each frame as one chunk of lanes: the route they
+# timed and gated before the integrators took the JAX package's default
+# pixel_chunk of 1 << 16 (phases 5b and 5c pass bench.py's own values,
+# which also cover their frames; phase 16a runs bench config 4's).
+ONE_CHUNK = 1 << 30
 # Kernel vs plain: built with --fmad=false in the plain version's
 # association order, so the two should agree bit for bit; the stated
 # tolerance on t leaves room for nothing but a last-ulp difference.
@@ -801,11 +844,13 @@ def slice3(dev, card, scene, t_all):
     n_pix = (x1 - x0 + 1) * (y1 - y0 + 1)
     n_lights = int(shadows.lights.kind.shape[0])
     capped = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                               pixel_chunk=1 << 17,
                                level_caps=spheres.LEVEL_CAPS)
     row, img, state = bench("5b", shadows, capped,
                             n_pix * 4 * (1 + n_lights) * 5)
     cam.film.save_png(state)
-    full = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    full = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                             pixel_chunk=1 << 17)
     img_full = image(full, full.render(shadows))
     mse = float(np.mean((img - img_full) ** 2))
     log("5b", t0, f"shadows 256^2 4 spp depth 5, level_caps "
@@ -825,7 +870,8 @@ def slice3(dev, card, scene, t_all):
                                                  "512.png"))
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     n_pix = (x1 - x0 + 1) * (y1 - y0 + 1)
-    path = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    path = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                          pixel_chunk=1 << 19)
     row, img, state = bench("5c", box, path, n_pix * 4 * 5 * 3)
     cam.film.save_png(state)
     if row["launches"]:
@@ -839,7 +885,8 @@ def slice3(dev, card, scene, t_all):
     cam = mesh_heavy.build_camera(256, os.path.join(tmp, "chip_smoke_path_"
                                                     "1m.png"))
     depth = 3
-    path = PathIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=depth)
+    path = PathIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=depth,
+                          pixel_chunk=ONE_CHUNK)
     calls = record_calls(path, scene)
     if len(calls) != 2 * depth:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
@@ -970,8 +1017,9 @@ def time_phases(integ, marks):
 
 
 def device_busy(phase, t0, card, what, run, unprofiled_ms, require=True):
-    """Profile one ``run()`` (torch.profiler, CPU and CUDA): its wall ms
-    (CUDA events), the device's busy ms and share, the kernels launched,
+    """Profile one ``run()`` (torch.profiler, the card's activity): its
+    wall ms (CUDA events), the device's busy ms and share, the kernels
+    launched,
     the top kernels by device time, and the prologue's and the sweep's
     device ms and launches. Raises if the profiler saw no device time,
     unless ``require`` is false (a CUDA graph's replay: the share is then
@@ -981,8 +1029,10 @@ def device_busy(phase, t0, card, what, run, unprofiled_ms, require=True):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
+    # The card's activity alone (CUPTI): the host's every tensor op would
+    # add hundreds of thousands of events to a frame's trace, and their
+    # processing took most of a phase's time.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         a = torch.cuda.Event(enable_timing=True)
         a.record()
         run()
@@ -1511,7 +1561,8 @@ def slice7(dev, card, scene, t_all):
     torch.cuda.empty_cache()
     png = os.path.join(tmp, "chip_smoke_anim_1m.png")
     integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
-                              U.UniformSampler(1, seed=0), max_depth=2)
+                              U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     kw = dict(geometry=base, geometry_transform=xf)
     sweep_kernel.reset_counts()
     block_entry_kernel.reset_counts()
@@ -1775,10 +1826,12 @@ def slice8(dev, card, scene, t_all):
     for label, sc, mod, make, path in (
             ("env_studio32", studio, env_studio,
              lambda c: PathIntegrator(c, U.UniformSampler(4, seed=0),
-                                      max_depth=3), ENV_STUDIO_GOLDEN),
+                                      max_depth=3, pixel_chunk=ONE_CHUNK),
+             ENV_STUDIO_GOLDEN),
             ("mesh_heavy5k_env_32", small, mesh_heavy,
              lambda c: WhittedIntegrator(c, U.UniformSampler(1, seed=0),
-                                         max_depth=2), MESH_ENV_GOLDEN)):
+                                         max_depth=2, pixel_chunk=ONE_CHUNK),
+             MESH_ENV_GOLDEN)):
         sweep_kernel.reset_counts()
         it = make(mod.build_camera(32, os.path.join(
             tmp, f"chip_smoke_{label}.png")))
@@ -1831,7 +1884,8 @@ def slice8(dev, card, scene, t_all):
     t0 = time.perf_counter()
     png = os.path.join(tmp, "chip_smoke_env_studio_512.png")
     cam = env_studio.build_camera(512, png)
-    integ = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5)
+    integ = PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                           pixel_chunk=ONE_CHUNK)
     torch.cuda.reset_peak_memory_stats()
     sweep_kernel.reset_counts()
     times, state = timed_frames(integ, studio)
@@ -1875,7 +1929,8 @@ def slice8(dev, card, scene, t_all):
     acc = lit.accel
     png = os.path.join(tmp, "chip_smoke_1m_env.png")
     integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
-                              U.UniformSampler(1, seed=0), max_depth=2)
+                              U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     sweep_kernel.reset_counts()
     block_entry_kernel.reset_counts()
     acc.skipped_chunks = 0
@@ -1967,7 +2022,7 @@ def slice8(dev, card, scene, t_all):
 
     cam = box_camera()
     pt = PathIntegrator(cam, U.UniformSampler(24, seed=0), max_depth=8,
-                        rr_depth=5)
+                        rr_depth=5, pixel_chunk=ONE_CHUNK)
     mean_pt = float(image(pt, pt.render(box)).mean())
     sp = SPPMIntegrator(box_camera(), initial_search_radius=0.25,
                         max_depth=8, n_iterations=8,
@@ -2053,7 +2108,8 @@ def pair_image(scene, res=24):
     cam = PerspectiveCamera(T.look_at([0.0, 0.3, 4.0], [0.0, 0.0, -4.0],
                                       [0.0, 1.0, 0.0]),
                             film=film, convention="pbrt")
-    integ = WhittedIntegrator(cam, UniformSampler(1, seed=2), max_depth=2)
+    integ = WhittedIntegrator(cam, UniformSampler(1, seed=2), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     return image(integ, integ.render(scene))
 
 
@@ -2286,7 +2342,8 @@ def slice9(dev, card, t_all):
     t0 = time.perf_counter()
     sf6 = sphere_field.build_scene(6, device=dev)
     cam = sphere_field.build_camera(32, os.path.join(tmp, "unused.png"))
-    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     img = image(integ, integ.render(sf6))
     golden = np.load(INST_GOLDEN)
     mse = float(np.mean((img - golden) ** 2))
@@ -2340,7 +2397,8 @@ def slice9(dev, card, t_all):
     geom = field.instanced[0]
     png = os.path.join(tmp, "chip_smoke_sphere_field_512.png")
     cam = sphere_field.build_camera(512, png)
-    integ = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=3)
+    integ = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=3,
+                              pixel_chunk=ONE_CHUNK)
     walks = record_walks(geom)
     integ.render(field)
     del geom.traverse
@@ -2390,7 +2448,8 @@ def slice9(dev, card, t_all):
     build_s = time.perf_counter() - t0
     png = os.path.join(tmp, "chip_smoke_inst100.png")
     integ = WhittedIntegrator(standin_camera(256, png),
-                              U.UniformSampler(1, seed=0), max_depth=2)
+                              U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     sweep_kernel.reset_counts()
     block_entry_kernel.reset_counts()
     acc.skipped_chunks = 0
@@ -2450,7 +2509,8 @@ def slice9(dev, card, t_all):
     ims = []
     for sc in (small, flat):
         it = WhittedIntegrator(standin_camera(64, os.path.join(
-            tmp, "unused.png"), 3), U.UniformSampler(1, seed=0), max_depth=2)
+            tmp, "unused.png"), 3), U.UniformSampler(1, seed=0), max_depth=2,
+                               pixel_chunk=ONE_CHUNK)
         ims.append(image(it, it.render(sc)))
     mse = float(np.mean((ims[0] - ims[1]) ** 2))
     o, d, tm = camera_rays(standin_camera(64, "unused.png", 3), dev)
@@ -2474,7 +2534,8 @@ def slice9(dev, card, t_all):
     t0 = time.perf_counter()
     png = os.path.join(tmp, "chip_smoke_inst100_path.png")
     integ = PathIntegrator(standin_camera(256, png),
-                           U.UniformSampler(1, seed=0), max_depth=3)
+                           U.UniformSampler(1, seed=0), max_depth=3,
+                           pixel_chunk=ONE_CHUNK)
     sweep_kernel.reset_counts()
     times, state = timed_frames(integ, scene)
     img = image(integ, state)
@@ -2819,11 +2880,13 @@ def slice10(dev, card, t_all):
             ("mesh1m_whitted_256_lights3", WhittedIntegrator(
                 mesh_heavy.build_camera(256, os.path.join(
                     tmp, "chip_smoke_lights3_whitted.png")),
-                U.UniformSampler(1, seed=0), max_depth=2)),
+                U.UniformSampler(1, seed=0), max_depth=2,
+                pixel_chunk=ONE_CHUNK)),
             ("mesh1m_path_256_lights3", PathIntegrator(
                 mesh_heavy.build_camera(256, os.path.join(
                     tmp, "chip_smoke_lights3_path.png")),
-                U.UniformSampler(1, seed=0), max_depth=3))):
+                U.UniformSampler(1, seed=0), max_depth=3,
+                pixel_chunk=ONE_CHUNK))):
         sweep_kernel.reset_counts()
         block_entry_kernel.reset_counts()
         acc.skipped_chunks = 0
@@ -3005,7 +3068,8 @@ def slice11(dev, card, scene, t_all):
     integ = WhittedIntegrator(
         mesh_heavy.build_camera(256, os.path.join(
             tmp, "chip_smoke_strat.png")),
-        StratifiedSampler(2, 2, seed=0), max_depth=2, stats=stats)
+        StratifiedSampler(2, 2, seed=0), max_depth=2, stats=stats,
+                              pixel_chunk=ONE_CHUNK)
     strata, undo = strata_gate(integ, dev)
     counts_zero()
     try:
@@ -3061,7 +3125,8 @@ def slice11(dev, card, scene, t_all):
             ("triangle", dict(filter=TriangleFilter((2.0, 2.0))))):
         cam = film_like(mesh_heavy.build_camera(256, os.path.join(
             tmp, f"chip_smoke_{label}.png")), **kw)
-        it = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+        it = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2,
+                               pixel_chunk=ONE_CHUNK)
         counts_zero()
         state = it.render(scene)
         c = counts()
@@ -3541,7 +3606,8 @@ def slice12(dev, card, scene, t_all):
         raise AssertionError(f"[12a] no walk accelerator: {tree}")
     png = os.path.join(tmp, "chip_smoke_wbvh_256.png")
     integ = WhittedIntegrator(mesh_heavy.build_camera(256, png),
-                              U.UniformSampler(1, seed=0), max_depth=2)
+                              U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     calls = record_calls(integ, view)
     labels = ["camera", "shadow", "specular", "specular shadow"]
     agree, rows = {}, []
@@ -3565,15 +3631,12 @@ def slice12(dev, card, scene, t_all):
                            visits=int(k[2][0].sum()),
                            tests=int(k[2][1].sum()),
                            max_visits=int(k[2][0].max()))
-                for order, (xo, xd, xt) in orders.items():
-                    row[f"{order}_ms"] = cuda_ms(lambda: walk_kernel(
-                        wacc.nodes, wacc.tris, xo, xd, xt, **kw), 10)
-                row["ms"] = row[f"{own}_ms"]
+                # The kernel in the accelerator's own order only: phase
+                # 15b graph-times the walk on config 3's calls.
+                row["ms"] = row[f"{own}_ms"] = cuda_ms(lambda: walk_kernel(
+                    wacc.nodes, wacc.tris, so, sd, st, **kw), 10)
                 row.update(walk_bound(k[2], k[3], wacc.nodes.shape[0],
                                       o.shape[0]))
-                (row["intersect_unsorted_ms"],
-                 row["intersect_sorted_ms"]) = walk_sort_ms(wacc, o, d, tm,
-                                                            anyh, 10)
                 if name == "camera":
                     row["plain_ms"] = cuda_ms(lambda: W.walk_plain(
                         wacc.nodes, wacc.tris, so, sd, st, **kw), 1)
@@ -3646,7 +3709,7 @@ def slice12(dev, card, scene, t_all):
     img_w = image(integ, state)
     integ_s = WhittedIntegrator(mesh_heavy.build_camera(256, os.path.join(
         tmp, "chip_smoke_sweep_256.png")), U.UniformSampler(1, seed=0),
-        max_depth=2)
+        max_depth=2, pixel_chunk=ONE_CHUNK)
     img_s = image(integ_s, integ_s.render(scene))
     mse = float(np.mean((img_w - img_s) ** 2))
     frames = {}
@@ -3747,7 +3810,7 @@ def slice12(dev, card, scene, t_all):
         cam32 = mesh_heavy.build_camera(32, os.path.join(
             tmp, f"chip_smoke_32_{label}.png"))
         it = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0),
-                               max_depth=2)
+                               max_depth=2, pixel_chunk=ONE_CHUNK)
         img = image(it, it.render(sc))
         small[label] = dict(mse=float(np.mean((img - golden) ** 2)),
                             accel=type(sc.accel).__name__,
@@ -4215,18 +4278,25 @@ FUSED_ANIM_SHIFTS = (0.1, 0.2)
 
 
 class CaptureRecorder:
-    """While a CUDA graph is captured, keep the tensors of every
-    ``stride``-th call of ops.sweep's prologue and sweep (the
-    accelerator's two launches a chunk): the prologue's inputs and
-    (order, suffix), the sweep's inputs and (best t, best slot)."""
+    """While a CUDA graph is captured (or, with ``capture_only`` false,
+    while the block runs), keep the tensors of every ``stride``-th call
+    of ops.sweep's prologue and sweep (the accelerator's two launches a
+    chunk), and the last: the prologue's inputs and (order, suffix), the
+    sweep's inputs and (best t, best slot)."""
 
-    def __init__(self, stride):
+    def __init__(self, stride, capture_only=True):
         self.stride = stride
+        self.capture_only = capture_only
         self.calls = []
         self.n = 0
 
-    def __enter__(self):
+    def _keeps(self):
         import torch
+
+        return (not self.capture_only
+                or torch.cuda.is_current_stream_capturing())
+
+    def __enter__(self):
         from trace_tpu_torch.ops import sweep as TS
 
         self.mod, self.fns = TS, (TS.prologue, TS.sweep)
@@ -4234,13 +4304,13 @@ class CaptureRecorder:
 
         def prologue(*a):
             res = pro(*a)
-            if torch.cuda.is_current_stream_capturing():
+            if self._keeps():
                 self.pending = (a, res)
             return res
 
         def sweep(*a, **k):
             res = swp(*a, **k)
-            if torch.cuda.is_current_stream_capturing():
+            if self._keeps():
                 if self.n % self.stride == 0:
                     self.calls.append(dict(prologue=self.pending, sweep=(
                         a, k, res)))
@@ -4299,9 +4369,10 @@ def stepwise_iterations(integ, scene, n):
     state = SP.initial_state(integ.n_pixels, integ.initial_search_radius,
                              dev)
     ms, states, launches, skipped = [], [], [], []
+    acc = scene.accel if scene.accel is not None else integ
     for it in range(1, n + 1):
         sweep_kernel.reset_counts()
-        scene.accel.skipped_chunks = 0
+        acc.skipped_chunks = 0
         a = torch.cuda.Event(enable_timing=True)
         z = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -4311,7 +4382,7 @@ def stepwise_iterations(integ, scene, n):
         ms.append(a.elapsed_time(z))
         states.append(state)
         launches.append(sweep_kernel.launches)
-        skipped.append(scene.accel.skipped_chunks)
+        skipped.append(getattr(acc, "skipped_chunks", 0))
     return ms, states, launches, skipped
 
 
@@ -4718,7 +4789,7 @@ def slice15(dev, card, scene, t_all):
     calls = tagged_walk_calls(one, view)
     whitted = WhittedIntegrator(mesh_heavy.build_camera(256, os.path.join(
         tmp, "chip_smoke_wbvh_256.png")), U.UniformSampler(1, seed=0),
-        max_depth=2)
+        max_depth=2, pixel_chunk=ONE_CHUNK)
     frame = [(f"whitted {name}", *c) for name, c in zip(
         ("camera", "shadow", "specular", "specular shadow"),
         record_calls(whitted, view))]
@@ -4743,6 +4814,387 @@ def slice15(dev, card, scene, t_all):
                              f"{[(c[0], c[1].shape[0]) for c in calls]}")
     out["per_call"], out["sppm_1024_walk_ms"] = per_call, sppm_ms
     log(15, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+def mse_of(a, b) -> float:
+    return float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
+
+
+def frame16(integ, scene, rec=None):
+    """Phase 16a's frame: one warm frame (under ``rec``, a
+    CaptureRecorder, when given) with the sweep and prologue launches
+    counted from 0, then two timed with CUDA events, peak GiB over them
+    -> (row, last state)."""
+    import torch
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+
+    sweep_kernel.reset_counts()
+    block_entry_kernel.reset_counts()
+    if rec is None:
+        integ.render(scene)
+    else:
+        with rec:
+            integ.render(scene)
+    launches = dict(sweep=sweep_kernel.launches,
+                    prologue=block_entry_kernel.launches)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, state = timed_frames(integ, scene, n=2)
+    return dict(frame_ms=times, ms=float(np.mean(times)), launches=launches,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                useful_rays=integ.last_useful_rays,
+                queue_drops=integ.last_queue_drops), state
+
+
+def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
+    """Phase 16c on one scene: ``n_it`` stepwise iterations, then the same
+    through fused blocks of one iteration (a block whose pairs overflow
+    an instance walk's buffer runs again stepwise); each block's state
+    against the stepwise state of its iteration, one host sync a block,
+    the replay's ms, launches and busy share; then a bumped scene version
+    must capture anew. ``stats``: the clusters accelerator's, read over
+    the stepwise run and over the fused one (its captures)."""
+    import torch
+    from trace_tpu_torch.integrators.fused import kernel_counts
+
+    stages = {}
+    if stats is not None:
+        stats.clear()
+    step = integ_of(fused_iterations=False)
+    step_ms, step_states, _, _ = stepwise_iterations(step, scene, n_it)
+    fz = integ_of(fused_iterations=True, fused_block=1)
+    if stats is not None:
+        stages["stepwise"] = dict(stats)
+        stats.clear()
+    rows = timed_blocks(fz)
+    final = fz.render(scene)
+    if stats is not None:
+        stages["fused"] = dict(stats)
+    del fz._fused_block
+    same = [states_equal(r["state"], s) for r, s in zip(rows, step_states)]
+    graphs = fz.fused_graphs
+    caps = [dict(c) for c in graphs.captures]
+    blk = list(graphs.graphs.values())[-1]
+    replay_ms = cuda_ms(blk.graph.replay, 3)
+    syncs = replay_syncs(fz, scene, rows[-2]["state"], n_it)
+    busy = device_busy(phase, t0, card, f"{label} fused block (replay)",
+                       lambda: blk.replay(rows[-2]["state"], n_it),
+                       replay_ms, require=False)
+    n_caps = len(graphs.captures)
+    scene.bump_version()
+    fz.render(scene, n_iterations=1)
+    recaptured = len(graphs.captures) - n_caps
+    finite = bool(torch.isfinite(fz.to_image(final, n_it)).all())
+    row = dict(stepwise_ms=step_ms,
+               blocks=[dict(it=r["it"], ms=r["ms"], totals=r["totals"],
+                            pair_chunks=r["pair_chunks"]) for r in rows],
+               same_bits=same, captures=caps, replay_ms=replay_ms,
+               reruns=fz.fused_reruns,
+               pair_capacity=[fz.fused_pair_capacity.get(g)
+                              for g in scene.instanced],
+               stages=stages, host_syncs_per_block=syncs, busy=busy,
+               recaptured_after_bump=recaptured, finite=finite,
+               run_launches=kernel_counts())
+    log(phase, t0, f"{label}: stepwise {[round(x, 2) for x in step_ms]} "
+        f"ms; fused blocks {[(r['it'], round(r['ms'], 2)) for r in rows]} "
+        f"ms, overflow reruns {fz.fused_reruns} (instance pair capacity "
+        f"{row['pair_capacity']}), cluster stages {stages}, captures "
+        f"{[(c['warm_ms'], c['capture_ms'], c['launches']) for c in caps]}"
+        f"; the replay alone {replay_ms:.2f} ms; each block == stepwise "
+        f"{same}; host syncs a block {syncs}; recaptures after "
+        f"bump_version {recaptured}; finite {finite}; card {card}")
+    multi = True
+    if stats is not None:
+        # Several stages a call; stepwise, some call stopped early, and
+        # every fused call ran them all.
+        st, fu = stages["stepwise"], stages["fused"]
+        multi = (st["most_stages"] == fu["most_stages"] > 1
+                 and st["stages"] < st["calls"] * st["most_stages"]
+                 and fu["stages"] == fu["calls"] * fu["most_stages"])
+    if len(rows) != n_it or not all(same) or syncs != 1 \
+            or recaptured != 1 or not finite or not caps or not multi:
+        raise AssertionError(f"[{phase}] {label}: {row}")
+    return row
+
+
+# Phase 16d: the matmul route's t against intersect.cu's, relative. The
+# routes sum the same f32 products in other orders (cuBLAS chains FMAs);
+# the gap read 1.147e-6 at most on an H100 80GB HBM3 at 700 W (PERF.md).
+REL_T_GATE = 2e-6
+
+
+def slice16(dev, card, scene, replay_1024_ms, t_all):
+    """Phase 16: the last public signatures of the JAX package on the
+    card (module docstring). ``scene`` is the 1M mesh_heavy scene on its
+    sweep; ``replay_1024_ms`` phase 14a's replay of a config-3 block."""
+    import torch
+    from trace_tpu_torch.accel import clusters as C
+    from trace_tpu_torch.accel import mxu
+    from trace_tpu_torch.integrators.sppm import SPPMIntegrator
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import intersect as TI
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.shapes import triangle as tri_mod
+
+    tmp = tempfile.gettempdir()
+    out = {}
+    n_lights = int(scene.lights.kind.shape[0])
+
+    # -- 16a: bench config 4 with its own arguments --------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg4 = dict(pixel_chunk=1 << 16, spp_per_dispatch=1)
+    frames, states = {}, {}
+    for res, spp in ((256, 1), (512, 4)):
+        name = f"mesh1m_whitted_{res}_{spp}spp"
+        cam = mesh_heavy.build_camera(res, os.path.join(
+            tmp, f"chip_smoke_cfg4_{res}.png"))
+        integ = WhittedIntegrator(cam, U.UniformSampler(spp, seed=0),
+                                  max_depth=2, **cfg4)
+        rec = CaptureRecorder(CAPTURE_STRIDE, capture_only=False) \
+            if res == 512 else None
+        row, states[res] = frame16(integ, scene, rec)
+        n_pix = n_pix_of(cam)
+        row["lanes"], row["chunks"] = n_pix, -(-n_pix // (1 << 16))
+        row["workload_mrays"] = (n_pix * spp * (1 + n_lights) * 2
+                                 / row["ms"] / 1e3)
+        if rec is not None:
+            pro, swp, kept = rec.check()
+            row.update(prologue=pro, sweep=swp, kept_launches=len(kept))
+            if prologue_disagrees(pro) or disagrees(swp) \
+                    or swp["t_bits_mismatch"] or len(kept) < 2:
+                raise AssertionError(f"[16a] {name}: sampled launches "
+                                     f"disagree: {pro} {swp}")
+        frames[name] = row
+        log("16a", t0, f"{name} (pixel_chunk 1 << 16, spp_per_dispatch 1: "
+            f"{n_pix} lanes in {row['chunks']} chunks x {spp} samples): "
+            f"frames {[round(x, 2) for x in row['frame_ms']]} ms (mean "
+            f"{row['ms']:.2f}, after a warm one); launches {row['launches']}"
+            f"; peak {row['peak_gib']:.3f} GiB; useful_rays "
+            f"{row['useful_rays']}, queue_drops {row['queue_drops']}; "
+            f"workload {row['workload_mrays']:.3f} Mrays/s"
+            + (f"; every {CAPTURE_STRIDE}th sweep launch and the last "
+               f"({row['kept_launches']}) vs plain: prologue "
+               f"{row['prologue']}, sweep {row['sweep']}" if rec else "")
+            + f"; card {card}")
+        if row["queue_drops"] != 0 or row["launches"]["sweep"] <= 0 or \
+                row["launches"]["prologue"] != row["launches"]["sweep"]:
+            raise AssertionError(f"[16a] {name}: {row}")
+    # The 512^2 frame as one chunk: the same image but for the splat's
+    # summation order (the grid stencil against the scatter).
+    cam = mesh_heavy.build_camera(512, os.path.join(tmp, "chip_smoke_"
+                                                    "cfg4_512_one.png"))
+    one = WhittedIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=2,
+                            pixel_chunk=ONE_CHUNK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    a.record()
+    st_one = one.render(scene)
+    z.record()
+    torch.cuda.synchronize()
+    img_c, img_o = image(one, states[512]), image(one, st_one)
+    cmp512 = dict(one_chunk_ms=a.elapsed_time(z),
+                  one_chunk_peak_gib=torch.cuda.max_memory_allocated()
+                  / 2**30, mse=mse_of(img_c, img_o),
+                  max_abs=float(np.abs(img_c - img_o).max()),
+                  one_chunk_queue_drops=one.last_queue_drops)
+    chunked_gib = frames["mesh1m_whitted_512_4spp"]["peak_gib"]
+    log("16a", t0, f"512^2 chunked vs one chunk: MSE {cmp512['mse']:.3e} "
+        f"(gate 1e-8), max abs {cmp512['max_abs']:.3e}; the one-chunk "
+        f"frame {cmp512['one_chunk_ms']:.2f} ms (one, with its first "
+        f"use of the shape), peak {cmp512['one_chunk_peak_gib']:.3f} GiB "
+        f"against the chunked {chunked_gib:.3f}")
+    if not (cmp512["mse"] < 1e-8 and np.isfinite(img_c).all()
+            and one.last_queue_drops == 0):
+        raise AssertionError(f"[16a] chunked vs one chunk: {cmp512}")
+    one.camera.film.save_png(states[512])
+    # 16b's Whitted sort_materials on the 256^2 frame.
+    cam = mesh_heavy.build_camera(256, "unused.png")
+    srt = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2,
+                            pixel_chunk=1 << 16, sort_materials=True)
+    st_srt = srt.render(scene)
+    img_u, img_s = image(srt, states[256]), image(srt, st_srt)
+    sort = dict(bit_equal=all(torch.equal(x, y)
+                              for x, y in zip(st_srt, states[256])),
+                mse=mse_of(img_u, img_s),
+                max_abs=float(np.abs(img_u - img_s).max()),
+                queue_drops=(frames["mesh1m_whitted_256_1spp"]["queue_drops"],
+                             srt.last_queue_drops))
+    log("16b", t0, f"256^2 sort_materials=True vs False: bit-equal "
+        f"{sort['bit_equal']}, MSE {sort['mse']:.3e} (gate 1e-8), max abs "
+        f"{sort['max_abs']:.3e}; queue_drops {sort['queue_drops']}")
+    if sort["mse"] >= 1e-8 or any(sort["queue_drops"]):
+        raise AssertionError(f"[16b] sort {sort}")
+    out.update(frames, chunked_vs_one_chunk_512=cmp512, sort_materials=sort)
+    del states, st_one, st_srt
+    log("16a", t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+
+    # -- 16c: fused SPPM blocks on instanced and clusters scenes -------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    inst = standin_scene(dev, 10)
+    png = os.path.join(tmp, "chip_smoke_inst100_fused.png")
+    kw = dict(initial_search_radius=0.3, max_depth=5, n_iterations=3,
+              photons_per_iteration=65536, seed=0, device=dev)
+    out["inst100_sppm_256_fused1"] = fused16(
+        "16c", t0, card, inst, lambda **k: SPPMIntegrator(
+            standin_camera(256, png), **kw, **k), 3, "inst100_sppm_256")
+    del inst
+    torch.cuda.empty_cache()
+    # Stage 16, so a call sweeps its clusters in several stages.
+    clus = C.attach(mesh_heavy.build_scene(5000, device=dev), leaf_tris=64,
+                    stage_clusters=16)
+    assert isinstance(clus.accel, C.ClusterAccelerator)
+    cam = mesh_heavy.build_camera(256, os.path.join(
+        tmp, "chip_smoke_clusters_fused.png"))
+    out["mesh5k_sppm_256_clusters_fused1"] = fused16(
+        "16c", t0, card, clus, lambda **k: SPPMIntegrator(cam, **kw, **k),
+        3, "mesh5k_sppm_256 on clusters (stage 16)", stats=clus.accel.stats)
+    del clus
+    log("16c", t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+
+    # -- 16d: mxu.attach beside intersect.cu -------------------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    small = TI.attach(mesh_heavy.build_scene(5000, device=dev))
+    fa = small.accel
+    calls = record_calls(WhittedIntegrator(
+        mesh_heavy.build_camera(256, "unused.png"),
+        U.UniformSampler(1, seed=0), max_depth=2, pixel_chunk=ONE_CHUNK),
+        small)
+    o, d, tm, _ = calls[0]
+    rays, _ = TI.pack_rays(o, d, tm)
+    ro, rd, rt = rays[0:3].T.contiguous(), rays[3:6].T.contiguous(), rays[9]
+    macc = mxu.MXUAccelerator(mxu.build_consts(tri_mod.to_numpy(
+        small.triangles)), small.n_triangles, device=dev)
+    kt, ki = TI.intersect_kernel(rays, fa.tris, fa.ids)
+    mh, mt, mi = macc.intersect(ro, rd, rt, False)
+    torch.cuda.synchronize()
+    kh = ki >= 0
+    both = kh & mh
+    # t's certified error bound (accel/mxu.py::MT_ERR_EPS, first order):
+    # (err_t + |t| err_det) / |det| for the kernel's triangle, in f64.
+    # The routes round the cancelling o.n - v0.n in different orders
+    # (cuBLAS contracts FMAs, the kernel is built with --fmad=false).
+    idx = ki[both].long()
+    c = [x.double() for x in macc.consts]
+    bo, bd = ro[both].double(), rd[both].double()
+    n_t = c[0].T[idx]
+    det = -(bd * n_t).sum(1)
+    err_t = mxu.MT_ERR_EPS * ((bo.abs() * n_t.abs()).sum(1)
+                              + c[5][idx].abs())
+    err_det = mxu.MT_ERR_EPS * (bd.abs() * n_t.abs()).sum(1)
+    t_ref = ((bo * n_t).sum(1) - c[5][idx]) / det
+    bnd = (err_t + t_ref.abs() * err_det) / det.abs()
+    gap = (kt[both].double() - mt[both].double()).abs()
+    id_apart = both & (ki != mi)
+    ties = 0
+    # An id apart is a tie when the other triangle's t equals the
+    # kernel's best within the bound: either is the closest.
+    if bool(id_apart.any()):
+        _, t_other = mxu.intersect_grid(macc.consts, ro[id_apart],
+                                        rd[id_apart], rt[id_apart])
+        t_k = t_other.gather(1, ki[id_apart].long()[:, None])[:, 0]
+        ties = int(((t_k - mt[id_apart]).abs().double()
+                    <= 2 * bnd[id_apart[both]]).sum())
+    # The gap's cause: each route's four dot products on every pair
+    # redone on the kernel's triangle, as a chain of FMAs over k = 0, 1,
+    # 2 (each step exact in f64 and rounded once to f32: what cuBLAS's
+    # f32 GEMM does) and as the kernel's left-to-right sum of rounded
+    # products (torch's elementwise ops, one rounding each), then the
+    # same epilogue; held to the matmul route's and the kernel's t bits.
+    col = lambda x: x.T[idx]
+    c32 = macc.consts
+    po, pd, pm = ro[both], rd[both], rays[6:9].T[both]
+
+    def dot(a, b, fma):
+        if not fma:
+            return (a[:, 0] * b[:, 0] + a[:, 1] * b[:, 1]) + a[:, 2] * b[:, 2]
+        acc = a[:, 0] * b[:, 0]
+        for k in (1, 2):
+            acc = (a[:, k].double() * b[:, k].double()
+                   + acc.double()).float()
+        return acc
+
+    def t_redone(fma):
+        det = -dot(pd, col(c32.n), fma)
+        u_det = dot(pm, col(c32.e2), fma) - dot(pd, col(c32.w), fma)
+        v_det = -dot(pm, col(c32.e1), fma) - dot(pd, col(c32.q), fma)
+        t_det = dot(po, col(c32.n), fma) - c32.v0n[idx]
+        return mxu.mt_epilogue(det, u_det, v_det, t_det)[1]
+
+    same_t = lambda a, b: float((a == b).double().mean())
+    agree = dict(lanes=int(rays.shape[1]), hits=int(kh.sum()),
+                 fma_chain_equals_mxu=same_t(t_redone(True), mt[both]),
+                 sum_equals_kernel=same_t(t_redone(False), kt[both]),
+                 hit_mismatch=int((kh != mh).sum()),
+                 max_rel_t=float((gap / t_ref.abs()).max()),
+                 max_gap_over_bound=float((gap / (2 * bnd)).max()),
+                 kernel_over_bound=float(((kt[both].double() - t_ref).abs()
+                                          / bnd).max()),
+                 mxu_over_bound=float(((mt[both].double() - t_ref).abs()
+                                       / bnd).max()),
+                 ids_apart=int(id_apart.sum()),
+                 untied_ids_apart=int(id_apart.sum()) - ties)
+    k_ms = graph_ms(lambda: TI.intersect_kernel(rays, fa.tris, fa.ids), 5)
+    torch.cuda.empty_cache()
+    m_ms = graph_ms(lambda: macc.intersect(ro, rd, rt, False), 2)
+    torch.cuda.empty_cache()
+    golden = np.load(GOLDEN)
+    g_sc = mxu.attach(mesh_heavy.build_scene(5000, device=dev))
+    cam32 = mesh_heavy.build_camera(32, os.path.join(tmp, "chip_smoke_32_"
+                                                     "mxu.png"))
+    it32 = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0), max_depth=2)
+    g_img = image(it32, it32.render(g_sc))
+    g_mse = mse_of(g_img, golden)
+    out["mxu_vs_intersect"] = dict(agreement=agree, intersect_graph_ms=k_ms,
+                                   mxu_graph_ms=m_ms, golden_mse=g_mse)
+    log("16d", t0, f"row 6's call ({rays.shape[1]} rays x "
+        f"{small.n_triangles} triangles): mxu.MXUAccelerator vs "
+        f"csrc/intersect.cu {agree} (gates: hits and untied ids equal; "
+        f"t within {REL_T_GATE} relative; each route's t within t's "
+        f"certified error bound of the f64 t, so the two within twice it; "
+        f"the dot products redone as FMA chains give the matmul route's "
+        f"t bits on a fma_chain_equals_mxu share of the pairs, and as "
+        f"sums of rounded products the kernel's on sum_equals_kernel); "
+        f"graph-timed intersect.cu "
+        f"{k_ms:.4f} ms, the matmul route {m_ms:.4f} ms (library); the 5k "
+        f"golden 32^2 through mxu.attach: MSE {g_mse:.3e} (gate "
+        f"{MSE_GATE}); card {card}")
+    if agree["hit_mismatch"] or agree["untied_ids_apart"] \
+            or agree["max_rel_t"] > REL_T_GATE \
+            or agree["kernel_over_bound"] > 1 or agree["mxu_over_bound"] > 1 \
+            or not g_mse < MSE_GATE or agree["hits"] < 1000:
+        raise AssertionError(f"[16d] {out['mxu_vs_intersect']}")
+    del small, g_sc, macc
+    torch.cuda.empty_cache()
+
+    # -- 16e: fused_cost_analysis on mesh1m_sppm_1024_fused1 ----------------
+    t0 = time.perf_counter()
+    fz = SPPMIntegrator(mesh_heavy.build_camera(1024, "unused.png"),
+                        initial_search_radius=0.075, max_depth=8,
+                        n_iterations=FUSED_1024_ITERS,
+                        photons_per_iteration=262144, seed=0,
+                        fused_iterations=True, fused_block=1, device=dev)
+    ca = fz.fused_cost_analysis(scene, 1)
+    sec = replay_1024_ms / 1e3
+    shares = dict(flops=ca["flops"] / sec / PEAK_F32,
+                  bytes=ca["bytes accessed"] / sec / PEAK_HBM)
+    out["fused_cost_analysis_1024"] = dict(cost=ca, replay_ms=replay_1024_ms,
+                                           shares=shares)
+    log("16e", t0, f"fused_cost_analysis(scene, 1) at config 3's settings: "
+        f"flops {ca['flops']:.4e}, bytes {ca['bytes accessed']:.4e} "
+        f"(per phase {ca['phases']}); over phase 14a's replay "
+        f"{replay_1024_ms:.2f} ms: {100 * shares['flops']:.4f}% of the FP32 "
+        f"peak ({PEAK_F32:.3e}/s), {100 * shares['bytes']:.3f}% of HBM "
+        f"({PEAK_HBM:.3e} B/s); card {card}")
+    if not (0 < shares["flops"] <= 1 and 0 < shares["bytes"] <= 1):
+        raise AssertionError(f"[16e] shares of peak {shares}")
+    log(16, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
     return out
 
 
@@ -4810,7 +5262,8 @@ def main() -> int:
         f"{tb.panel.nbytes / 2**20:.1f} MB")
     png = os.path.join(tempfile.gettempdir(), "chip_smoke_256.png")
     cam = mesh_heavy.build_camera(256, png)
-    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2)
+    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=ONE_CHUNK)
     calls = record_calls(integ, scene)
     if [a for *_, a in calls] != [False, True, False, True]:
         raise AssertionError(f"unexpected intersect calls: {len(calls)}")
@@ -4844,7 +5297,7 @@ def main() -> int:
     png_e = os.path.join(tempfile.gettempdir(), "chip_smoke_256_exact.png")
     cam_e = mesh_heavy.build_camera(256, png_e)
     integ_e = WhittedIntegrator(cam_e, U.UniformSampler(1, seed=0),
-                                max_depth=2)
+                                max_depth=2, pixel_chunk=ONE_CHUNK)
     e_calls = record_calls(integ_e, exact)
     e_pro = {}
     e_chunks = sweep_chunks(eacc, e_calls, e_pro)
@@ -4907,7 +5360,8 @@ def main() -> int:
     TI.attach(small)
     fcam = mesh_heavy.build_camera(
         256, os.path.join(tempfile.gettempdir(), "chip_smoke_fused.png"))
-    finteg = WhittedIntegrator(fcam, U.UniformSampler(1, seed=0), max_depth=2)
+    finteg = WhittedIntegrator(fcam, U.UniformSampler(1, seed=0), max_depth=2,
+                               pixel_chunk=ONE_CHUNK)
     f_calls = record_calls(finteg, small)
     fused = {}
     fa = small.accel
@@ -4987,7 +5441,7 @@ def main() -> int:
             32, os.path.join(tempfile.gettempdir(), f"chip_smoke_32_{label}"
                              ".png"))
         st = WhittedIntegrator(cam32, U.UniformSampler(1, seed=0),
-                               max_depth=2).render(sc)
+                               max_depth=2, pixel_chunk=ONE_CHUNK).render(sc)
         img = cam32.film.to_image(st).cpu().numpy()
         mse = float(np.mean((img - golden) ** 2))
         goldens[label] = mse
@@ -5316,7 +5770,16 @@ def main() -> int:
         sppm_1024_walk_ms=s15["sppm_1024_walk_ms"],
         camera_1m_ms=s15["per_call"][0]["ms"],
         camera_1m_bound_ms=s15["per_call"][0]["bound_ms"])
-    log(15, t_all, "the whole run, phases 0-15")
+    # -- 16: the last public signatures of the JAX package -----------------
+    del s15
+    torch.cuda.empty_cache()
+    s16 = slice16(dev, card, scene, c14["replay_ms"], t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice16.json"), "w") as f:
+        json.dump(dict(card=card, **s16), f, indent=1)
+    cfg4 = {f"config4_{r}_launches": s16[f"mesh1m_whitted_{r}_{spp}spp"][
+        "launches"] for r, spp in ((256, 1), (512, 4))}
+    mxu16 = s16["mxu_vs_intersect"]
+    log(16, t_all, "the whole run, phases 0-16")
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
                        frames=frames,
@@ -5332,7 +5795,8 @@ def main() -> int:
         # No single PyTorch call computes a per-ray running (t, id)
         # minimum over a data-dependent walk: library_ms is null but for
         # the prologue, whose yardstick is the torch route (the entry table
-        # kernel, torch.argsort and a reverse cummin).
+        # kernel, torch.argsort and a reverse cummin), and intersect, whose
+        # all-pairs test the matmul route computes (accel/mxu.py, 16d).
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": max_abs_err, "ms": row[ms_key],
@@ -5347,7 +5811,8 @@ def main() -> int:
         dict(entry("sweep", f"{JAX_SWEEP}:213", frames["default"]["launches"],
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
-             **inst, **lights3, **public, **shard_sweep, **f14["sweep"]),
+             **inst, **lights3, **public, **shard_sweep, **f14["sweep"],
+             **{k: v["sweep"] for k, v in cfg4.items()}),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -5376,11 +5841,15 @@ def main() -> int:
              sppm_launches=sppm_launches["entry_launches"],
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
              **env_pro, **inst_pro, **lights3_pro, **public_pro,
-             **shard_pro, **f14["prologue"]),
+             **shard_pro, **f14["prologue"],
+             **{k: v["prologue"] for k, v in cfg4.items()}),
         dict(entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
-                   fused, source="trace_tpu_torch/csrc/intersect.cu"),
-             scene_query_oracle_launches=s11c["oracle_launches"]),
+                   dict(fused, library_ms=mxu16["mxu_graph_ms"]),
+                   source="trace_tpu_torch/csrc/intersect.cu",
+                   library_key="library_ms"),
+             scene_query_oracle_launches=s11c["oracle_launches"],
+             graph_ms=mxu16["intersect_graph_ms"]),
         dict(s12["entry"], **walk15),
     ]
     print(json.dumps({"kernels": kernels}))

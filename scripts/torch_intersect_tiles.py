@@ -94,7 +94,8 @@ def main() -> int:
     TI.attach(scene)
     calls = cs.record_calls(WhittedIntegrator(
         mesh_heavy.build_camera(256, "unused.png"),
-        U.UniformSampler(1, seed=0), max_depth=2), scene)
+        U.UniformSampler(1, seed=0), max_depth=2,
+        pixel_chunk=cs.ONE_CHUNK), scene)
     o, d, tm, _ = calls[0]
     rays, _ = TI.pack_rays(o, d, tm)
     fa = scene.accel

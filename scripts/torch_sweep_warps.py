@@ -80,10 +80,12 @@ def main() -> int:
     acc = scene.accel
     w_calls = cs.record_calls(WhittedIntegrator(
         mesh_heavy.build_camera(256, "unused.png"),
-        U.UniformSampler(1, seed=0), max_depth=2), scene)
+        U.UniformSampler(1, seed=0), max_depth=2,
+        pixel_chunk=cs.ONE_CHUNK), scene)
     p_calls = cs.record_calls(PathIntegrator(
         mesh_heavy.build_camera(256, "unused.png"),
-        U.UniformSampler(1, seed=0), max_depth=3), scene)
+        U.UniformSampler(1, seed=0), max_depth=3,
+        pixel_chunk=cs.ONE_CHUNK), scene)
     chunks = {}
     for label, (o, d, tm, anyh) in (("whitted camera", w_calls[0]),
                                     ("path camera", p_calls[0]),

@@ -26,6 +26,7 @@ timers and the recorders are chip_smoke.py's, from this checkout.
 import argparse
 import hashlib
 import importlib
+import inspect
 import json
 import os
 import sys
@@ -50,7 +51,8 @@ def main() -> int:
         print("torch_walk_calls: needs a CUDA device", file=sys.stderr)
         return 2
     mods = {m: importlib.import_module(f"trace_tpu_torch.{m}") for m in (
-        "integrators.sppm", "integrators.whitted", "models.mesh_heavy",
+        "integrators.base", "integrators.sppm", "integrators.whitted",
+        "models.mesh_heavy",
         "ops.bvh_walk", "sampler.uniform")}
     if not mods["ops.bvh_walk"].__file__.startswith(root):
         raise RuntimeError(f"trace_tpu_torch did not come from {root}")
@@ -66,9 +68,14 @@ def main() -> int:
         mesh_heavy.build_camera(1024, "unused.png"),
         initial_search_radius=0.075, max_depth=8, n_iterations=1,
         photons_per_iteration=262144, seed=0, device=dev)
-    whitted = mods["integrators.whitted"].WhittedIntegrator(
-        mesh_heavy.build_camera(256, "unused.png"),
-        U.UniformSampler(1, seed=0), max_depth=2)
+    # The Whitted frame as one chunk of lanes, also in a checkout whose
+    # integrators chunk it by default.
+    wcls = mods["integrators.whitted"].WhittedIntegrator
+    one = ({"pixel_chunk": cs.ONE_CHUNK} if "pixel_chunk" in
+           inspect.signature(mods["integrators.base"].SamplerIntegrator)
+           .parameters else {})
+    whitted = wcls(mesh_heavy.build_camera(256, "unused.png"),
+                   U.UniformSampler(1, seed=0), max_depth=2, **one)
     calls = cs.tagged_walk_calls(sppm, scene) + [
         (f"whitted {name}", *c) for name, c in zip(
             ("camera", "shadow", "specular", "specular shadow"),

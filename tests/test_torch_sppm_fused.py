@@ -22,6 +22,8 @@ from dataclasses import fields
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from trace_tpu_torch.accel import clusters as TC
 from trace_tpu_torch.accel import wbvh as TW
@@ -80,10 +82,14 @@ def _soup_scene(instanced=False):
 @pytest.fixture(scope="module")
 def scenes():
     return {"shadows": TSph.build_scene(device="cpu"),
-            "soup": _soup_scene()}
+            "soup": _soup_scene(),
+            "instanced": _soup_scene(instanced=True),
+            "clusters": TC.attach(_soup_scene(), stage_clusters=4)}
 
 
 def _integ(name, res=16, filename="unused.png", **kw):
+    """An integrator for scene ``name``: shadows, or a soup (soup,
+    instanced, clusters)."""
     mod = TSph if name == "shadows" else TMH
     base = SHADOWS_KW if name == "shadows" else SOUP_KW
     return SPPMIntegrator(mod.build_camera(res, filename), device="cpu",
@@ -272,7 +278,8 @@ GUARDED = ("__bool__", "item", "tolist", "__int__", "__float__",
            "__index__", "numpy", "cpu")
 
 
-@pytest.mark.parametrize("name", ["shadows", "soup"])
+@pytest.mark.parametrize("name", ["shadows", "soup", "instanced",
+                                  "clusters"])
 def test_fused_body_reads_no_host(scenes, monkeypatch, name):
     """One fused block with every host read of a tensor (and every
     tensor made from host data) made to raise: the block runs, and gives
@@ -301,26 +308,110 @@ def test_fused_body_reads_no_host(scenes, monkeypatch, name):
     monkeypatch.setattr(torch, "as_tensor", lambda x, *a, **k: (
         as_tensor(x, *a, **k) if isinstance(x, torch.Tensor)
         else refuse("torch.as_tensor of host data")()))
-    out, totals = integ._iterations_body(*args)
+    out, totals, over = integ._iterations_body(*args)
     monkeypatch.undo()
     assert _equal(out, _integ(name, n_iterations=2).render(scene))
     assert totals.shape == (1,) and int(totals[0]) > 0
+    # Per instanced geometry, the most candidate pairs of a group.
+    assert over.shape == (len(scene.instanced),) and (over > 0).all()
 
 
-def test_card_refuses_scenes_that_read_the_host():
-    """The instance walk and the clusters traversal read the host: a
-    CUDA graph cannot hold them, so the card refuses them (on the CPU
-    the fused body runs them eagerly, to the stepwise bits)."""
-    inst = _soup_scene(instanced=True)
-    with pytest.raises(NotImplementedError, match="instance walk"):
-        F.check_capturable(inst)
-    runs = [_integ("soup", n_iterations=1, fused_iterations=f).render(inst)
-            for f in (False, True)]
-    assert _equal(*runs) and inst.instanced
-    clus = TC.attach(_soup_scene())
-    with pytest.raises(NotImplementedError, match="clusters traversal"):
-        F.check_capturable(clus)
-    F.check_capturable(_soup_scene())
+class _ForeignAccelerator:
+    """An accelerator the fused module does not know (it wraps the
+    soup's sweep)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def intersect(self, o, d, t_max, any_hit):
+        return self.inner.intersect(o, d, t_max, any_hit)
+
+
+def test_card_refuses_scenes_that_read_the_host(scenes):
+    """Every accelerator of the package, instanced geometry and the
+    clusters traversal included, has a route with no host read, so the
+    card captures them; an accelerator of another kind may read the host
+    and is refused by its name. A fused block on the instanced and the
+    clusters scene gives the stepwise bits."""
+    for name in ("soup", "instanced", "clusters"):
+        F.check_capturable(scenes[name])
+        runs = [_integ(name, n_iterations=1, fused_iterations=f).render(
+            scenes[name]) for f in (False, True)]
+        assert _equal(*runs)
+    assert scenes["instanced"].instanced
+    assert isinstance(scenes["clusters"].accel, TC.ClusterAccelerator)
+    foreign = scenes["soup"].with_geometry(
+        scenes["soup"].triangles, _ForeignAccelerator(scenes["soup"].accel))
+    with pytest.raises(NotImplementedError, match="_ForeignAccelerator"):
+        F.check_capturable(foreign)
+
+
+def test_clusters_fused_block_runs_every_stage(scenes):
+    """The clusters scene sweeps its clusters in several stages (4
+    clusters a stage). Stepwise, a call stops once every lane is done,
+    so some calls skip stages; a fused block runs every stage of every
+    call, the done lanes against a limit of -inf, and gives the stepwise
+    bits."""
+    scene = scenes["clusters"]
+    stats = scene.accel.stats
+    runs = []
+    for fused in (False, True):
+        stats.clear()
+        runs.append(_integ("clusters", n_iterations=1,
+                           fused_iterations=fused).render(scene))
+        runs.append(dict(stats))
+    step, fused = runs[1], runs[3]
+    print(f"clusters stages: stepwise {step}, fused {fused}")
+    assert step["most_stages"] == fused["most_stages"] > 1
+    assert step["stages"] < step["calls"] * step["most_stages"]
+    assert fused["stages"] == fused["calls"] * fused["most_stages"]
+    assert _equal(runs[0], runs[2])
+
+
+@pytest.mark.parametrize("first_capacity", [None, 1])
+def test_instance_pair_overflow_reruns_stepwise(scenes, first_capacity):
+    """The instance walk's pair buffer belongs to the integrator. With no
+    capacity the first block takes the walk's bound (no count exceeds
+    it), and the buffer is then sized from the block's counts; a
+    capacity the candidate pairs overflow (1) sends the block back to
+    the stepwise path. Either way the bits are stepwise's, the buffer
+    ends at a power of two, the later blocks fit, and the geometry holds
+    no setting."""
+    scene = scenes["instanced"]
+    ref = _integ("instanced", n_iterations=3).render(scene)
+    geom = scene.instanced[0]
+    integ = _integ("instanced", n_iterations=3, fused_iterations=True,
+                   fused_block=1)
+    if first_capacity is not None:
+        integ.fused_pair_capacity[geom] = first_capacity
+    calls = []
+    step = integ.step
+    integ.step = lambda *a, **k: calls.append(a[2]) or step(*a, **k)
+    out = integ.render(scene)
+    cap = integ.fused_pair_capacity[geom]
+    assert _equal(out, ref)
+    reruns = 0 if first_capacity is None else 1
+    assert calls == [1] * reruns and integ.fused_reruns == reruns
+    assert cap > 1 and cap & (cap - 1) == 0
+    assert not hasattr(geom, "pair_capacity")
+
+
+def test_bump_version_drops_captured_view(scenes):
+    """BlockGraphs keys a scene view on its version: bump_version()
+    drops the captured graphs."""
+    scene = scenes["soup"].with_geometry(scenes["soup"].triangles,
+                                         scenes["soup"].accel)
+    integ = _integ("soup")
+    graphs = F.BlockGraphs()
+    graphs._view(integ, scene)
+    graphs.graphs[(1, 1, ())] = "captured"
+    graphs._view(integ, scene)
+    assert graphs.graphs
+    v = scene._version
+    scene.bump_version()
+    assert scene._version == v + 1
+    graphs._view(integ, scene)
+    assert not graphs.graphs
 
 
 def test_wbvh_scene_fused_blocks_equal_stepwise(scenes):
@@ -336,13 +427,14 @@ def test_wbvh_scene_fused_blocks_equal_stepwise(scenes):
     assert _equal(*runs) and float(runs[0].tau.sum()) > 0
 
 
-def test_fused_settings_and_cost_analysis():
+def test_fused_settings_and_cost_analysis(scenes):
     integ = _integ("shadows", fused_iterations=True, fused_block=0,
                    fused_unroll=True)
     assert integ.fused_iterations and integ.fused_unroll
     assert integ.fused_block == 1 and integ.fused_pair_chunks == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integ.fused_cost_analysis(None)
+    ca = integ.fused_cost_analysis(scenes["shadows"])
+    assert {"flops", "bytes accessed"} <= set(ca)
+    assert ca["flops"] > 0 and ca["bytes accessed"] > 0
 
 
 @pytest.mark.cuda
@@ -364,3 +456,86 @@ def test_cuda_fused_blocks_match_stepwise():
         rec = integ.fused_graphs.captures
         assert [r["n_iters"] for r in rec] == {1: [1], 2: [2, 1]}[block]
         assert all(r["launches"]["sweep"] > 0 for r in rec)
+
+
+class _Counter(TorchDispatchMode):
+    """Every tensor op's operands and results, in bytes, and its float
+    results' elements (an operation or more each)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = self.bytes = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        tensors = lambda t: [x for x in tree_leaves(t)
+                             if isinstance(x, torch.Tensor)]
+        outs = tensors(out)
+        self.bytes += sum(x.numel() * x.element_size()
+                          for x in tensors((args, kwargs)) + outs)
+        self.flops += sum(x.numel() for x in outs if x.is_floating_point())
+        return out
+
+
+PHASES = {"camera": "_camera_pass_all", "grid": "_build_grid",
+          "photons": "_photon_walk_all", "pairs": "_pair_loop",
+          "update": "_update_pixels"}
+
+
+@pytest.mark.parametrize("name", ["shadows", "soup"])
+def test_cost_analysis_is_below_an_instrumented_block(scenes, name):
+    """Each phase's flops and bytes in fused_cost_analysis are at most
+    what a fused block's ops on the CPU take and give (every float result
+    element, every operand and result byte): the model is a lower bound
+    of the replayed work."""
+    scene = scenes[name]
+    integ = _integ(name, n_iterations=1, fused_iterations=True)
+    counts = {}
+    for phase, meth in PHASES.items():
+        fn = getattr(integ, meth)
+
+        def counted(*a, _fn=fn, _phase=phase, **k):
+            with _Counter() as c:
+                out = _fn(*a, **k)
+            tot = counts.setdefault(_phase, [0, 0])
+            tot[0] += c.flops
+            tot[1] += c.bytes
+            return out
+
+        setattr(integ, meth, counted)
+    integ.render(scene)
+    cost = integ.fused_cost_analysis(scene, 1)
+    assert set(cost["phases"]) == set(PHASES)
+    for phase, (flops, nbytes) in counts.items():
+        model = cost["phases"][phase]
+        print(f"{name} {phase}: model {model}, instrumented flops {flops}, "
+              f"bytes {nbytes}")
+        assert 0 < model["flops"] <= flops and 0 < model["bytes"] <= nbytes
+    if name == "soup":
+        # The prologue's box tests of the camera's first depth: every
+        # pixel lane against every super box, 24 FP32 operations each.
+        boxes = 24 * integ.n_pixels * scene.accel.tables.n_supers
+        assert cost["phases"]["camera"]["flops"] > boxes > 0
+    assert cost["flops"] == sum(p["flops"] for p in cost["phases"].values())
+    assert cost["bytes accessed"] == sum(p["bytes"] for p in
+                                         cost["phases"].values())
+
+
+def test_cost_analysis_scales_with_iterations_and_photons(scenes):
+    """JAX's keys; every count linear in the block's iterations, and the
+    photon walk's in the photons (multiples of the 32-ray sweep block)."""
+    scene = scenes["soup"]
+    one = _integ("soup", photons_per_iteration=256).fused_cost_analysis(
+        scene)
+    three = _integ("soup", photons_per_iteration=256).fused_cost_analysis(
+        scene, n_iters=3)
+    assert {"flops", "bytes accessed"} <= set(one)
+    for k in ("flops", "bytes accessed"):
+        assert three[k] == 3 * one[k]
+    two = _integ("soup", photons_per_iteration=512).fused_cost_analysis(
+        scene)
+    for m in ("flops", "bytes"):
+        assert two["phases"]["photons"][m] == \
+            2 * one["phases"]["photons"][m]
+        for p in ("camera", "grid", "update"):
+            assert two["phases"][p][m] == one["phases"][p][m]

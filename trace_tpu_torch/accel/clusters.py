@@ -28,6 +28,7 @@ import torch
 
 from ..shapes import triangle as tri_mod
 from ..wavefront.geom import _watertight
+from ..core.sync import sync_free
 from ..core.vec import V3
 from . import mxu as mxu_mod
 from . import native
@@ -279,7 +280,10 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     """Closest-hit (or any-hit) through the dense demand-ordered cluster
     sweep. ``accel`` holds tensors on the rays' device. Returns (hit [N]
     bool, t [N], tri_id [N] i32). ``stats`` (a dict) receives the stages
-    swept."""
+    swept (``stages``), the calls (``calls``) and the most stages a call
+    has (``most_stages``). Under core/sync.py's no_host_reads every stage runs (a lane
+    that is done tests against a limit of -inf, so the result is the
+    same); otherwise the sweep stops once every lane is done."""
     n = o.shape[0]
     c = accel.c_lo.shape[0]
     g = accel.super_size
@@ -314,7 +318,8 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     s = 0
-    while s < n_stages and not bool(done.all()):
+    static = sync_free()   # every stage: no host read (core/sync.py)
+    while s < n_stages and (static or not bool(done.all())):
         limit = torch.where(done, -INF, torch.minimum(best_t, t_max))
         if use_mxu:
             st, si = _test_stage_mt(accel, s, h, perm, o, d, m, limit,
@@ -332,6 +337,8 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
         s += 1
     if stats is not None:
         stats["stages"] = stats.get("stages", 0) + s
+        stats["calls"] = stats.get("calls", 0) + 1
+        stats["most_stages"] = max(stats.get("most_stages", 0), n_stages)
     hit = (best_i >= 0) & (best_t <= t_max)
     return hit, torch.where(hit, best_t, INF), best_i.clamp_min(0)
 
@@ -373,8 +380,10 @@ class ClusterAccelerator:
     def _load(self, accel: ClusterAccel) -> None:
         self.clusters = accel
         self.dev_clusters = to_device(accel, self.device)
-        lo = np.asarray(accel.c_lo).min(axis=0)
-        hi = np.asarray(accel.c_hi).max(axis=0)
+        host = lambda a: a.cpu().numpy() if torch.is_tensor(a) else \
+            np.asarray(a)
+        lo = host(accel.c_lo).min(axis=0)
+        hi = host(accel.c_hi).max(axis=0)
         self.world_lo = torch.from_numpy(lo).to(self.device)
         self.world_inv_extent = torch.from_numpy(
             (1.0 / np.maximum(hi - lo, 1e-12)).astype(np.float32)).to(

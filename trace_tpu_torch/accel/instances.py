@@ -50,6 +50,19 @@ A retired lane walks no further; the integrators hand a lane that is
 dead to the walk with limit -1, never -inf (the sweep counts either dead
 since ops/sweep.py's pad_rays sends -inf to -1, and such a lane never
 walks).
+
+Under core/sync.py's ``no_host_reads`` (SPPM's fused blocks) the walk
+takes a static route with no host read and the same result: every lane
+(a dead one's entries set to +inf) walks every group, a retired lane
+with no candidate pair; a group's candidate pairs go, in the order
+``nonzero`` gives them, into a buffer filled by a prefix count and a
+``searchsorted``, the slots past the count tested with limit -1. The
+buffer holds the run's StaticRoute capacity for the geometry, at most
+the group's lanes x instances; a geometry with no capacity there gets
+that bound, which no count exceeds. Each group's candidate count goes to
+the StaticRoute's ``counts``: a count above the buffer left pairs out,
+and the caller runs that work again stepwise with a larger capacity
+(integrators/sppm.py's fused blocks).
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ import numpy as np
 import torch
 
 from ..core import vec as V
+from ..core.sync import static_route, sync_free
 from ..core.vec import V3
 from ..shapes import sphere as sph_mod
 from ..shapes import triangle as tri_mod
@@ -182,12 +196,30 @@ class _Instanced:
 
 class InstancedGeometry(_Instanced):
     """One object-space base mesh, its instance table and, above 64 base
-    triangles, the sweep over the base's own tables."""
+    triangles, the sweep over the base's own tables.
+
+    ``use_accel``: the sweep (True), the brute-force grid (False), or the
+    sweep above 64 base triangles (None, the JAX package's rule);
+    ``sweep_tables`` gives the tables, else they are built from the base.
+    ``stage_clusters`` and ``leaf_tris`` are the JAX package's settings of
+    its cluster walk over the base: taken and ignored, the port's base
+    sweep keeps leaf 64 x group 8 (ROADMAP.md, C, "Leaf sizes")."""
 
     def __init__(self, base: tri_mod.Triangles, table: InstanceTable,
-                 sweep_tables=None):
+                 stage_clusters: int = 64, leaf_tris: int = 32,
+                 use_accel: bool | None = None, sweep_tables=None):
         super().__init__(table, tri_mod.num_triangles(base))
         self.base = base
+        self.stage_clusters = int(stage_clusters)
+        self.leaf_tris = int(leaf_tris)
+        if use_accel is None:
+            use_accel = self.n_base > 64
+        if not use_accel:
+            sweep_tables = None
+        elif sweep_tables is None:
+            from ..scene import sweep_tables as tables_of
+
+            sweep_tables = tables_of(base, use_bvh=True)
         self.sweep_tables = sweep_tables
         self.accel = None
 
@@ -209,8 +241,8 @@ class InstancedGeometry(_Instanced):
             return self.accel.intersect(o_l.arr(), d_l.arr(), lim, any_hit)
         return G.triangles_closest(self.base_cols, o_l, d_l, lim)
 
-    def make_hit_record(self, o: V3, d: V3, time, tri_idx, inst_idx, valid,
-                        prim_offset: int = 0) -> G.HitP:
+    def make_hit_record(self, o: V3, d: V3, time, elem_idx, inst_idx,
+                        valid, prim_offset: int = 0) -> G.HitP:
         """The winner's record: built in object space from the per-lane
         transformed rays, then mapped to world -- points and tangents by
         o2w, normals by w2o transposed, flipped where the instance swaps
@@ -221,11 +253,11 @@ class InstancedGeometry(_Instanced):
         r_o2w, t_o2w = _rows34(self.o2w[inst])
         o_l = _apply_point(r_w2o, t_w2o, o)
         d_l = V.mat3_apply(r_w2o, d)
-        rec = G.make_hit_triangles(self.base_rows, o_l, d_l, time, tri_idx,
+        rec = G.make_hit_triangles(self.base_rows, o_l, d_l, time, elem_idx,
                                    valid)
         to_w_v = lambda v: V.mat3_apply(r_o2w, v)
         to_w_n = lambda v: V.mat3_apply_t(r_w2o, v)
-        flip = self.swaps[inst] & self.has_normals[tri_idx.long()]
+        flip = self.swaps[inst] & self.has_normals[elem_idx.long()]
         sign = torch.where(flip, -1.0, 1.0)
         nrm = lambda v: to_w_n(v).normalize() * sign
         inst_mat = self.material_id[inst]
@@ -234,7 +266,7 @@ class InstancedGeometry(_Instanced):
             ns=nrm(rec.ns), wo=(-d).normalize(), s_dpdu=to_w_v(rec.s_dpdu),
             s_dpdv=to_w_v(rec.s_dpdv), s_dndu=to_w_n(rec.s_dndu),
             s_dndv=to_w_n(rec.s_dndv),
-            prim_id=(prim_offset + inst_idx * self.n_base + tri_idx).to(
+            prim_id=(prim_offset + inst_idx * self.n_base + elem_idx).to(
                 torch.int32),
             material_id=torch.where(inst_mat >= 0, inst_mat,
                                     rec.material_id).to(torch.int32))
@@ -300,11 +332,13 @@ class InstancedSpheres(_Instanced):
 
 
 def build_instances(indices, vertices, transforms, material_id: int = 0,
-                    normals=None, uv=None, material_ids=None
+                    normals=None, uv=None, material_ids=None,
+                    stage_clusters: int = 64, leaf_tris: int = 32
                     ) -> InstancedGeometry:
     """The base mesh packed once in object space, its instance table, and
-    above 64 triangles its sweep tables (leaf 64 x group 8); host data,
-    ``to(device)`` moves it."""
+    above 64 triangles its sweep tables (leaf 64 x group 8; the JAX
+    package's ``stage_clusters`` and ``leaf_tris`` are taken and ignored,
+    InstancedGeometry); host data, ``to(device)`` moves it."""
     from ..core import transform as T
     from ..scene import sweep_tables
 
@@ -313,7 +347,8 @@ def build_instances(indices, vertices, transforms, material_id: int = 0,
                                       material_id=material_id)
     table = instance_table(transforms, tri_mod.world_bounds_np(base),
                            material_ids)
-    return InstancedGeometry(base, table, sweep_tables(base))
+    return InstancedGeometry(base, table, stage_clusters, leaf_tris,
+                             sweep_tables=sweep_tables(base))
 
 
 def build_sphere_instances(entries, transforms, material_ids=None
@@ -337,9 +372,14 @@ def sweep_instances(geom, o: V3, d: V3, t_max, any_hit: bool = False,
     ``_sweep_instances`` on the same rays and limits. ``group`` instances
     are visited at a time (default: the geometry's). Only lanes with
     t_max >= 0 can hit; the walk and its demand count take those alone
-    (one host read), and a call with none returns at once."""
+    (one host read), and a call with none returns at once; under
+    no_host_reads the static route instead (module docstring)."""
     n = t_max.shape[0]
     dev = t_max.device
+    if sync_free():
+        return _sweep_live(geom, o, d, t_max, any_hit,
+                           int(group or geom.group), ray_chunk,
+                           _walk_chunk_static)
     hit = torch.zeros((n,), dtype=torch.bool, device=dev)
     t = torch.full((n,), INF, dtype=F32, device=dev)
     elem = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -355,31 +395,37 @@ def sweep_instances(geom, o: V3, d: V3, t_max, any_hit: bool = False,
 
 
 def _sweep_live(geom, o: V3, d: V3, t_max, any_hit: bool, g: int,
-                ray_chunk: int):
+                ray_chunk: int, walk=None):
+    """The walk of lanes in chunks of ``ray_chunk``, each chunk by
+    ``walk`` (_walk_chunk by default). A lane with t_max < 0 enters no
+    box: its entries are +inf (the static route hands such lanes in)."""
     n = t_max.shape[0]
     dev = t_max.device
     oa, da = o.arr(), d.arr()
     starts = range(0, n, ray_chunk)
+
+    def entries(sl):
+        e = entry_boxes(geom.lo, geom.hi, oa[sl], da[sl], t_max[sl])
+        return torch.where(t_max[sl, None] >= 0, e, INF)
+
     whole = None
     if n <= ray_chunk:
-        whole = entry_boxes(geom.lo, geom.hi, oa, da, t_max)
+        whole = entries(slice(0, n))
         demand = torch.isfinite(whole).sum(0)
     else:
-        demand = sum(torch.isfinite(entry_boxes(
-            geom.lo, geom.hi, oa[s:s + ray_chunk], da[s:s + ray_chunk],
-            t_max[s:s + ray_chunk])).sum(0) for s in starts)
+        demand = sum(torch.isfinite(entries(slice(s, s + ray_chunk))).sum(0)
+                     for s in starts)
     perm = torch.argsort(-demand, stable=True).to(torch.int32)
     best_t = torch.full((n,), INF, dtype=F32, device=dev)
     best_elem = torch.zeros((n,), dtype=torch.int32, device=dev)
     best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for s in starts:
         sl = slice(s, s + ray_chunk)
-        entry = whole if whole is not None else entry_boxes(
-            geom.lo, geom.hi, oa[sl], da[sl], t_max[sl])
-        _walk_chunk(geom, V3(o.x[sl], o.y[sl], o.z[sl]),
-                    V3(d.x[sl], d.y[sl], d.z[sl]), t_max[sl],
-                    entry[:, perm.long()], perm, any_hit, g,
-                    best_t[sl], best_elem[sl], best_inst[sl])
+        entry = whole if whole is not None else entries(sl)
+        (walk or _walk_chunk)(geom, V3(o.x[sl], o.y[sl], o.z[sl]),
+                              V3(d.x[sl], d.y[sl], d.z[sl]), t_max[sl],
+                              entry[:, perm.long()], perm, any_hit, g,
+                              best_t[sl], best_elem[sl], best_inst[sl])
     hit = (best_inst >= 0) & (best_t <= t_max)
     return (hit, torch.where(hit, best_t, INF), best_elem,
             best_inst.clamp_min(0))
@@ -426,3 +472,59 @@ def _walk_chunk(geom, o: V3, d: V3, t_max, entry_p, perm, any_hit: bool,
         if any_hit:   # a hit, not merely inf <= inf (ROADMAP C)
             retire = retire | ((bt <= tm) & (bt < INF))
         done[lanes] = retire
+
+
+def _walk_chunk_static(geom, o: V3, d: V3, t_max, entry_p, perm,
+                       any_hit: bool, g: int, best_t, best_elem,
+                       best_inst) -> None:
+    """_walk_chunk with no host read: every lane, every group, the
+    candidate pairs in a buffer of the StaticRoute's capacity for
+    ``geom`` (module docstring)."""
+    m, n_i = entry_p.shape
+    dev = t_max.device
+    route = static_route()
+    counts = route.counts.setdefault(geom, [])
+    suffix = torch.cat([entry_p.flip(1).cummin(1).values.flip(1),
+                        torch.full_like(entry_p[:, :1], INF)], 1)
+    done = torch.zeros(t_max.shape, dtype=torch.bool, device=dev)
+    for r0 in range(0, n_i, g):
+        geom.groups_visited += 1
+        r1 = min(r0 + g, n_i)
+        k = r1 - r0
+        inst = perm[r0:r1]
+        bt = best_t
+        lim = torch.minimum(bt, t_max)
+        ent = entry_p[:, r0:r1]
+        cand = (torch.isfinite(ent) & (ent <= lim[:, None])
+                & ~done[:, None]).reshape(-1)
+        count = torch.cumsum(cand, 0)
+        counts.append(count[-1])
+        cap = min(route.capacity.get(geom) or m * k, m * k)
+        slots = torch.arange(cap, device=dev)
+        # Slot j holds the (j + 1)-th candidate in row-major order (what
+        # nonzero gives); a slot past the count holds m * k, no pair.
+        flat = torch.searchsorted(count, slots + 1)
+        real = flat < m * k
+        pa = torch.where(real, flat // k, 0)
+        pk = torch.where(real, flat % k, 0)
+        h, t, e = geom.pair_hits(
+            V3(o.x[pa], o.y[pa], o.z[pa]), V3(d.x[pa], d.y[pa], d.z[pa]),
+            torch.where(real, lim[pa], -1.0), inst[pk], any_hit)
+        # Each slot writes its own cell; an empty slot one past the grid.
+        cell = torch.where(real, flat, m * k + slots)
+        t_g = torch.full((m * k + cap,), INF, dtype=F32, device=dev)
+        e_g = torch.zeros((m * k + cap,), dtype=torch.int32, device=dev)
+        t_g[cell] = torch.where(h, t, INF)
+        e_g[cell] = e.to(torch.int32)
+        kt, kk = t_g[:m * k].reshape(m, k).min(dim=1)   # first least t
+        better = kt < bt
+        bt = torch.where(better, kt, bt)
+        best_t.copy_(bt)
+        best_elem.copy_(torch.where(
+            better, e_g[:m * k].reshape(m, k).gather(1, kk[:, None])
+            .squeeze(1), best_elem))
+        best_inst.copy_(torch.where(better, inst[kk], best_inst))
+        retire = suffix[:, r1] >= torch.minimum(bt, t_max)
+        if any_hit:   # a hit, not merely inf <= inf (ROADMAP C)
+            retire = retire | ((bt <= t_max) & (bt < INF))
+        done = done | retire

@@ -109,3 +109,22 @@ def build_clusters_device(tris, leaf_tris: int = 32) -> ClusterAccel:
                                             device=dev)], 1)
     tri_id_p = torch.cat([tri_id, tri_id.new_full((c, (-l) % 128), -1)], 1)
     return ClusterAccel(lo_b, hi_b, packed_mt, tri_id_p, l)
+
+
+def attach(scene, leaf_tris: int = 32, stage_clusters: int = 64,
+           ray_chunk: int = 16384):
+    """Install a cluster accelerator over the device Morton build of the
+    scene's triangles (accel/clusters.py::ClusterAccelerator, certified
+    with the scene's exact_shared_edges) and bump the scene's version."""
+    if scene.n_triangles == 0:
+        return scene
+    from ..shapes import triangle as tri_mod
+    from .clusters import ClusterAccelerator
+
+    acc = build_clusters_device(tri_mod.to_device(scene.triangles,
+                                                  scene.device), leaf_tris)
+    scene.bump_version()
+    scene.accel = ClusterAccelerator(acc, scene.device, stage_clusters,
+                                     ray_chunk,
+                                     certified=bool(scene.exact_edges))
+    return scene

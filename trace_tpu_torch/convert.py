@@ -46,7 +46,9 @@ run of the JAX package resumes in the port; ``film_state_from_numpy`` a
 film state with its splats; ``triangles_from_jax`` and
 ``transform_from_jax`` carry a frame's geometry and motion;
 ``linear_bvh`` and ``cluster_accel`` a JAX SAH tree and cluster tables,
-so the port's walks run on JAX's own trees.
+so the port's walks run on JAX's own trees; ``tri_matmul_consts`` JAX's
+matmul constants (accel/mxu.py), so both packages' all-pairs tests read
+one table.
 """
 from __future__ import annotations
 
@@ -58,6 +60,7 @@ import torch
 from .accel import instances as inst_mod
 from .accel.bvh import LinearBVH
 from .accel.clusters import ClusterAccel
+from .accel.mxu import TriMatmulConsts
 from .core.transform import Transform
 from .lights import lights as light_mod
 from .materials import materials as M
@@ -229,6 +232,13 @@ def cluster_accel(accel) -> ClusterAccel:
                            for f in ClusterAccel._fields})
 
 
+def tri_matmul_consts(consts) -> TriMatmulConsts:
+    """A JAX package TriMatmulConsts -> the port's, of host numpy arrays,
+    field by field."""
+    return TriMatmulConsts(*[np.asarray(getattr(consts, f)) for f in
+                             TriMatmulConsts._fields])
+
+
 def _sweep_tables(arrays, prefix=""):
     if prefix + "panel" not in arrays:
         return None
@@ -248,7 +258,7 @@ def _instanced(arrays) -> list:
             base = Triangles(*[np.asarray(arrays[pre + "tri_" + f])
                                for f in Triangles._fields])
             out.append(inst_mod.InstancedGeometry(
-                base, table, _sweep_tables(arrays, pre)))
+                base, table, sweep_tables=_sweep_tables(arrays, pre)))
         else:
             base = Spheres(*[np.asarray(arrays[pre + "sphere_" + f])
                              for f in Spheres._fields])

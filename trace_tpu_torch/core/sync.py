@@ -7,7 +7,10 @@ static route instead -- every depth, every chunk -- which gives the same
 values, so that a block of work is issued without a host round trip and
 a CUDA graph can capture it (integrators/sppm.py's fused blocks). The
 fused blocks on the card refuse the scenes whose intersection reads the
-host with no static route (integrators/fused.py).
+host with no static route (integrators/fused.py). A run's
+:class:`StaticRoute` carries what the static routes share with the
+caller: the instance walks' pair buffer sizes, and the candidate pair
+counts they saw (accel/instances.py).
 
 :func:`device_constant` holds the small constant tables the path builds
 from host values: made once per device (a fused block's eager warm-up
@@ -20,23 +23,41 @@ import contextvars
 
 import torch
 
-_SYNC_FREE = contextvars.ContextVar("sync_free", default=False)
+_ROUTE = contextvars.ContextVar("static_route", default=None)
 _CONSTANTS = {}
+
+
+class StaticRoute:
+    """One sync-free run's instance walk settings and reports.
+    ``capacity``: pair buffer size per instanced geometry (a geometry
+    not in it takes the walk's bound, which no count exceeds); ``counts``:
+    per geometry, the candidate pair count of each group walked (device
+    scalars, in walk order)."""
+
+    def __init__(self, capacity: dict | None = None):
+        self.capacity = dict(capacity or {})
+        self.counts = {}
 
 
 def sync_free() -> bool:
     """Whether the caller is inside :func:`no_host_reads`."""
-    return _SYNC_FREE.get()
+    return _ROUTE.get() is not None
+
+
+def static_route() -> StaticRoute | None:
+    """The :class:`StaticRoute` of the enclosing :func:`no_host_reads`."""
+    return _ROUTE.get()
 
 
 @contextlib.contextmanager
-def no_host_reads():
-    """Run the render path on its static routes (module docstring)."""
-    token = _SYNC_FREE.set(True)
+def no_host_reads(route: StaticRoute | None = None):
+    """Run the render path on its static routes (module docstring), with
+    ``route`` (a fresh one if None) as their :class:`StaticRoute`."""
+    token = _ROUTE.set(route if route is not None else StaticRoute())
     try:
         yield
     finally:
-        _SYNC_FREE.reset(token)
+        _ROUTE.reset(token)
 
 
 def device_constant(values, dtype, device) -> torch.Tensor:

@@ -103,6 +103,12 @@ class V3(NamedTuple):
     def max_component(self) -> torch.Tensor:
         return torch.maximum(torch.maximum(self.x, self.y), self.z)
 
+    def sum(self) -> torch.Tensor:
+        return self.x + self.y + self.z
+
+    def astype(self, dt) -> "V3":
+        return V3(self.x.to(dt), self.y.to(dt), self.z.to(dt))
+
     def is_black(self) -> torch.Tensor:
         return (self.x == 0.0) & (self.y == 0.0) & (self.z == 0.0)
 
@@ -119,8 +125,39 @@ def where(c, a, b) -> V3:
               torch.where(c, az, bz))
 
 
-def maximum(a: V3, lo: float) -> V3:
-    return V3(a.x.clamp_min(lo), a.y.clamp_min(lo), a.z.clamp_min(lo))
+def _pair(f, a, b) -> V3:
+    """Componentwise ``f`` of two V3s or scalars (at least one a V3)."""
+    return V3(*[f(x, y) for x, y in zip(_parts(a), _parts(b))])
+
+
+def _max(x, y):
+    if not torch.is_tensor(y):
+        return x.clamp_min(y)
+    return y.clamp_min(x) if not torch.is_tensor(x) else torch.maximum(x, y)
+
+
+def _min(x, y):
+    if not torch.is_tensor(y):
+        return x.clamp_max(y)
+    return y.clamp_max(x) if not torch.is_tensor(x) else torch.minimum(x, y)
+
+
+def maximum(a, b) -> V3:
+    """Componentwise maximum of V3s or scalars."""
+    return _pair(_max, a, b)
+
+
+def minimum(a, b) -> V3:
+    """Componentwise minimum of V3s or scalars."""
+    return _pair(_min, a, b)
+
+
+def lerp(a: V3, b: V3, t):
+    return a * (1.0 - t) + b * t
+
+
+def reflect(wo: V3, n: V3) -> V3:
+    return -wo + n * (2.0 * wo.dot(n))
 
 
 def face_forward(n: V3, v: V3) -> V3:
@@ -148,8 +185,17 @@ def coordinate_system(v1: V3):
     return v1, v2, v1.cross(v2)
 
 
-def mat3_apply(r, v: V3) -> V3:
-    """``r`` is a nested 3x3 sequence of tensors or scalars (row-major)."""
+def _rows(m33):
+    """A nested 3x3 sequence as it is, or [..., 3, 3] as one."""
+    if isinstance(m33, (list, tuple)):
+        return m33
+    return [[m33[..., i, j] for j in range(3)] for i in range(3)]
+
+
+def mat3_apply(m33, v: V3) -> V3:
+    """``m33``: a nested 3x3 sequence of tensors or scalars (row-major),
+    or a [..., 3, 3] tensor broadcastable against the components."""
+    r = _rows(m33)
     return V3(
         r[0][0] * v.x + r[0][1] * v.y + r[0][2] * v.z,
         r[1][0] * v.x + r[1][1] * v.y + r[1][2] * v.z,
@@ -157,8 +203,9 @@ def mat3_apply(r, v: V3) -> V3:
     )
 
 
-def mat3_apply_t(r, v: V3) -> V3:
+def mat3_apply_t(m33, v: V3) -> V3:
     """Transpose apply (normals' inverse-transpose rule)."""
+    r = _rows(m33)
     return V3(
         r[0][0] * v.x + r[1][0] * v.y + r[2][0] * v.z,
         r[0][1] * v.x + r[1][1] * v.y + r[2][1] * v.z,
@@ -203,8 +250,16 @@ def uniform_sample_cone(u1, u2, cos_t_max) -> V3:
 
 # Shading-frame trig on local-frame vectors (normal = +z).
 
+def spherical_direction(sin_t, cos_t, phi) -> V3:
+    return V3(sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t)
+
+
 def cos_theta(w: V3):
     return w.z
+
+
+def cos2_theta(w: V3):
+    return w.z * w.z
 
 
 def sin2_theta(w: V3):

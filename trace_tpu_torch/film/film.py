@@ -20,7 +20,7 @@ import torch
 
 from ..core import spectrum as spec
 from ..core.math import scatter_add
-from .filters import LanczosSincFilter
+from .filters import LanczosSincFilter, weights
 
 F32 = torch.float32
 FILTER_TABLE_WIDTH = 16
@@ -130,8 +130,9 @@ class Film:
         off_y = torch.floor(fy).clamp(1, FILTER_TABLE_WIDTH) - 1.0
         n = p_film.shape[0]
         shape = (n, self.fp_y, self.fp_x)
-        w = self.filter(((off_x + 0.5) * step_x)[:, None, :].expand(shape),
-                        ((off_y + 0.5) * step_y)[:, :, None].expand(shape))
+        w = weights(self.filter,
+                    ((off_x + 0.5) * step_x)[:, None, :].expand(shape),
+                    ((off_y + 0.5) * step_y)[:, :, None].expand(shape))
         mask = in_y[:, :, None] & in_x[:, None, :]
         if valid is not None:
             mask = mask & valid[:, None, None]
@@ -150,11 +151,14 @@ class Film:
         return FilmState(new_xyz, new_ws, state.splat_xyz)
 
     def add_samples_grid(self, state: FilmState, p_film, L_rgb,
-                         sample_weight, origin, grid_hw) -> FilmState:
+                         sample_weight, origin, grid_hw,
+                         valid=None) -> FilmState:
         """Splat the complete raster sample grid (x-fastest lanes,
         N == gh * gw) through the static filter stencil. ``origin`` is
-        sample_bounds' lo corner. Returns a new state; ``state`` is left
-        as it was."""
+        sample_bounds' lo corner; ``valid`` ([N] bool, optional) drops
+        lanes' filter weights, as the JAX package's does (callers also
+        zero those lanes' radiance and weight). Returns a new state;
+        ``state`` is left as it was."""
         gh, gw = grid_hw
         x0, y0 = origin
         d_x = (p_film[:, 0] - 0.5).reshape(gh, gw)
@@ -169,6 +173,7 @@ class Film:
         vx = xyz[:, 0].reshape(gh, gw)
         vy = xyz[:, 1].reshape(gh, gw)
         vz = xyz[:, 2].reshape(gh, gw)
+        vmask = None if valid is None else valid.reshape(gh, gw).to(F32)
 
         p0x = torch.ceil(d_x - r[0]).clamp_min(float(self.crop_min[0]))
         p0y = torch.ceil(d_y - r[1]).clamp_min(float(self.crop_min[1]))
@@ -206,8 +211,10 @@ class Film:
                 fy = ((qy - d_y) * inv_ry).abs() * FILTER_TABLE_WIDTH
                 off_x = torch.ceil(fx).clamp(1, FILTER_TABLE_WIDTH) - 1.0
                 off_y = torch.floor(fy).clamp(1, FILTER_TABLE_WIDTH) - 1.0
-                w = self.filter((off_x + 0.5) * step_x,
-                                (off_y + 0.5) * step_y) * inb.to(F32)
+                w = weights(self.filter, (off_x + 0.5) * step_x,
+                            (off_y + 0.5) * step_y) * inb.to(F32)
+                if vmask is not None:
+                    w = w * vmask
                 gs = (slice(gy0, gy0 + ly), slice(gx0, gx0 + lx))
                 ts = (slice(ty0, ty0 + ly), slice(tx0, tx0 + lx))
                 ws = w[gs]

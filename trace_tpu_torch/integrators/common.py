@@ -1,16 +1,23 @@
 """Integrator helpers shared across integrators (port of the parts of
 trace_tpu/integrators/common.py that the port's integrators use): the
-lights' power distribution, and the animated-geometry pair
-(``prepare_geometry`` / ``apply_geometry``)."""
+radiance sanitizer, the lights' power distribution, and the
+animated-geometry pair (``prepare_geometry`` / ``apply_geometry``)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..accel.morton import build_clusters_device
 from ..lights import lights as light_mod
 from ..ops.sweep import SweepAccelerator, SweepTables
 from ..scene import BRUTE_FORCE_MAX_TRIS, GROUP, LEAF_TRIS
 from ..shapes import triangle as tri_mod
+
+
+def sanitize_radiance(l: torch.Tensor) -> torch.Tensor:
+    """Radiance with non-finite entries set to 0 and negatives clamped
+    to 0."""
+    return torch.where(torch.isfinite(l), l, 0.0).clamp_min(0.0)
 
 
 def _to_y(rgb: np.ndarray) -> np.ndarray:

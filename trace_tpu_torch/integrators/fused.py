@@ -16,10 +16,13 @@ A replay copies the caller's state into the graph's input buffers and
 the iteration number into a device scalar (a fill), replays, and clones
 the outputs: a state the caller holds is never written.
 
-Scenes whose intersection reads the host are refused on the card: the
-instance walk (accel/instances.py reads its live lanes and candidate
-pairs each group) and the ``clusters`` traversal (accel/clusters.py
-reads whether every ray is done each stage).
+Every accelerator of the package has a route with no host read under
+core/sync.py's ``no_host_reads``: the sweep's every chunk, the walk
+kernels, the all-pairs tests, the ``clusters`` traversal's every stage
+and the instance walk's every group over a fixed pair buffer (whose
+overflow sends the block back to the stepwise path, as the pair total
+does). A scene with an accelerator of another kind is refused on the
+card, by the accelerator's name: its route is not known to read nothing.
 """
 from __future__ import annotations
 
@@ -29,7 +32,19 @@ from dataclasses import fields
 
 import torch
 
+from ..accel.bvh import BVHAccelerator
 from ..accel.clusters import ClusterAccelerator
+from ..accel.instances import InstancedGeometry, InstancedSpheres
+from ..accel.mxu import MXUAccelerator
+from ..accel.wbvh import WBVHAccelerator
+from ..ops.intersect import IntersectAccelerator
+from ..ops.sweep import SweepAccelerator
+
+# The accelerators whose routes read nothing on the host under
+# no_host_reads.
+CAPTURABLE = (SweepAccelerator, WBVHAccelerator, BVHAccelerator,
+              ClusterAccelerator, IntersectAccelerator, MXUAccelerator,
+              InstancedGeometry, InstancedSpheres)
 
 
 def kernel_counts() -> dict:
@@ -45,19 +60,15 @@ def kernel_counts() -> dict:
 
 
 def check_capturable(scene) -> None:
-    """NotImplementedError for a scene whose intersection reads the host."""
-    if scene.instanced:
-        raise NotImplementedError(
-            "fused SPPM blocks on the card: the instance walk "
-            "(accel/instances.py) reads the host twice a group of instances "
-            "(its live lanes and its candidate pairs), so a CUDA graph "
-            "cannot capture it; render stepwise (fused_iterations=False)")
-    if isinstance(scene.accel, ClusterAccelerator):
-        raise NotImplementedError(
-            "fused SPPM blocks on the card: the clusters traversal "
-            "(accel/clusters.py) reads on the host whether every ray is "
-            "done, each stage, so a CUDA graph cannot capture it; attach the "
-            "sweep or wbvh, or render stepwise (fused_iterations=False)")
+    """NotImplementedError for a scene with an accelerator (or instanced
+    geometry) of a kind whose route may read the host."""
+    for acc in [scene.accel] + list(scene.instanced):
+        if acc is not None and not isinstance(acc, CAPTURABLE):
+            raise NotImplementedError(
+                f"fused SPPM blocks on the card: {type(acc).__name__} has "
+                f"no route known to read nothing on the host, so a CUDA "
+                f"graph cannot capture it; render stepwise "
+                f"(fused_iterations=False)")
 
 
 @contextlib.contextmanager
@@ -103,7 +114,7 @@ class _Block:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             with _sync_errors():
-                self.out, self.totals = body()
+                self.out, self.totals, self.pairs = body()
         torch.cuda.synchronize(dev)
         after = kernel_counts()
         self.record = dict(
@@ -117,14 +128,16 @@ class _Block:
             getattr(self.state, f.name).copy_(getattr(state, f.name))
         self.it.fill_(it)
         self.graph.replay()
-        return _clone(self.out), self.totals.clone()
+        return _clone(self.out), self.totals.clone(), self.pairs.clone()
 
 
 class BlockGraphs:
     """One integrator's captured blocks, for one scene view at a time: a
     view other than the last one (another scene, light table,
-    accelerator or sweep tables, triangle table or camera, or changed
-    integrator settings) drops every graph first. ``captures`` lists
+    accelerator or sweep tables, triangle table or camera, a scene whose
+    version was bumped, or changed integrator settings) drops every graph
+    first. A block is captured per block length, pair chunks and the
+    instance walks' pair capacities. ``captures`` lists
     each capture's block length, pair chunks, warm-up and capture host
     ms, and kernel launches per replay (the wrappers count launches while
     the graph is captured, and a replay repeats them)."""
@@ -141,7 +154,7 @@ class BlockGraphs:
                    integ.camera)
         settings = (integ.seed, integ.max_depth, integ.n_iterations,
                     integ.photons_per_iteration, integ.pixel_chunk,
-                    integ.pair_chunk)
+                    integ.pair_chunk, scene._version)
         if self.view is None or settings != self.view[1] or any(
                 a is not b for a, b in zip(objects, self.view[0])):
             self.graphs.clear()
@@ -150,14 +163,17 @@ class BlockGraphs:
     def run(self, integ, scene, state, it: int, n_iters: int, pixels, key,
             light_cdf, light_pmf, pair_chunks: int):
         """Iterations it .. it + n_iters - 1 from ``state`` -> (state, pair
-        totals [n_iters]), by a replay of the block's graph (captured
-        here at its first use)."""
+        totals [n_iters], instance pairs [G]), by a replay of the block's
+        graph (captured here at its first use)."""
         check_capturable(scene)
         self._view(integ, scene)
-        blk = self.graphs.get((n_iters, pair_chunks))
+        key_ = (n_iters, pair_chunks,
+                tuple(integ.fused_pair_capacity.get(g)
+                      for g in scene.instanced))
+        blk = self.graphs.get(key_)
         if blk is None:
             blk = _Block(integ, scene, state, it, n_iters, pixels, key,
                          light_cdf, light_pmf, pair_chunks)
-            self.graphs[(n_iters, pair_chunks)] = blk
+            self.graphs[key_] = blk
             self.captures.append(blk.record)
         return blk.replay(state, it)

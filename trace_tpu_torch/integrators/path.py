@@ -4,21 +4,24 @@ one stack)."""
 from __future__ import annotations
 
 from ..wavefront import path as planar
-from .base import SamplerIntegrator
+from .base import PIXEL_CHUNK, SamplerIntegrator
 
 
 class PathIntegrator(SamplerIntegrator):
     """NEE + MIS path tracer with Russian roulette after ``rr_depth``
-    bounces. ``li_impl`` other than "auto"/"planar" raises."""
+    bounces, in chunks of ``pixel_chunk`` lanes (integrators/base.py).
+    ``li_impl`` other than "auto"/"planar" raises."""
 
     def __init__(self, camera, sampler=None, max_depth: int = 5,
-                 rr_depth: int = 3, li_impl: str = "auto", stats=None):
+                 rr_depth: int = 3, pixel_chunk: int = PIXEL_CHUNK,
+                 li_impl: str = "auto", stats=None):
         if li_impl not in ("auto", "planar"):
             raise NotImplementedError(
                 f"li_impl={li_impl!r}: only the planar path is ported")
-        super().__init__(camera, sampler, max_depth, stats=stats)
+        super().__init__(camera, sampler, max_depth, pixel_chunk,
+                         stats=stats)
         self.rr_depth = int(rr_depth)
 
-    def li(self, scene, rd, keys):
+    def li(self, scene, rd, key):
         planar.supports(scene)
-        return planar.li(scene, rd, keys, self.max_depth, self.rr_depth)
+        return planar.li(scene, rd, key, self.max_depth, self.rr_depth)

@@ -26,10 +26,13 @@ Fused blocks (``fused_iterations``, JAX's ``_iterations_fused``): up to
 ``fused_block`` iterations run as one block through the sync-free body
 ``_iterations_body`` -- every depth and every sweep chunk (core/sync.py),
 full Halton trips, the pair total kept on the device and a fixed number
-of pair chunks -- which gives the stepwise state bit for bit. On the card
-each block is one CUDA graph replay (integrators/fused.py); the host
-reads one flag a block, whether the pairs overflowed the chunks (the
-block then runs again stepwise). ``fused_unroll`` is kept for the JAX
+of pair chunks, the instance walks' pairs in buffers of a fixed size
+(accel/instances.py) -- which gives the stepwise state bit for bit. On
+the card each block is one CUDA graph replay (integrators/fused.py); the
+host reads once a block whether the pairs overflowed the chunks or an
+instance walk's buffer (the block then runs again stepwise, and later
+blocks take larger ones). ``fused_cost_analysis`` counts a block's work
+from its static shapes. ``fused_unroll`` is kept for the JAX
 signature: a block is straight-line code in a graph either way.
 
 Animated geometry (``render(geometry=, geometry_transform=)``) and
@@ -56,7 +59,7 @@ import numpy as np
 import torch
 
 from ..core.math import scatter_add as _scatter_add
-from ..core.sync import no_host_reads
+from ..core.sync import StaticRoute, no_host_reads
 from ..core.vec import V3
 from ..lights import lights as light_mod
 from ..sampler import uniform as U
@@ -250,6 +253,14 @@ class SPPMIntegrator:
         self.fused_unroll = bool(fused_unroll)
         # Pair chunks a fused block runs (K); raised after an overflow.
         self.fused_pair_chunks = 1
+        # The instance walks' pair buffer a fused block gives each
+        # instanced geometry (core/sync.py's StaticRoute): none before
+        # its first block (the walk's bound), then twice the power of two
+        # of the most pairs a group had, raised after an overflow.
+        self.fused_pair_capacity = {}
+        # Blocks run again stepwise after an overflow (pairs or an
+        # instance walk's pair buffer).
+        self.fused_reruns = 0
         self.fused_graphs = None
         self.last_pair_totals = None
 
@@ -567,9 +578,16 @@ class SPPMIntegrator:
         return (tuple(kinds) + (empty,) * VP_LOBES)[:VP_LOBES]
 
     def step(self, scene, state: SPPMState, iteration: int, pixels, key,
-             light_cdf, light_pmf) -> SPPMState:
+             light_cdf, light_pmf, geom=None) -> SPPMState:
         """One iteration: camera pass, grid, photon walk, pairs, update;
-        with a mesh, the passes split as the constructor says."""
+        with a mesh, the passes split as the constructor says. ``geom``:
+        a frame's (triangles, sweep tables) from
+        common.prepare_geometry, rendered in place of the scene's (one
+        device only, as in the JAX package)."""
+        if geom is not None:
+            if self.mesh is not None:
+                raise ValueError("animated geometry renders on one device")
+            scene = common.apply_geometry(scene, geom)
         it_key = U.fold_in(key, iteration)
         n_pix = pixels.shape[0]
         if self.mesh is not None and self.shard_camera:
@@ -624,12 +642,17 @@ class SPPMIntegrator:
         device int64 scalar) with no host read: ``step``'s phases on their
         sync-free routes (core/sync.py), the pair total on the device and
         ``pair_chunks`` pair chunks. -> (state, pair totals int64
-        [n_iters]); the state is ``step``'s bit for bit while every total
-        is at most pair_chunks * pair_chunk."""
+        [n_iters], instance pairs int64 [G]: per instanced geometry, the
+        most candidate pairs of a group its walks saw); the instance walks'
+        pair buffers hold ``fused_pair_capacity`` (accel/instances.py).
+        The state is ``step``'s bit for bit while every total is at most
+        pair_chunks * pair_chunk and no geometry's pairs exceed its
+        capacity."""
         kinds = self.vp_kinds(scene)
         np_iter = self.photons_per_iteration
         totals = []
-        with no_host_reads():
+        route = StaticRoute(self.fused_pair_capacity)
+        with no_host_reads(route):
             for k in range(n_iters):
                 it = it_start + k
                 ld_add, vp = self._camera_pass_all(scene, pixels,
@@ -649,39 +672,55 @@ class SPPMIntegrator:
                 state = self._update_pixels(
                     SPPMState(state.ld, state.tau, state.radius, state.n, phi,
                               m_cnt), ld_add)
-        return state, torch.stack(totals)
+        zero = torch.zeros((), dtype=torch.int64, device=pixels.device)
+        most = [torch.stack(route.counts.get(g, []) + [zero]).max()
+                for g in scene.instanced]
+        return state, torch.stack(totals), torch.stack(most + [zero])[:-1]
 
     def _fused_block(self, scene, state: SPPMState, it: int, n_iters: int,
                      pixels, key, light_cdf, light_pmf) -> SPPMState:
         """Iterations it .. it + n_iters - 1 as one block: on the card a
         replay of the block's CUDA graph (integrators/fused.py), on the CPU
         ``_iterations_body`` itself. One host read: the largest pair total
-        of the block (``last_pair_totals`` keeps them all). A block whose
-        pairs overflowed ``fused_pair_chunks`` chunks runs again stepwise
-        from ``state`` (the same bits), and later blocks take enough
-        chunks."""
+        of the block (``last_pair_totals`` keeps them all), with the
+        instance walks' pair counts. A block whose pairs overflowed
+        ``fused_pair_chunks`` chunks, or an instance walk's pair buffer,
+        runs again stepwise from ``state`` (the same bits; counted in
+        ``fused_reruns``), and later blocks take enough chunks. A
+        geometry's buffer is sized from its counts after its first block
+        and after an overflow: twice the count's next power of two."""
         k = self.fused_pair_chunks
         if state.ld.device.type == "cuda":
             from .fused import BlockGraphs
 
             if self.fused_graphs is None:
                 self.fused_graphs = BlockGraphs()
-            out, totals = self.fused_graphs.run(
+            out, totals, over = self.fused_graphs.run(
                 self, scene, state, it, n_iters, pixels, key, light_cdf,
                 light_pmf, k)
         else:
             it0 = torch.full((), it, dtype=torch.int64, device=pixels.device)
-            out, totals = self._iterations_body(scene, state, n_iters, it0,
-                                                pixels, key, light_cdf,
-                                                light_pmf, k)
+            out, totals, over = self._iterations_body(
+                scene, state, n_iters, it0, pixels, key, light_cdf,
+                light_pmf, k)
         self.last_pair_totals = totals
-        most = int(totals.max())
-        if most <= k * self.pair_chunk:
+        most, *pairs = torch.cat([totals.max()[None], over]).tolist()
+        caps = self.fused_pair_capacity
+        overflow = False
+        for g, need in zip(scene.instanced, pairs):
+            cap = caps.get(g)
+            overflow |= cap is not None and need > cap
+            if cap is None or need > cap:
+                # Twice the count's power of two: a later iteration's
+                # rays may need a few more pairs.
+                caps[g] = 2 << (max(int(need), 1) - 1).bit_length()
+        if most <= k * self.pair_chunk and not overflow:
             return out
         for i in range(it, it + n_iters):
             state = self.step(scene, state, i, pixels, key, light_cdf,
                               light_pmf)
-        self.fused_pair_chunks = -(-most // self.pair_chunk)
+        self.fused_reruns += 1
+        self.fused_pair_chunks = max(k, -(-most // self.pair_chunk))
         return state
 
     def _mesh_size(self) -> int:
@@ -786,10 +825,73 @@ class SPPMIntegrator:
                                                  for s in states])
                             for f in fields(SPPMState)})
 
-    def fused_cost_analysis(self, *args, **kw):
-        """The JAX package returns XLA's static cost estimate of its fused
-        executable; a CUDA graph has none (queued in ROADMAP.md, A.1)."""
-        raise NotImplementedError(
-            "fused_cost_analysis is XLA's static cost estimate of the JAX "
-            "package's fused executable; the port has no counterpart yet "
-            "(ROADMAP.md, A.1)")
+    def fused_cost_analysis(self, scene, n_iters: int = 1) -> dict:
+        """The work of a fused block of ``n_iters`` iterations on
+        ``scene``, counted from the shapes of the static route it replays
+        (``_iterations_body``): its lanes, depths, sweep chunks, pair
+        chunks (``fused_pair_chunks``) and pixels. Returns JAX's keys,
+        ``"flops"`` and ``"bytes accessed"``, and per phase under
+        ``"phases"`` (camera, grid, photons, pairs, update) the same two.
+
+        These figures are the port's model of the cost, not XLA's: each
+        term is a lower bound of what the replay does (FP32 operations and
+        bytes that must cross HBM), so flops or bytes over a replay's time
+        can read no more than the card's peak. Like XLA's analysis of a
+        Pallas call, they charge the intersection kernels only what their
+        static shapes prove: each call reads its rays (o, d, t_max) and
+        writes (t, id), 36 B a lane, and the sweep's prologue writes its
+        [blocks, supers] order and suffix tables (8 B an entry) and tests
+        every live lane of a block against every super box, 24 FP32
+        operations a test (per axis two differences, two products, a min
+        and a max; the running near and far over three axes; the widened
+        far plane; the clamp at 0). Only the camera's first depth has
+        lanes live by shape alone (the camera weights every ray 1); the
+        other depths' box tests, and the triangle tests of every call,
+        depend on the data and are not counted. The other terms: 6 FP32
+        operations a lane a depth for the hit point o + t d (camera and
+        photons); 18 a visible point for its two grid corners; 11 a pair
+        lane for the distance test and the weighted flux; 17 a pixel for
+        the update. Bytes: the camera's radiance (12 B a pixel), the
+        grid's 8 cell entries a point (cell and point ids, written and
+        sorted), the photons' splat records (44 B a photon a level), 256 B
+        a pair lane for its gathered visible-point and record rows, and
+        the state read and written (96 B a pixel)."""
+        from ..ops.sweep import SweepAccelerator
+
+        p = self.n_pixels
+        depth = self.max_depth
+        n_ph = self.photons_per_iteration
+        lanes = self.fused_pair_chunks * self.pair_chunk
+        acc = scene.accel
+        sweep = isinstance(acc, SweepAccelerator) and scene.n_triangles
+        n_supers = acc.tables.n_supers if sweep else 0
+
+        def call_bytes(n):
+            """One intersection call of n lanes."""
+            out = 36 * n
+            if sweep:
+                c, b = acc.ray_chunk, acc.block_rays
+                for start in range(0, n, c):
+                    out += -(-min(c, n - start) // b) * n_supers * 8
+            return out
+
+        cam_calls = sum(call_bytes(min(self.pixel_chunk, p - s0))
+                        for s0 in range(0, p, self.pixel_chunk))
+        ph_chunk = min(self.pixel_chunk, n_ph)
+        ph_calls = sum(call_bytes(min(ph_chunk, n_ph - s0))
+                       for s0 in range(0, n_ph, ph_chunk))
+        phases = {
+            "camera": dict(flops=6 * p * depth + 24 * p * n_supers,
+                           bytes=2 * depth * cam_calls + 12 * p),
+            "grid": dict(flops=18 * p, bytes=8 * p * 16),
+            "photons": dict(flops=6 * n_ph * depth,
+                            bytes=depth * ph_calls
+                            + 44 * n_ph * max(depth - 1, 0)),
+            "pairs": dict(flops=11 * lanes, bytes=256 * lanes),
+            "update": dict(flops=17 * p, bytes=96 * p),
+        }
+        phases = {k: {m: float(v * n_iters) for m, v in d.items()}
+                  for k, d in phases.items()}
+        return {"flops": sum(d["flops"] for d in phases.values()),
+                "bytes accessed": sum(d["bytes"] for d in phases.values()),
+                "phases": phases}

@@ -55,10 +55,10 @@ class Lights:
     env_w: np.ndarray            # [] int32 image width
 
 
-def has_env(lights: Lights) -> bool:
+def has_env(l: Lights) -> bool:
     """Whether the table holds an environment light: its tables have at
     least 2 texels (a constant sky is stored as 2), the dummies 1."""
-    return lights.env_pmf.shape[0] > 1
+    return l.env_pmf.shape[0] > 1
 
 
 def point_light(light_to_world, intensity):
@@ -138,8 +138,8 @@ _NO_ENV = dict(env_rgb=np.zeros((1, 3), np.float32),
                env_w=np.asarray(1, np.int32))
 
 
-def is_delta(lights: Lights) -> np.ndarray:
-    return (lights.flags & (DELTA_POSITION | DELTA_DIRECTION)) != 0
+def is_delta(l: Lights) -> np.ndarray:
+    return (l.flags & (DELTA_POSITION | DELTA_DIRECTION)) != 0
 
 
 def triangle_areas(tris) -> np.ndarray:
@@ -238,8 +238,8 @@ def preprocess(lights: Lights, world_center, world_radius) -> Lights:
                    world_radius=np.asarray(world_radius, np.float32))
 
 
-def num_lights(lights: Lights) -> int:
-    return lights.kind.shape[0]
+def num_lights(l: Lights) -> int:
+    return l.kind.shape[0]
 
 
 def power(lights: Lights) -> np.ndarray:

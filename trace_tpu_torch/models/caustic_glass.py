@@ -70,7 +70,8 @@ def scene_around(mesh: dict, device="cuda") -> Scene:
 
 
 def build_camera(resolution: int = 256, filename: str = "caustics.png",
-                 showcase: bool = False):
+                 showcase: bool = False,
+                 convention: str = "reference"):
     """The reference's camera; ``showcase=True`` retargets it so the
     caustic and the glass land mid-frame (as the JAX twin)."""
     film = Film((resolution, resolution),
@@ -80,7 +81,7 @@ def build_camera(resolution: int = 256, filename: str = "caustics.png",
         T.look_at([0.0, 150.0, 150.0], target, [0.0, 1.0, 0.0]),
         screen_window=((-1.0, -1.0), (1.0, 1.0)), shutter_open=0.0,
         shutter_close=1.0, lens_radius=0.0, focal_distance=1e6, fov=90.0,
-        film=film)
+        film=film, convention=convention)
 
 
 if __name__ == "__main__":

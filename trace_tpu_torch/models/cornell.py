@@ -49,14 +49,15 @@ def build_scene(device="cuda", **build_kw) -> Scene:
     return b.build(device=device, **build_kw)
 
 
-def build_camera(resolution: int = 512, filename: str = "cornell.png"):
+def build_camera(resolution: int = 512, filename: str = "cornell.png",
+                 convention: str = "reference"):
     film = Film((resolution, resolution),
                 filter=LanczosSincFilter((1.0, 1.0), 3.0), filename=filename)
     # Centres the box under the reference-faithful projection.
     return PerspectiveCamera(
         T.look_at([0.0, 0.0, 140.0], [-1.397, -1.708, 0.0], [0.0, 1.0, 0.0]),
         screen_window=((-1.0, -1.0), (1.0, 1.0)), lens_radius=0.0,
-        focal_distance=1e6, fov=90.0, film=film)
+        focal_distance=1e6, fov=90.0, film=film, convention=convention)
 
 
 if __name__ == "__main__":

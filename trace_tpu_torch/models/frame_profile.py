@@ -10,7 +10,8 @@ torch.profiler table of device time by kernel with the device-busy share
 of the frame. Scenes: ``mesh_heavy`` (Whitted, 1 spp, depth 2, at the
 shipped sweep block size), ``shadows`` (bench config 1: Whitted, 4 spp,
 depth 5, its level caps) and ``cornell`` (bench config 2: path tracer,
-4 spp, depth 5). Needs a CUDA device.
+4 spp, depth 5). Each frame renders as one chunk of lanes. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import sys
 
 import numpy as np
 import torch
+
+ONE_CHUNK = 1 << 30   # a pixel_chunk above any frame's lane count
 
 
 def _events_ms(fn, reps: int) -> list:
@@ -69,17 +72,18 @@ def main() -> int:
             a.tris, device=dev, exact_shared_edges=a.exact_shared_edges)
         cam = mesh_heavy.build_camera(a.resolution, "unused.png")
         integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0),
-                                  max_depth=2)
+                                  max_depth=2, pixel_chunk=ONE_CHUNK)
     else:
         mod = spheres if a.scene == "shadows" else cornell
         scene = mod.build_scene(device=dev,
                                 exact_shared_edges=a.exact_shared_edges)
         cam = mod.build_camera(a.resolution, "unused.png")
         integ = (WhittedIntegrator(cam, U.UniformSampler(4, seed=0),
-                                   max_depth=5,
+                                   max_depth=5, pixel_chunk=ONE_CHUNK,
                                    level_caps=spheres.LEVEL_CAPS)
                  if a.scene == "shadows" else
-                 PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5))
+                 PathIntegrator(cam, U.UniformSampler(4, seed=0), max_depth=5,
+                                pixel_chunk=ONE_CHUNK))
     frame = lambda: integ.render(scene)
     frame()
 

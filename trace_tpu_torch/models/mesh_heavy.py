@@ -51,7 +51,8 @@ def build_scene(target_tris: int = 1_000_000, device="cuda",
     return b.build(device=device, **build_kw)
 
 
-def build_camera(resolution: int = 512, filename: str = "terrain.png"):
+def build_camera(resolution: int = 512, filename: str = "terrain.png",
+                 convention: str = "reference"):
     film = Film((resolution, resolution),
                 filter=LanczosSincFilter((1.0, 1.0), 3.0), filename=filename)
     # Frames the terrain under the reference-faithful telephoto projection.
@@ -59,7 +60,8 @@ def build_camera(resolution: int = 512, filename: str = "terrain.png"):
         T.look_at([0.0, 400.0, 1100.0], [-11.681, -12.619, 0.0],
                   [0.0, 1.0, 0.0]),
         screen_window=((-1.0, -1.0), (1.0, 1.0)),
-        lens_radius=0.0, focal_distance=1e6, fov=90.0, film=film)
+        lens_radius=0.0, focal_distance=1e6, fov=90.0, film=film,
+        convention=convention)
 
 
 if __name__ == "__main__":

@@ -39,14 +39,15 @@ def build_scene(device="cuda") -> Scene:
 
 
 def build_camera(resolution: int = 1024 // 3,
-                 filename: str = "sphere-sppm.png"):
+                 filename: str = "sphere-sppm.png",
+                 convention: str = "reference"):
     film = Film((resolution, resolution),
                 filter=LanczosSincFilter((1.0, 1.0), 3.0), filename=filename)
     return PerspectiveCamera(
         T.look_at([0.0, 15.0, 50.0], [0.0, 0.0, -2.0], [0.0, 1.0, 0.0]),
         screen_window=((-1.0, -1.0), (1.0, 1.0)), shutter_open=0.0,
         shutter_close=1.0, lens_radius=0.0, focal_distance=1e6, fov=90.0,
-        film=film)
+        film=film, convention=convention)
 
 
 def render(resolution: int = 1024 // 3, iterations: int = 10,

@@ -2,8 +2,12 @@
 trace_tpu/models/spheres.py): four spheres (glass, matte blue, mirror,
 matte red) over a mirror floor and a white back wall, one point light.
 
-    python -m trace_tpu_torch.models.spheres --resolution 256 --spp 4 \
-        --depth 5
+    python -m trace_tpu_torch.models.spheres
+
+renders the reference's hero config (SPPM 1024^2, 100 iterations,
+initial radius 0.025, depth 5) to shadows.png, as the JAX package's
+script does; ``--resolution 32 --iterations 2 --device cpu`` is a quick
+run without a card.
 """
 from __future__ import annotations
 
@@ -52,19 +56,22 @@ def build_scene(device="cuda", **build_kw) -> Scene:
     return b.build(device=device, **build_kw)
 
 
-def build_camera(resolution: int = 1024, filename: str = "shadows.png"):
+def build_camera(resolution: int = 1024, filename: str = "shadows.png",
+                 convention: str = "reference"):
     film = Film((resolution, resolution),
                 filter=LanczosSincFilter((1.0, 1.0), 3.0), filename=filename)
     return PerspectiveCamera(
         T.look_at([0.0, 15.0, 50.0], [0.0, 0.0, -2.0], [0.0, 1.0, 0.0]),
         screen_window=((-1.0, -1.0), (1.0, 1.0)), shutter_open=0.0,
         shutter_close=1.0, lens_radius=0.0, focal_distance=1e6, fov=90.0,
-        film=film)
+        film=film, convention=convention)
 
 
 if __name__ == "__main__":
-    from ._run import whitted_main
+    from ._run import sppm_main
 
-    # Bench config 1: Whitted 256^2, 4 spp, depth 5.
-    whitted_main(__doc__, build_scene, build_camera, resolution=256, spp=4,
-                 depth=5, output="shadows.png")
+    # The reference's hero config: SPPM 1024^2, 100 iterations, initial
+    # radius 0.025, depth 5, as the JAX package's script runs it. Bench
+    # config 1's Whitted settings are chip_smoke.py's phase 5b.
+    sppm_main(__doc__, build_scene, build_camera, resolution=1024,
+              iterations=100, radius=0.025, depth=5, output="shadows.png")

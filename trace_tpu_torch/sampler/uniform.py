@@ -61,9 +61,9 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 
 
-def lane_keys(key_: torch.Tensor, lane_id: torch.Tensor) -> torch.Tensor:
+def lane_keys(key: torch.Tensor, lane_id: torch.Tensor) -> torch.Tensor:
     """Per-lane keys from stable integer lane identities."""
-    return fold_in(key_, lane_id)
+    return fold_in(key, lane_id)
 
 
 def fold_lanes(keys: torch.Tensor, salt) -> torch.Tensor:

@@ -242,6 +242,13 @@ class Scene:
         self.tri_light_id = torch.from_numpy(
             np.asarray(tri_light_id, np.int32).reshape(-1)).to(dev)
         self.set_lights(light_mod.preprocess(lights, *self.bounding_sphere()))
+        self._version = 0
+
+    def bump_version(self) -> None:
+        """Call after changing the scene in place (its lights, accelerator
+        or geometry): what holds work captured for the scene, a fused SPPM
+        block's CUDA graphs (integrators/fused.py), captures it anew."""
+        self._version += 1
 
     def bounding_sphere(self):
         """(center [3], radius) of the scene's world bounds, the sphere a
@@ -284,15 +291,20 @@ class Scene:
         view.set_lights(lights)
         return view
 
-    def with_geometry(self, triangles, accel) -> "Scene":
+    def with_geometry(self, triangles, accelerator=None, *,
+                      accel=None) -> "Scene":
         """A shallow view with the triangle table (same topology, moved
         vertices, usually device tensors) and its accelerator swapped: one
         frame of animated geometry (integrators/common.py). World bounds,
         materials and the light table stay the base scene's, as in the JAX
         package; the area-light windows are rebuilt from the moved
-        triangles."""
+        triangles. ``accel`` is another name for ``accelerator``."""
+        if accel is not None:
+            if accelerator is not None:
+                raise TypeError("with_geometry: give accelerator or accel")
+            accelerator = accel
         view = copy.copy(self)
-        view._set_geometry(triangles, accel)
+        view._set_geometry(triangles, accelerator)
         return view
 
     # -- ray queries (the JAX Scene's, over the integrators' routes) ------

@@ -58,6 +58,11 @@ def num_spheres(s: Spheres) -> int:
     return s.radius.shape[0]
 
 
+def area(sph: Spheres) -> np.ndarray:
+    """Surface area of each sphere, phi_max r (z_max - z_min)."""
+    return sph.phi_max * sph.radius * (sph.z_max - sph.z_min)
+
+
 def world_bounds_np(s: Spheres) -> np.ndarray:
     """World AABBs [S, 2, 3]."""
     n = num_spheres(s)

@@ -65,14 +65,33 @@ def pack_triangle_mesh(object_to_world, indices, vertices, normals=None,
     )
 
 
+def empty_triangles() -> Triangles:
+    """A table of no triangles (host numpy)."""
+    z3 = np.zeros((0, 3), np.float32)
+    z2 = np.zeros((0, 2), np.float32)
+    return Triangles(z3, z3, z3, z3, z3, z3, z2, z2, z2,
+                     np.zeros((0,), bool), np.zeros((0,), np.int32),
+                     np.zeros((0,), bool))
+
+
+def areas_np(t: Triangles) -> np.ndarray:
+    """Triangle areas [T] float32, on the host."""
+    v0, v1, v2 = (np.asarray(x) for x in to_numpy(t)[:3])
+    c = np.cross(v1 - v0, v2 - v0)
+    return 0.5 * np.sqrt((c * c).sum(-1)).astype(np.float32)
+
+
+def areas(t: Triangles) -> torch.Tensor:
+    """Triangle areas [T] float32, where the table lies (host numpy
+    tables give CPU tensors)."""
+    v0, v1, v2 = (torch.as_tensor(x) for x in t[:3])
+    return 0.5 * torch.linalg.cross(v1 - v0, v2 - v0).norm(dim=-1)
+
+
 def concat_triangles(parts) -> Triangles:
     parts = [p for p in parts if p.v0.shape[0] > 0]
     if not parts:
-        z3 = np.zeros((0, 3), np.float32)
-        z2 = np.zeros((0, 2), np.float32)
-        return Triangles(z3, z3, z3, z3, z3, z3, z2, z2, z2,
-                         np.zeros((0,), bool), np.zeros((0,), np.int32),
-                         np.zeros((0,), bool))
+        return empty_triangles()
     if len(parts) == 1:
         return parts[0]
     return Triangles(*[np.concatenate(xs, axis=0) for xs in zip(*parts)])

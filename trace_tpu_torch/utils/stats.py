@@ -18,6 +18,18 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in a nest of tuples, lists and
+    dicts."""
+    if torch.is_tensor(tree):
+        return {tree.device} if tree.device.type == "cuda" else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (tuple, list)):
+        return set().union(*[_cuda_devices(x) for x in tree])
+    return set()
+
+
 class RenderStats:
     def __init__(self):
         self.counters: dict[str, float] = {}
@@ -60,10 +72,16 @@ class trace_profile:
 
     It records the CPU, and CUDA where the card is in use; the card is
     synchronised before the capture stops, so work still in flight lands
-    in the trace. ``path`` is the trace file after the block."""
+    in the trace. ``barrier_args`` (the JAX package's block-until-ready
+    barrier): tensors, or tuples, lists, dicts or NamedTuples of them,
+    whose work must land in the trace too; on exit each CUDA device that
+    holds one is synchronised as well (the current card always is, so on
+    one card they add nothing). ``path`` is the trace file after the
+    block."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, *barrier_args):
         self.log_dir = log_dir
+        self.barrier_args = barrier_args
         self.path = None
         self._prof = None
 
@@ -81,6 +99,9 @@ class trace_profile:
         import os
 
         _sync()
+        if exc_type is None:
+            for dev in _cuda_devices(self.barrier_args):
+                torch.cuda.synchronize(dev)
         self._prof.__exit__(exc_type, exc, tb)
         if exc_type is None:
             os.makedirs(self.log_dir, exist_ok=True)

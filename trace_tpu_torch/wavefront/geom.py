@@ -65,6 +65,20 @@ class HitP(NamedTuple):
     dpdy: V3
 
 
+def empty_hitp(n, device="cuda") -> HitP:
+    """A record of ``n`` lanes that hit nothing: t +inf, ids -1, every
+    other field 0."""
+    z = torch.zeros((n,), dtype=F32, device=device)
+    zi = torch.zeros((n,), dtype=torch.int32, device=device)
+    z3 = V3(z, z, z)
+    return HitP(valid=torch.zeros((n,), dtype=torch.bool, device=device),
+                t=torch.full((n,), INF, dtype=F32, device=device), p=z3,
+                time=z, wo=z3, n=z3, u=z, v=z, dpdu=z3, dpdv=z3, ns=z3,
+                s_dpdu=z3, s_dpdv=z3, s_dndu=z3, s_dndv=z3, prim_id=zi - 1,
+                material_id=zi - 1, dudx=z, dudy=z, dvdx=z, dvdy=z,
+                dpdx=z3, dpdy=z3)
+
+
 def where_hit(c: torch.Tensor, a: HitP, b: HitP) -> HitP:
     """Lane select between two hit records."""
     out = []
@@ -152,18 +166,19 @@ def _to_object_grid(cols, o: V3, d: V3):
     return ob, db
 
 
-def spheres_closest(cols, o: V3, d: V3, t_max):
-    """Closest sphere hit: (hit [N], t [N], idx [N] i32)."""
-    ob, db = _to_object_grid(cols, o, d)
-    hit, t = _sphere_candidate(cols, ob, db, t_max[:, None])
+def spheres_closest(sph, o: V3, d: V3, t_max):
+    """Closest sphere hit over ``sph``, the spheres' columns
+    (sphere_cols): (hit [N], t [N], idx [N] i32)."""
+    ob, db = _to_object_grid(sph, o, d)
+    hit, t = _sphere_candidate(sph, ob, db, t_max[:, None])
     tm = torch.where(hit, t, INF)
     best, idx = tm.min(dim=-1)
     return torch.isfinite(best), best, idx.to(torch.int32)
 
 
-def spheres_anyhit(cols, o: V3, d: V3, t_max):
-    ob, db = _to_object_grid(cols, o, d)
-    hit, _ = _sphere_candidate(cols, ob, db, t_max[:, None])
+def spheres_anyhit(sph, o: V3, d: V3, t_max):
+    ob, db = _to_object_grid(sph, o, d)
+    hit, _ = _sphere_candidate(sph, ob, db, t_max[:, None])
     return hit.any(dim=-1)
 
 
@@ -282,15 +297,16 @@ def _chunks(cols, chunk):
                           v.z[:, s:s + step]) for v in cols)
 
 
-def triangles_closest(cols, o: V3, d: V3, t_max, exact_edges: bool = False,
+def triangles_closest(tris, o: V3, d: V3, t_max, exact_edges: bool = False,
                       chunk: int | None = None):
-    """Closest triangle hit: (hit [N], t [N], idx [N] i32); among equal
-    t the lowest index wins. ``exact_edges``: the double-single edge
+    """Closest triangle hit over ``tris``, the triangles' columns
+    (triangle_cols): (hit [N], t [N], idx [N] i32); among equal t the
+    lowest index wins. ``exact_edges``: the double-single edge
     fallback, as the JAX package's packed intersect_all. ``chunk``: at
     most this many triangles a pass (a running min, as the JAX twin's
     chunked reduction; the same result)."""
     best = idx = None
-    for s, part in _chunks(cols, chunk):
+    for s, part in _chunks(tris, chunk):
         hit, t, _, _, _ = _tri_grid(part, o, d, t_max, exact_edges)
         b, i = torch.where(hit, t, INF).min(dim=-1)
         if best is None:
@@ -302,10 +318,10 @@ def triangles_closest(cols, o: V3, d: V3, t_max, exact_edges: bool = False,
     return torch.isfinite(best), best, idx.to(torch.int32)
 
 
-def triangles_anyhit(cols, o: V3, d: V3, t_max, exact_edges: bool = False,
+def triangles_anyhit(tris, o: V3, d: V3, t_max, exact_edges: bool = False,
                      chunk: int | None = None):
     occ = None
-    for _, part in _chunks(cols, chunk):
+    for _, part in _chunks(tris, chunk):
         h = _tri_grid(part, o, d, t_max, exact_edges)[0].any(dim=-1)
         occ = h if occ is None else occ | h
     return occ

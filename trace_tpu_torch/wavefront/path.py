@@ -138,10 +138,14 @@ def uniform_sample_one_light(scene, hit: G.HitP, lobes: S.LobesP,
     return ld / pmf.clamp_min(1e-12)
 
 
-def li(scene, rd, keys, max_depth: int = 5, rr_depth: int = 3):
-    """Path-traced radiance [N, 3] for a batch of camera rays, plus
-    {"queue_drops" (0), "useful_rays"}: per bounce one closest-hit ray
-    per active path and two rays (NEE shadow, BSDF-MIS) per live hit."""
+def li(scene, rd, key, max_depth: int = 5, rr_depth: int = 3,
+       return_aux: bool = True):
+    """Path-traced radiance [N, 3] for a batch of camera rays (``key``:
+    per-lane keys [N, 2]), with ``return_aux`` (the port's default; the
+    JAX package's is False) also {"queue_drops" (0), "useful_rays"}: per
+    bounce one closest-hit ray per active path and two rays (NEE shadow,
+    BSDF-MIS) per live hit."""
+    keys = key
     n = rd.o.shape[0]
     dev = rd.o.device
     rp = G.RayP.of(rd)
@@ -199,5 +203,7 @@ def li(scene, rd, keys, max_depth: int = 5, rr_depth: int = 3):
         d = V.where(active, bs.wi, d)
         time = torch.where(active, hit.time, time)
     l_arr = torch.stack([l_out.x, l_out.y, l_out.z], dim=1)
+    if not return_aux:
+        return l_arr
     return l_arr, {"queue_drops": torch.zeros_like(useful),
                    "useful_rays": useful}

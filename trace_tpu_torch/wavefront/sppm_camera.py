@@ -36,6 +36,12 @@ from . import whitted as WW
 F32 = torch.float32
 
 
+def supports(scene) -> None:
+    """Raise for a scene the planar SPPM pass cannot render (the planar
+    path tracer's rule, wavefront/path.py)."""
+    WP.supports(scene)
+
+
 def num_components_planar(lo: S.LobesP, flags: int) -> torch.Tensor:
     """Per lane, the number of slots whose lobe matches ``flags``."""
     out = None

@@ -33,6 +33,12 @@ from . import whitted as WW
 F32 = torch.float32
 
 
+def supports(scene) -> None:
+    """Raise for a scene the planar SPPM pass cannot render (the planar
+    path tracer's rule, wavefront/path.py)."""
+    WP.supports(scene)
+
+
 def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
                      light_pmf, grid_lo, grid_res, grid_inv_extent,
                      sorted_cells, idx_max: int | None = None) -> dict:

@@ -5,9 +5,14 @@ hit, direct light from every light, then the two specular children per
 hit (reflection, transmission), compacted back into the queue by a
 stable argsort on liveness. Overflowing children are dropped and counted
 (``queue_drops``); ``useful_rays`` counts one closest-hit ray per live
-lane and one shadow ray per light per shading lane. ``level_caps`` gives
-the queue after each level its own capacity (a shrinking schedule):
-the image is energy-exact iff ``queue_drops`` is 0.
+lane and one shadow ray per light per shading lane. The queue holds
+``max(queue_capacity, N)`` lanes (N by default; the lanes past N start
+dead), or ``level_caps`` gives the queue after each level its own
+capacity (a shrinking schedule): the image is energy-exact iff
+``queue_drops`` is 0. ``sort_materials`` reorders each level's lanes by
+material id (invalid lanes last, stable) before shading, as the JAX
+package's packed path does; every lane keeps its pixel, so the image
+changes only where drops do.
 
 Intersection goes through the scene's accelerator (the sweep) where it
 has one, else through the brute-force triangle grid (scenes of 1-64
@@ -175,8 +180,10 @@ def unoccluded(scene, p0: V3, p1: V3, n_geom: V3, live=None):
     return ~any_hit(scene, o, d, t_max, live)
 
 
-def sum_over_lights(scene, hit: G.HitP, lobes: S.LobesP, keys) -> V3:
-    flags = S.BSDF_ALL & ~S.BSDF_SPECULAR
+def sum_over_lights(scene, hit: G.HitP, lobes: S.LobesP, keys,
+                    flags: int = S.BSDF_ALL & ~S.BSDF_SPECULAR) -> V3:
+    """Direct light from every light through the lobes that ``flags``
+    selects (every lobe but the specular ones by default)."""
     total = V3.zeros(hit.t.shape, hit.t.device)
     for j in range(WL.light_count(scene)):
         u0, u1 = uniform2(U.fold_lanes(keys, j))
@@ -285,16 +292,25 @@ def _compact(queue: dict, capacity: int) -> dict:
     return V.tree_gather(queue, order)
 
 
-def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
+def li(scene, rd, key, max_depth: int = 5, level_caps=None,
+       queue_capacity: int | None = None, sort_materials: bool = False,
+       return_aux: bool = True):
     """Radiance [N, 3] for a batch of camera rays, plus the device
     counters {"queue_drops", "useful_rays"} (int64 scalars). The queue
-    holds N lanes, or ``level_caps[d - 1]`` after level d (ints, at least
-    max_depth - 1 of them); children beyond that are dropped and counted.
+    holds ``max(queue_capacity, N)`` lanes (N by default), or
+    ``level_caps[d - 1]`` after level d (ints, at least max_depth - 1 of
+    them); children beyond that are dropped and counted.
+    ``sort_materials``: each level's lanes in material order before
+    shading (module docstring).
 
-    ``keys`` are per-lane keys [N, 2]. The l buffer is accumulated per
+    ``return_aux`` false gives the radiance alone (the JAX package's
+    default; the port's integrators read the counters).
+
+    ``key``: per-lane keys [N, 2]. The l buffer is accumulated per
     level in rounds of the branch rank, so no two adds of one round hit
     the same pixel and the sum order is fixed (the queue order of the JAX
     twin at depth <= 2)."""
+    keys = key
     n = rd.o.shape[0]
     dev = rd.o.device
     ones = torch.ones((n,), dtype=F32, device=dev)
@@ -302,6 +318,13 @@ def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
                       torch.arange(n, device=dev),
                       torch.zeros((n,), dtype=torch.int64, device=dev),
                       torch.ones((n,), dtype=torch.bool, device=dev))
+    cap = n if queue_capacity is None else max(int(queue_capacity), n)
+    if cap > n:   # dead lanes, copies of lane 0, up to the capacity
+        pad = torch.cat([torch.arange(n, device=dev),
+                         torch.zeros(cap - n, dtype=torch.int64, device=dev)])
+        queue = V.tree_gather(queue, pad)
+        queue["active"] = queue["active"] & (torch.arange(cap, device=dev)
+                                             < n)
 
     n_lights = WL.light_count(scene)
     l_buf = torch.zeros((n, 3), dtype=F32, device=dev)
@@ -317,7 +340,18 @@ def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
                           live=active)
         valid = active & hit.valid
         useful = useful + active.sum() + n_lights * valid.sum()
-        hit = G.compute_differentials(hit._replace(valid=valid), q_rd)
+        hit = hit._replace(valid=valid)
+        if sort_materials:
+            order = torch.argsort(torch.where(valid, hit.material_id,
+                                              1 << 30), stable=True)
+            hit = G.HitP(*[V3(x.x[order], x.y[order], x.z[order])
+                           if isinstance(x, V3) else x[order] for x in hit])
+            queue = V.tree_gather(queue, order)
+            k_depth = k_depth[order]
+            q_rd = _ray_of(queue)
+            beta = V3(queue["br"], queue["bg"], queue["bb"])
+            active, valid = queue["active"], hit.valid
+        hit = G.compute_differentials(hit, q_rd)
         lobes = WM.compute_scattering(scene.materials, hit)
 
         contrib = WL.area_light_radiance(scene, hit, hit.wo)
@@ -347,8 +381,10 @@ def li(scene, rd, keys, max_depth: int = 5, level_caps=None):
                 child, V.where(ok, beta * factor, 0.0), queue["slot"],
                 queue["path"] * 2 + (branch + 1), ok))
         allc = {k: torch.cat([c[k] for c in children]) for k in children[0]}
-        cap = n if level_caps is None else int(level_caps[depth - 1])
+        nxt = cap if level_caps is None else int(level_caps[depth - 1])
         live = allc["active"].sum()
-        drops = drops + (live - cap).clamp_min(0)
-        queue = _compact(allc, cap)
+        drops = drops + (live - nxt).clamp_min(0)
+        queue = _compact(allc, nxt)
+    if not return_aux:
+        return l_buf
     return l_buf, {"queue_drops": drops, "useful_rays": useful}
