@@ -46,8 +46,15 @@ Phases (each prints lines with its seconds; any failure raises):
      a reverse cummin), the plain version's and its bound; the same on
      the camera chunk with every lane dead; then the camera chunk's kernel
      time per arm (block of 32 rays) against the plain version, with
-     steps, bound and panel GB/s per launch; a block of 64 rays must be
-     refused (ValueError: the kernel serves 32-ray blocks only);
+     steps, bound and panel GB/s per launch; blocks of 48 and 1024 rays
+     must be refused (ValueError: the kernel serves blocks of 32k rays,
+     1 <= k <= 16); the same chunk at each (group, block) of TILINGS --
+     (8, 32), (8, 128), (8, 512) and bench config 6's (64, 128), GL 4096
+     -- f32 and certified, graph-timed, with plain ms, steps and bound,
+     bit-equal to plain, and the bf16, hi/lo, step-counting and
+     double-buffered arms graph-timed; every arm at each of ARM_TILINGS on every 32nd
+     ray of the chunk, closest and any-hit, t, slot and steps bit-equal
+     to plain, the prologue bit-equal at each block;
   5. slice 3, the shadows and Cornell scenes and the path tracer:
      a. goldens on the card: shadows 16^2 (Whitted, 1 spp, seed 11, depth
         3) against tests/goldens/shadows16.npy and Cornell 48^2 (path
@@ -88,9 +95,8 @@ Phases (each prints lines with its seconds; any failure raises):
         last with the counters' host reads), visible points, occupied
         cells, pairs, splat records, sweep and prologue launches, chunks
         skipped; peak
-        memory; the pair reduction's ms; the device-busy share of one more
-        iteration (torch.profiler), with the prologue kernel's and the
-        sweep's device time; a finite image with photons gathered,
+        memory; the pair reduction's ms; a finite image with photons
+        gathered,
         its PNG in TMPDIR;
      d. the first 1024^2 iteration run twice gives the same bits; at 256^2,
         two iterations straight give the same bits as one, a checkpoint
@@ -120,7 +126,7 @@ Phases (each prints lines with its seconds; any failure raises):
         a translation of the whole scene a frame; after a warm frame,
         four frames each with its rebuild, view and per-phase ms, sweep
         and prologue launches, chunks skipped and pixels with photons
-        (> 0, finite); the device-busy share of one more frame; every
+        (> 0, finite); every
         sweep launch of one frame against sweep_plain; render_frames'
         frame k bit-equal to the render of frame k, and pre-moved
         triangles bit-equal to the same frame moved on the card.
@@ -137,8 +143,7 @@ Phases (each prints lines with its seconds; any failure raises):
         on the card against the same rays on the CPU (max abs <= 1e-6);
      b. env_studio at its own settings (512^2, path tracer, depth 5,
         Lanczos; spp cut from 64 to 4): one warm frame and three timed,
-        useful rays, peak memory, the device-busy share of one more frame
-        (torch.profiler); a finite frame whose two top corners (their
+        useful rays, peak memory; a finite frame whose two top corners (their
         centre rays miss) read the sky along those rays within 5%; no
         kernel (brute-force triangles); its PNG in TMPDIR;
      c. bench config 4's settings with the sky added (1M mesh_heavy,
@@ -149,8 +154,7 @@ Phases (each prints lines with its seconds; any failure raises):
         chunk; frames timed beside the point-lit frame in the same call;
      d. SPPM under the sky alone on the 1M mesh (256^2, 65536 photons,
         depth 5, radius 0.3): one warm iteration and two timed with their
-        phases' ms, launches and chunks skipped, the device-busy share of
-        one more iteration; every sweep launch of one
+        phases' ms, launches and chunks skipped; every sweep launch of one
         iteration against sweep_plain, the prologue bit-equal; a finite
         image with photons gathered; and test_sppm.py's open box under a
         constant sky (12^2, 8 iterations of 8192 photons): the SPPM/path
@@ -168,8 +172,7 @@ Phases (each prints lines with its seconds; any failure raises):
         seed 0): the camera rays' instance walk at each group size of
         INST_GROUPS (ms, groups visited, the same results), one warm frame
         and three timed, peak memory, useful rays, the walk calls and
-        instance groups visited, kernels a frame and the device-busy share
-        (torch.profiler); no sweep launch (spheres and a 2-triangle floor);
+        instance groups visited; no sweep launch (spheres and a 2-triangle floor);
      c. 100 copies (10 x 10, rotated, two mirrored) of the 88,208-triangle
         glass stand-in on a floor under a point light, Whitted 256^2, 1
         spp, depth 2, seed 0: launches with the counts set to 0 before the
@@ -207,7 +210,7 @@ Phases (each prints lines with its seconds; any failure raises):
         the path tracer's sweep calls must be one closest hit, one shadow
         and one BSDF-leg call a bounce; frames timed (one warm, three),
         SPPM iterations (one warm, two) with their phases' ms; peak
-        memory, useful rays, the path frame's device-busy share; the
+        memory, useful rays; the
         photons each light emitted in one iteration against the power
         pmf, within 2% absolute.
   11. the render loop's public surface (details in
@@ -217,7 +220,7 @@ Phases (each prints lines with its seconds; any failure raises):
         film sample inside its stratum, launches counted from 0, every
         sweep launch against sweep_plain and the prologue bit-equal on
         every launched chunk; frames timed (one warm, three), the
-        RenderStats counters, peak memory, the device-busy share;
+        RenderStats counters, peak memory;
      b. the same frame under a GaussianFilter((2, 2)) film, full and
         cropped to ((0.25, 0.25), (0.75, 0.75)): the crop's pixels equal
         to the full frame's window inside the crop's outer ring (the
@@ -322,7 +325,7 @@ Phases (each prints lines with its seconds; any failure raises):
         photons, depth 8, radius 0.075, seed 0) on the 1M mesh behind
         accelerator="wbvh": a warm iteration and two timed with their
         phases' ms and walk launches (counts set to 0 before each), peak
-        GiB and the device-busy share of one more; then _fused1, blocks of
+        GiB; then _fused1, blocks of
         one iteration replayed as one CUDA graph each: each block's state
         bit-equal to the stepwise state of the same iteration, its ms, the
         replay alone, walk launches per replay, one host sync a block, the
@@ -359,8 +362,8 @@ Phases (each prints lines with its seconds; any failure raises):
         bit-equal to the stepwise state of its iteration (the instance
         walk's first block takes its pair buffer at the walk's bound, the
         later ones at the size its counts give), the replay alone,
-        launches per replay, one host sync a block, the busy share of a
-        replay, overflow reruns; after scene.bump_version() a block
+        launches per replay, one host sync a block, overflow reruns;
+        after scene.bump_version() a block
         captures anew;
      d. on row 6's call (66,688 camera rays x 5,000 triangles) the matmul
         route (accel/mxu.py::MXUAccelerator) against csrc/intersect.cu:
@@ -374,6 +377,32 @@ Phases (each prints lines with its seconds; any failure raises):
      e. SPPMIntegrator.fused_cost_analysis at 14a's settings: flops and
         bytes, and their shares of the FP32 and HBM peaks over 14a's
         replay ms (each <= 100%).
+17. bench config 6, mesh16m_whitted_256, with its own arguments
+    (bench.py:934-1033; details in chiprun_out/slice17.json):
+     a. mesh_heavy at 15,995,168 triangles (use_bvh=False), its SAH
+        clusters of 64 in supers of 32 on the host, the sweep's tables at
+        group 64 packed and put on the card: bench.py's keys n_tris,
+        gen_s, build_s, pack_s, table_mb;
+     b. Whitted 256^2, 1 spp, depth 2, seed 0, pixel_chunk 1 << 16,
+        each frame render(scene, geometry=, geometry_accel=) with the
+        triangles on the card: (a) the sweep at group 64, blocks of 128,
+        chunks of 8192 (the scene's anim_block_rays / anim_ray_chunk);
+        (b) the clusters, supers of 32, stage 128, chunks of 16384; (c)
+        the flat clusters (bench.py's positional ClusterAccel, super 1),
+        chunks of 2048; (d) the port's default tiling (group 8, blocks of
+        32, chunks of 65536) on the same clusters. Each a warm frame
+        (launches counted from 0) and two timed with CUDA events: ms,
+        sweep, tiled and prologue launches, the cluster stages, peak GiB,
+        useful_rays, workload Mrays/s. Gates: every 32nd sweep launch of
+        (a) and (d), and the last, and its prologue equal to plain, bit
+        for bit; the images within MSE 5e-4 of one another (the largest
+        reported); queue_drops 0; the tables every call read kept their
+        data pointer across the frames;
+     c. the prologue kernel at 3,906 supers (group 64) and 31,250 (group
+        8), blocks of 128 and 512 rays, on 8192 camera rays that reach
+        the terrain, at its shared-memory key capacity and at 64 keys a
+        row (most rows sorted in the global workspace): bit-equal to
+        plain.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -392,7 +421,8 @@ bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
 timed on 12a's camera call, and with its launches in one stepwise 1024^2
 iteration and per fused replay of phase 15, the iteration's walk ms and
 the 1M camera call's ms and bound; sweep and prologue also with their
-launches in 16a's two config-4 frames),
+launches in 16a's two config-4 frames and in config 6's sweep legs (17b),
+the sweep with phase 4's tiling grid),
 the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -541,6 +571,172 @@ def sweep_bound(args, per_block, panel, block_rays, certified):
     return bound(ops, nbytes)
 
 
+# (group, block) of phase 4's tiling grid on the 1M camera chunk: the
+# port's default, blocks of 128 and 512 rays, and bench config 6's sweep
+# (group 64: GL 4096, staged in tiles); ARM_TILINGS for every arm.
+TILINGS = ((8, 32), (8, 128), (8, 512), (64, 128))
+ARM_TILINGS = ((8, 32), (8, 128), (8, 512), (64, 32), (64, 128), (64, 512))
+
+
+def regroup_tables(tb, k):
+    """SweepTables of the same clusters at k times ``tb``'s group (leaf 64
+    x group 8: GL 512, no column padding): k consecutive supers side by
+    side, the super count padded with empty supers (zero panel, slot -1,
+    the last super's box). Equal to packing the clusters at the larger
+    group (tests/test_torch_sweep_tilings.py)."""
+    from trace_tpu_torch.ops.sweep import SweepTables
+
+    panel, slot = np.asarray(tb.panel), np.asarray(tb.slot_to_tri)
+    s, rows, gl = panel.shape
+    assert gl == tb.group * tb.leaf_tris, "regroup needs unpadded columns"
+    pad = (-s) % k
+    panel = np.concatenate([panel, np.zeros((pad, rows, gl), panel.dtype)])
+    slot = np.concatenate([slot, np.full(pad * gl, -1, slot.dtype)])
+    lo = np.concatenate([tb.s_lo, np.repeat(tb.s_lo[-1:], pad, 0)])
+    hi = np.concatenate([tb.s_hi, np.repeat(tb.s_hi[-1:], pad, 0)])
+    n = (s + pad) // k
+    out = SweepTables.from_arrays(
+        panel.reshape(n, k, rows, gl).transpose(0, 2, 1, 3).reshape(
+            n, rows, k * gl), slot, lo.reshape(n, k, 3).min(1),
+        hi.reshape(n, k, 3).max(1))
+    out.group, out.leaf_tris = tb.group * k, tb.leaf_tris
+    return out
+
+
+def tiling_tables(tb, dev):
+    """{group: (SweepTables, {panel kind: device panel})} at groups 8 (tb)
+    and 64."""
+    from trace_tpu_torch.ops import sweep as TS
+
+    out = {}
+    for g, t in ((8, tb), (64, regroup_tables(tb, 8))):
+        out[g] = (t, {k: TS.panel_tensor(TS.cast_panel(
+            t.panel, k == "bf16", k == "hilo"), dev)
+            for k in ("f32", "bf16", "hilo")})
+    return out
+
+
+def tiling_arms(phase, t0, tables, o, d, tm, stride=32):
+    """Every arm of the sweep kernel (f32, bf16 and hi/lo panels, plain or
+    certified, step counts, double-buffered) at each (group, block) of
+    ARM_TILINGS, on every ``stride``-th ray of a sorted chunk, closest-hit
+    and any-hit (t_max 2000: most lanes occluded), against sweep_plain:
+    t, slot and steps bit for bit; the prologue kernel bit-equal on each
+    tiling's chunk. Returns {"GxB": counts}; raises on a mismatch."""
+    import torch
+    from trace_tpu_torch.ops import sweep as TS
+
+    o, d, tm = o[::stride], d[::stride], tm[::stride]
+    rows = {}
+    for g, b in ARM_TILINGS:
+        tb, panels = tables[g]
+        acc = TS.SweepAccelerator(tb, o.device, block_rays=b)
+        row = dict(launches=0, mismatches=0, found=0, steps=0, tiled=0)
+        pro = {}
+        for anyh in (False, True):
+            lim = torch.where(tm < 0, tm, 2000.0) if anyh else tm
+            check_prologue(acc, o, d, lim, pro)
+            args = acc.prologue(o, d, lim)
+            for kind, p in panels.items():
+                for cert in (False, True):
+                    pt, pi, ps = TS.sweep_plain(*args, p, b, anyh,
+                                                certified=cert,
+                                                collect_stats=True)
+                    for pipe in (False, True):
+                        for stats in (False, True):
+                            n0 = TS.sweep_kernel.tiled_launches
+                            out = TS.sweep_kernel(*args, p, b, anyh,
+                                                  certified=cert,
+                                                  pipeline=pipe,
+                                                  collect_stats=stats)
+                            torch.cuda.synchronize()
+                            row["tiled"] += TS.sweep_kernel.tiled_launches \
+                                - n0
+                            row["launches"] += 1
+                            row["mismatches"] += int(not (
+                                torch.equal(out[0], pt)
+                                and torch.equal(out[1], pi)
+                                and (not stats or torch.equal(out[2], ps))))
+                    row["found"] += int((pi >= 0).sum())
+                    row["steps"] += int(ps.sum())
+        row.update(prologue=pro)
+        rows[f"{g}x{b}"] = row
+        log(phase, t0, f"every arm at group {g}, block {b} (GL "
+            f"{tb.gl_pad}): {o.shape[0]} rays, {row}")
+        if row["mismatches"] or prologue_disagrees(pro) or not row["found"] \
+                or row["tiled"] != (0 if (g, b) == (8, 32)
+                                    else row["launches"]):
+            raise AssertionError(f"[{phase}] the kernel at group {g}, block "
+                                 f"{b}: {row}")
+    return rows
+
+
+def tiling_grid(phase, t0, card, tables, o, d, tm):
+    """A sorted chunk through the kernel at each (group, block) of TILINGS,
+    f32 and certified: graph-timed ms (10 launches replayed), the plain
+    version's ms (once), steps and the busiest block's, the bound
+    (sweep_bound); t and slot bit-equal to plain. Returns {"GxB_arm":
+    row}."""
+    import torch
+    from trace_tpu_torch.ops import sweep as TS
+
+    rows = {}
+    for g, b in TILINGS:
+        tb, panels = tables[g]
+        acc = TS.SweepAccelerator(tb, o.device, block_rays=b)
+        args = acc.prologue(o, d, tm)
+        p = panels["f32"]
+        for cert in (False, True):
+            # The plain version once, timed with CUDA events (phase 2's
+            # checks have warmed it up).
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            pt, pi, ps = TS.sweep_plain(*args, p, b, False, certified=cert,
+                                        collect_stats=True)
+            ev[1].record()
+            kt, ki, ks = TS.sweep_kernel(*args, p, b, False, certified=cert,
+                                         collect_stats=True)
+            torch.cuda.synchronize()
+            row = dict(group=g, block_rays=b, gl=tb.gl_pad,
+                       certified=cert, steps=int(ks.sum()),
+                       max_block_steps=int(ks.max()),
+                       equal=bool(torch.equal(kt, pt) and torch.equal(ki, pi)
+                                  and torch.equal(ks, ps)),
+                       found=int((ki >= 0).sum()))
+            row["ms"] = graph_ms(lambda: TS.sweep_kernel(
+                *args, p, b, False, certified=cert), 10)
+            row["plain_ms"] = ev[0].elapsed_time(ev[1])
+            row["bound_ms"], row["bound_by"] = sweep_bound(args, ks, p, b,
+                                                           cert)
+            name = f"{g}x{b}_{'certified' if cert else 'f32'}"
+            rows[name] = row
+            log(phase, t0, f"chunk of {o.shape[0]} rays at group {g}, block "
+                f"{b}, {'certified' if cert else 'f32'}: kernel "
+                f"{row['ms']:.4f} ms graph-timed, plain "
+                f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}"
+                f"% of it), steps {row['steps']}, busiest block "
+                f"{row['max_block_steps']}, bit-equal {row['equal']}; card "
+                f"{card}")
+            if not row["equal"] or not row["found"]:
+                raise AssertionError(f"[{phase}] {name}: {row}")
+        # The other arms' kernel ms at this tiling (tiling_arms holds
+        # them to plain); bounds as the f32 and certified rows'.
+        for arm, kind, opt in (("bf16", "bf16", {}), ("hilo", "hilo", {}),
+                               ("f32_stats", "f32", dict(collect_stats=True)),
+                               ("f32_pipelined", "f32",
+                                dict(pipeline=True))):
+            rows[f"{g}x{b}_{arm}"] = dict(
+                group=g, block_rays=b, ms=graph_ms(
+                    lambda: TS.sweep_kernel(*args, panels[kind], b, False,
+                                            **opt), 10))
+        log(phase, t0, f"group {g}, block {b}, other arms: "
+            + ", ".join(f"{a} {rows[f'{g}x{b}_{a}']['ms']:.4f} ms"
+                        for a in ("bf16", "hilo", "f32_stats",
+                                  "f32_pipelined")) + f"; card {card}")
+    return rows
+
+
 def prologue_bound(t_p, suffix, block_rays):
     """The prologue kernel's bound: the live rays' box tests plus ~log2(k)^2
     compare-exchanges for each of a row's k finite entries (one operation
@@ -616,7 +812,13 @@ def ptxas_summary(logtext: str) -> list:
         if m:
             name = m.group(1)
             t = re.search(r"sweep_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)E", name)
-            if t:
+            tl = re.search(r"sweep_tiled_kernelILb(\d)ELi(\d)ELb(\d)E",
+                           name)
+            if tl:
+                c, k, p = tl.groups()
+                name = "tiled_" + arm_name(("f32", "bf16", "hilo")[int(k)],
+                                           c == "1", p == "1", False)
+            elif t:
                 c, k, s, p = t.groups()
                 name = arm_name(("f32", "bf16", "hilo")[int(k)], c == "1",
                                 p == "1", s == "1")
@@ -1016,6 +1218,13 @@ def time_phases(integ, marks):
         setattr(integ, name, wrapped)
 
 
+# Phases 6c, 7c, 8b, 8d, 9b, 10b, 11a and 16c and 15a's stepwise
+# iteration no longer profile their cells (a profile took 10-30 s each,
+# taken back for phase 17); their busy shares from earlier runs stand in
+# PERF.md §5.
+NOT_PROFILED = "not measured in this run"
+
+
 def device_busy(phase, t0, card, what, run, unprofiled_ms, require=True):
     """Profile one ``run()`` (torch.profiler, the card's activity): its
     wall ms (CUDA events), the device's busy ms and share, the kernels
@@ -1277,13 +1486,10 @@ def slice5(dev, card, scene, t_all):
         f"{red['clone_ms']:.3f} ms copy)")
     del captured, dst, idx, val
 
-    # Device-busy share of one more iteration.
     for name in SPPM_PHASES:
         delattr(integ, name)
     integ.stats = None
-    busy = device_busy("6c", t0, card, "iteration", lambda: integ.step(
-        scene, state, 2 + n_timed, pixels, key, cdf, pmf),
-        np.mean([r["ms"] for r in timed]))
+    busy = NOT_PROFILED
 
     # -- 6d: determinism and resume ------------------------------------------
     t0 = time.perf_counter()
@@ -1505,8 +1711,7 @@ def slice7(dev, card, scene, t_all):
     rebuild_ms, rebuild_all = median_ms(
         lambda: IC.prepare_geometry(scene, base, xf), 5)
     clusters = build_clusters_device(tris, LEAF_TRIS)
-    host = TC.ClusterAccel(*(x.cpu().numpy() for x in clusters[:4]),
-                           LEAF_TRIS)
+    host = TC.to_host(clusters)
     packing = tables_differ(tables, TS.SweepTables(host, GROUP))
     # The same transform and build on the host's CPU: the same bits.
     cpu_tris = tri_mod.transform_triangles(
@@ -1703,8 +1908,7 @@ def slice7(dev, card, scene, t_all):
             delattr(integ5, name)
     integ5.save(states[ANIM_SHIFTS[-1]], 2)
     frame_ms = [r["ms"] for r in rows]
-    busy = device_busy("7c", t0, card, "frame", lambda: frame(0.5),
-                       np.mean(frame_ms))
+    busy = NOT_PROFILED
     # One frame's every sweep launch against the plain version.
     _, calls5, accs5 = record_sweep_calls(frame, 0.5)
     agree5, pro5, _ = check_launches("7c", accs5[0], calls5)
@@ -1917,9 +2121,7 @@ def slice8(dev, card, scene, t_all):
     if not (np.isfinite(img).all() and miss and sweep_kernel.launches == 0
             and np.abs(np.asarray(sky_ratio) - 1.0).max() < 0.05):
         raise AssertionError(f"env_studio 512: {out['env_studio_512']}")
-    out["env_studio_512"]["busy"] = device_busy(
-        "8b", t0, card, "frame", lambda: integ.render(studio),
-        np.mean(times))
+    out["env_studio_512"]["busy"] = NOT_PROFILED
     del studio, state
 
     # -- 8c: mesh1m_whitted_256_env, the kernel path -------------------------
@@ -1988,9 +2190,7 @@ def slice8(dev, card, scene, t_all):
     gathered = int((state.tau.sum(-1) > 0).sum())
     finite = bool(torch.isfinite(img).all())
     integ.save(state, 3)
-    busy = device_busy("8d", t0, card, "iteration", lambda: integ.step(
-        lit, state, 4, pixels, key, cdf, pmf),
-        np.mean([r["ms"] for r in rows[1:]]))
+    busy = NOT_PROFILED
     _, calls, _ = record_sweep_calls(integ.render, lit, n_iterations=1)
     agree, pro, _ = check_launches("8d", acc, calls)
     log("8d", t0, f"1M under the sky alone, 256^2, 65536 photons, depth 5, "
@@ -2416,24 +2616,21 @@ def slice9(dev, card, t_all):
     cam.film.save_png(state)
     calls = [dict(rays=int(o.x.shape[0]), live=int((t >= 0).sum()),
                   any_hit=a) for o, _, t, a in walks]
-    busy = device_busy("9b", t0, card, "frame", lambda: integ.render(field),
-                       np.mean(times))
+    busy = NOT_PROFILED
     out["sphere_field_512"] = dict(
         frame_ms=times, ms=float(np.mean(times)), peak_gib=peak,
         useful_rays=integ.last_useful_rays, walk_calls=calls,
         groups_visited=geom.groups_visited,
         groups_per_call=geom.groups_visited / max(len(calls), 1),
         group_sizes=groups, busy=busy,
-        kernels_per_frame=busy["kernels"],
         sweep_launches=sweep_kernel.launches)
     log("9b", t0, f"sphere_field 512^2, Whitted, 4 spp, depth 3, 1024 "
         f"instances: frames {[round(x, 2) for x in times]} ms, mean "
         f"{np.mean(times):.2f}; useful rays {integ.last_useful_rays} "
         f"({integ.last_useful_rays / np.mean(times) / 1e3:.3f} Mrays/s); "
         f"peak {peak:.3f} GiB; {len(calls)} walk calls {calls}, instance "
-        f"groups visited {geom.groups_visited}; kernels a frame "
-        f"{busy['kernels']}, device busy {100 * busy['share']:.1f}%; sweep "
-        f"launches {sweep_kernel.launches}; PNG {png}; card {card}")
+        f"groups visited {geom.groups_visited}; sweep launches "
+        f"{sweep_kernel.launches}; PNG {png}; card {card}")
     if not (np.isfinite(img).all() and img.max() > 0.02
             and sweep_kernel.launches == 0):
         raise AssertionError(f"sphere_field 512: {out['sphere_field_512']}")
@@ -2919,10 +3116,6 @@ def slice10(dev, card, t_all):
                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    useful_rays=integ.last_useful_rays,
                    nonzero=float((img > 0).any(-1).mean()))
-        if label.startswith("mesh1m_path"):
-            row["busy"] = device_busy("10b", t0, card, "path frame",
-                                      lambda: integ.render(scene),
-                                      row["ms"])
         runs[label] = row
         log("10b", t0, f"{label}: launches {launches} (sweep calls "
             f"{pattern}, {row['sweep_calls_per_bounce']:.2f} a bounce); "
@@ -3095,8 +3288,7 @@ def slice11(dev, card, scene, t_all):
     times, _ = timed_frames(integ, scene)
     peak = torch.cuda.max_memory_allocated() / 2**30
     nonzero = float((img > 0).any(-1).mean())
-    busy = device_busy("11a", t0, card, "stratified frame",
-                       lambda: integ.render(scene), float(np.mean(times)))
+    busy = NOT_PROFILED
     out["mesh1m_whitted_256_strat2x2"] = dict(
         launches=launches, sweep_calls=n_calls, strata=strata,
         agreement=agree, prologue=pro, frame_ms=times,
@@ -4327,16 +4519,19 @@ class CaptureRecorder:
             self.calls.append(self.last)
         self.pending = self.last = None
 
-    def check(self):
+    def check(self, piece=None):
         """Each kept launch against its plain version: prologue bit for
-        bit, sweep by compare() and t bits."""
+        bit, sweep by compare() and t bits. ``piece``: the plain prologue
+        runs on that many rays at a time (whole blocks; each block's row
+        depends on its own rays only), for tables whose [rays, supers]
+        entry table would not fit the card in one piece."""
         import torch
         from trace_tpu_torch.ops.sweep import prologue_plain, sweep_plain
 
         pro, swp, rows = {}, {}, []
         for c in self.calls:
             pa, (ko, ks) = c["prologue"]
-            po, ps = prologue_plain(*pa)
+            po, ps = plain_prologue_pieces(pa, piece)
             sa, sk, (kt, ki) = c["sweep"]
             pt, pi = sweep_plain(*sa, certified=sk["certified"],
                                  err_eps=sk["err_eps"])
@@ -4353,6 +4548,20 @@ class CaptureRecorder:
                              live=int((pa[4] >= 0).sum()),
                              any_hit=bool(sa[5]), found=cmp["n_found"]))
         return pro, swp, rows
+
+
+def plain_prologue_pieces(args, piece=None):
+    """prologue_plain(*args), on ``piece`` rays at a time when given."""
+    import torch
+    from trace_tpu_torch.ops.sweep import prologue_plain
+
+    s_lo, s_hi, o_p, d_p, t_p, b = args
+    if piece is None or piece >= t_p.numel():
+        return prologue_plain(*args)
+    parts = [prologue_plain(s_lo, s_hi, o_p[i:i + piece], d_p[i:i + piece],
+                            t_p[i:i + piece], b)
+             for i in range(0, t_p.numel(), piece)]
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def stepwise_iterations(integ, scene, n):
@@ -4731,9 +4940,7 @@ def slice15(dev, card, scene, t_all):
     step_peak = torch.cuda.max_memory_allocated() / 2**30
     args = (integ._pixel_grid(dev), U.key(integ.seed, dev),
             *integ.light_distribution(view))
-    step_busy = device_busy("15a", t0, card, "stepwise iteration",
-                            lambda: integ.step(view, state, n_it + 1, *args),
-                            float(np.mean([r["ms"] for r in rows[1:]])))
+    step_busy = NOT_PROFILED
     fz = SPPMIntegrator(cam, fused_iterations=True, fused_block=1, **kw)
     blocks = timed_blocks(fz)
     reset()
@@ -4852,7 +5059,7 @@ def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
     through fused blocks of one iteration (a block whose pairs overflow
     an instance walk's buffer runs again stepwise); each block's state
     against the stepwise state of its iteration, one host sync a block,
-    the replay's ms, launches and busy share; then a bumped scene version
+    the replay's ms and launches; then a bumped scene version
     must capture anew. ``stats``: the clusters accelerator's, read over
     the stepwise run and over the fused one (its captures)."""
     import torch
@@ -4878,9 +5085,7 @@ def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
     blk = list(graphs.graphs.values())[-1]
     replay_ms = cuda_ms(blk.graph.replay, 3)
     syncs = replay_syncs(fz, scene, rows[-2]["state"], n_it)
-    busy = device_busy(phase, t0, card, f"{label} fused block (replay)",
-                       lambda: blk.replay(rows[-2]["state"], n_it),
-                       replay_ms, require=False)
+    busy = NOT_PROFILED
     n_caps = len(graphs.captures)
     scene.bump_version()
     fz.render(scene, n_iterations=1)
@@ -5195,6 +5400,276 @@ def slice16(dev, card, scene, replay_1024_ms, t_all):
     if not (0 < shares["flops"] <= 1 and 0 < shares["bytes"] <= 1):
         raise AssertionError(f"[16e] shares of peak {shares}")
     log(16, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
+    return out
+
+
+# Phase 17: bench config 6 (bench.py:934-1033), its legs in order: the
+# sweep at the JAX package's tiling, clusters in supers of 32, the flat
+# clusters, then the port's default tiling on the same clusters.
+CONFIG6_TRIS = 16_000_000
+CONFIG6_LEGS = (
+    ("sweep_g64_b128", dict(anim_block_rays=128, anim_ray_chunk=8192,
+                            anim_stage_clusters=None)),
+    ("clusters_super32", dict(anim_block_rays=None, anim_ray_chunk=16384,
+                              anim_stage_clusters=128)),
+    ("clusters_flat_chunk2048", dict(anim_block_rays=None,
+                                     anim_ray_chunk=2048,
+                                     anim_stage_clusters=128)),
+    ("sweep_g8_b32", dict(anim_block_rays=None, anim_ray_chunk=None,
+                          anim_stage_clusters=None)),
+)
+# The plain prologue's rays a piece at 16M (a [4096, 31,250] entry table
+# is 512 MB a temporary).
+PROLOGUE_PIECE = 4096
+
+
+class TablePointers:
+    """While entered, the data pointers of the tables every accelerator
+    call reads (the sweep's panel, the clusters' MT rows)."""
+
+    def __enter__(self):
+        from trace_tpu_torch.accel.clusters import ClusterAccelerator
+        from trace_tpu_torch.ops.sweep import SweepAccelerator
+
+        self.ptrs = set()
+        self.saved = [(c, c.intersect) for c in (SweepAccelerator,
+                                                 ClusterAccelerator)]
+        ptrs = self.ptrs
+
+        def wrap(fn, table):
+            def intersect(acc, *a):
+                ptrs.add(table(acc).data_ptr())
+                return fn(acc, *a)
+            return intersect
+
+        SweepAccelerator.intersect = wrap(SweepAccelerator.intersect,
+                                          lambda a: a.panel)
+        ClusterAccelerator.intersect = wrap(
+            ClusterAccelerator.intersect, lambda a: a.dev_clusters.packed_mt)
+        return self
+
+    def __exit__(self, *exc):
+        for c, fn in self.saved:
+            c.intersect = fn
+
+
+def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride):
+    """One leg of config 6: the scene's knobs set, one warm frame (with a
+    ``stride``, every stride-th sweep launch, and the last, kept with its
+    prologue) with the launches counted from 0, then two frames timed
+    with CUDA events; peak GiB over the three; the table pointers every
+    call read. -> (row, image)."""
+    import torch
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.sampler import uniform as U
+
+    for k, v in knobs.items():
+        setattr(scene, k, v)
+    scene.bump_version()
+    cam = mesh_heavy.build_camera(256, os.path.join(
+        tempfile.gettempdir(), "chip_smoke_mesh16m.png"))
+    integ = WhittedIntegrator(cam, U.UniformSampler(1, seed=0), max_depth=2,
+                              pixel_chunk=1 << 16)
+    kw = dict(geometry=tris, geometry_accel=accel)
+    sweep_kernel.reset_counts()
+    block_entry_kernel.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = CaptureRecorder(stride, capture_only=False) if stride else None
+    with TablePointers() as tp:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        if rec is None:
+            integ.render(scene, **kw)
+        else:
+            with rec:
+                integ.render(scene, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        warm_ms = a.elapsed_time(b)
+        launches = dict(sweep=sweep_kernel.launches,
+                        tiled=sweep_kernel.tiled_launches,
+                        prologue=block_entry_kernel.launches)
+        times, state = [], None
+        for _ in range(2):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            state = integ.render(scene, **kw)
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+    ms = float(np.mean(times))
+    row = dict(warm_ms=warm_ms, frame_ms=times, ms=ms, launches=launches,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               useful_rays=integ.last_useful_rays,
+               queue_drops=integ.last_queue_drops,
+               workload_mrays=n_rays / ms / 1e3,
+               useful_mrays=integ.last_useful_rays / ms / 1e3,
+               table_pointers=len(tp.ptrs))
+    cached = scene.geometry_cache
+    if cached is not None and hasattr(cached[2], "stats"):
+        row["cluster_stats"] = dict(cached[2].stats)
+    if rec is not None:
+        pro, swp, kept = rec.check(piece=PROLOGUE_PIECE)
+        row.update(prologue=pro, sweep=swp, kept_launches=len(kept))
+    img = image(integ, state)
+    return row, img
+
+
+def slice17(dev, card, t_all):
+    """Phase 17: bench config 6, ``mesh16m_whitted_256``, with its own
+    arguments (module docstring). Returns the phase's record."""
+    import torch
+    from trace_tpu_torch.accel import clusters as TC
+    from trace_tpu_torch.models import mesh_heavy
+    from trace_tpu_torch.ops import sweep as TS
+    from trace_tpu_torch.shapes import triangle as tri_mod
+
+    out = {}
+    # -- 17a: the scene and its tables (bench.py's keys) --------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    scene = mesh_heavy.build_scene(CONFIG6_TRIS, device=dev, use_bvh=False)
+    gen_s = time.perf_counter() - t0
+    tris = scene.triangles_host
+    t1 = time.perf_counter()
+    acc = TC.build_clusters(tris, leaf_tris=64, super_size=32)
+    build_s = time.perf_counter() - t1
+    table_mb = sum(np.asarray(x).nbytes for x in (
+        acc.packed_mt, acc.tri_id, acc.c_lo, acc.c_hi, acc.s_lo,
+        acc.s_hi)) / 1e6
+    t1 = time.perf_counter()
+    sweep = TS.SweepAccelerator(acc, dev, group=64, block_rays=128,
+                                ray_chunk=8192)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t1
+    # The triangles go to the card once; every frame's view reads them.
+    tris_dev = tri_mod.to_device(tris, dev)
+    n_lights = int(scene.lights.kind.shape[0])
+    cam = mesh_heavy.build_camera(256, "unused.png")
+    n_rays = n_pix_of(cam) * 1 * (1 + n_lights) * 2
+    out.update(n_tris=int(scene.n_triangles), gen_s=gen_s, build_s=build_s,
+               pack_s=pack_s, table_mb=table_mb,
+               n_clusters=int(acc.tri_id.shape[0]),
+               n_supers_32=int(acc.s_lo.shape[0]),
+               n_supers_g64=int(sweep.tables.n_supers),
+               workload_rays=n_rays)
+    log("17a", t0, f"mesh_heavy at {scene.n_triangles} triangles: gen "
+        f"{gen_s:.2f} s, SAH clusters {acc.tri_id.shape[0]} (supers of 32: "
+        f"{acc.s_lo.shape[0]}) build {build_s:.2f} s, sweep tables at group "
+        f"64 ({sweep.tables.n_supers} supers, GL {sweep.tables.gl_pad}) "
+        f"packed and on the card {pack_s:.2f} s, table_mb {table_mb:.1f}")
+
+    # -- 17b: the legs ----------------------------------------------------
+    flat = TC.ClusterAccel(acc.c_lo, acc.c_hi, acc.c_lo, acc.c_hi,
+                           acc.packed, acc.packed_mt, acc.tri_id,
+                           acc.leaf_tris, 1)
+    accels = {"sweep_g64_b128": sweep, "clusters_super32": acc,
+              "clusters_flat_chunk2048": flat}
+    legs, images = {}, {}
+    for name, knobs in CONFIG6_LEGS:
+        t0 = time.perf_counter()
+        scene.geometry_cache = None
+        torch.cuda.empty_cache()
+        if name == "sweep_g8_b32":
+            del sweep, accels
+            accels = {name: TS.SweepAccelerator(acc, dev)}
+        sample = name.startswith("sweep")
+        # Every 32nd launch; leg (a)'s 20-odd launches every 4th, so that
+        # launches with hits are among them (the first chunks of the
+        # sorted camera rays miss the terrain).
+        stride = (4 if name == "sweep_g64_b128" else CAPTURE_STRIDE) \
+            if sample else None
+        row, images[name] = leg17("17b", t0, card, scene, tris_dev,
+                                  accels[name], knobs, n_rays, stride)
+        row["knobs"] = knobs
+        legs[name] = row
+        log("17b", t0, f"{name}: frames {row['warm_ms']:.1f} (warm), "
+            f"{[round(x, 2) for x in row['frame_ms']]} ms, mean "
+            f"{row['ms']:.2f} ms, {row['workload_mrays']:.4f} Mrays/s "
+            f"(useful {row['useful_mrays']:.4f}), launches "
+            f"{row['launches']}, peak {row['peak_gib']:.2f} GiB, "
+            f"useful_rays {row['useful_rays']}, queue_drops "
+            f"{row['queue_drops']}, table pointers {row['table_pointers']}"
+            + (f", stages {row['cluster_stats']}" if "cluster_stats" in row
+               else "")
+            + (f"; sampled launches {row['kept_launches']}: prologue "
+               f"{row['prologue']}, sweep {row['sweep']}" if sample else "")
+            + f"; card {card}")
+        bad = row["queue_drops"] != 0 or row["table_pointers"] != 1 \
+            or not np.isfinite(images[name]).all() \
+            or (images[name] > 0).any(-1).mean() < 0.05
+        if sample:
+            bad = bad or row["launches"]["sweep"] <= 0 \
+                or row["launches"]["prologue"] != row["launches"]["sweep"] \
+                or prologue_disagrees(row["prologue"]) \
+                or disagrees(row["sweep"]) \
+                or row["sweep"]["t_bits_mismatch"] \
+                or row["kept_launches"] < 2 or row["sweep"]["n_found"] <= 0
+            bad = bad or (row["launches"]["tiled"] != (
+                row["launches"]["sweep"] if name == "sweep_g64_b128" else 0))
+        if bad:
+            raise AssertionError(f"[17b] {name}: {row}")
+    names = list(images)
+    mses = {f"{a}|{b}": mse_of(images[a], images[b])
+            for i, a in enumerate(names) for b in names[i + 1:]}
+    worst = max(mses.values())
+    log("17b", t0, f"legs' images: MSE {mses}; the largest {worst:.3e} "
+        f"(gate {MSE_GATE})")
+    if worst >= MSE_GATE:
+        raise AssertionError(f"[17b] the legs' images differ: {mses}")
+    out.update(legs=legs, image_mse=mses, image_mse_max=worst)
+
+    # -- 17c: the prologue at blocks of 128 and 512 rays, 3,906 and ~31,250
+    # supers -------------------------------------------------------------
+    t0 = time.perf_counter()
+    scene.geometry_cache = None
+    torch.cuda.empty_cache()
+    o, d = (x.arr() for x in camera_rays(cam, dev)[:2])
+    tm = torch.full((o.shape[0],), float("inf"), device=dev)
+    pro17, hit = {}, None
+    for g in (64, 8):
+        sa = TS.SweepAccelerator(acc, dev, group=g)
+        if hit is None:   # the rays that reach the terrain
+            hit = sa.intersect(o, d, tm, False)[0]
+        perm = sa.coherence_order(o, d, tm)
+        on = perm[hit[perm]]
+        mid = on.shape[0] // 2
+        sel = on[max(mid - 4096, 0):mid + 4096]
+        for b in (128, 512):
+            sab = sa.view(block_rays=b)
+            args = (sab.s_lo, sab.s_hi, *sab.pad_rays(o[sel], d[sel],
+                                                       tm[sel]), b)
+            po, ps = plain_prologue_pieces(args, PROLOGUE_PIECE)
+            fin = torch.isfinite(ps).sum(dim=1)
+            # At its shared-memory capacity, then at 64 keys a row, so
+            # that most rows sort in the global workspace.
+            for cap in (TS.PROLOGUE_KEYS, 64):
+                ko, ks = TS.block_entry_kernel(*args, key_capacity=cap)
+                torch.cuda.synchronize()
+                row = dict(supers=int(sa.tables.n_supers), key_capacity=cap,
+                           order_mismatch=int((ko != po).sum()),
+                           suffix_bits_mismatch=int((
+                               ks.view(torch.int32)
+                               != ps.view(torch.int32)).sum()),
+                           max_finite_in_row=int(fin.max()),
+                           workspace_rows=int((fin > cap).sum()))
+                pro17[f"{sa.tables.n_supers}x{b}_cap{cap}"] = row
+                log("17c", t0, f"prologue kernel at {row['supers']} supers, "
+                    f"block {b}, {sel.numel()} camera rays: {row}")
+                if row["order_mismatch"] or row["suffix_bits_mismatch"] \
+                        or not row["max_finite_in_row"]:
+                    raise AssertionError(f"[17c] prologue at group {g}, "
+                                         f"block {b}: {row}")
+        del sa, sab
+    out["prologue"] = pro17
+    del scene, tris, tris_dev, acc, flat
+    torch.cuda.empty_cache()
+    log(17, t_all, "phases 0-17 so far")
     return out
 
 
@@ -5562,13 +6037,16 @@ def main() -> int:
                    for k, p in panels.items()}
     blk = TS.KERNEL_BLOCK_RAYS
     args = TS.SweepAccelerator(tb, dev, block_rays=blk).prologue(o, d, tm)
-    args64 = TS.SweepAccelerator(tb, dev, block_rays=64).prologue(o, d, tm)
-    try:
-        sweep_kernel(*args64, panels["f32"], 64, False)
-        raise AssertionError("the sweep kernel took a block of 64 rays")
-    except ValueError as e:
-        log(4, t0, f"block of 64 rays refused: {e}")
-    del args64
+    for other in (48, 1024):   # blocks are 32k rays, 1 <= k <= 16
+        a_other = TS.SweepAccelerator(tb, dev, block_rays=other).prologue(
+            o[:4096], d[:4096], tm[:4096])
+        try:
+            sweep_kernel(*a_other, panels["f32"], other, False)
+            raise AssertionError(f"the sweep kernel took a block of {other} "
+                                 f"rays")
+        except ValueError as e:
+            log(4, t0, f"block of {other} rays refused: {e}")
+        del a_other
     # The prologue on the same chunk with every lane dead: the accelerator
     # skips such chunks, so only this timing launches the kernel on one.
     dead_chunk = {}
@@ -5610,6 +6088,13 @@ def main() -> int:
                    else "")
                 + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
                 f"steps {steps}, panel {row['gbs']:.1f} GB/s")
+    # The same chunk at the JAX package's tilings (group 64 at leaf 64:
+    # GL 4096; blocks of 128 and 512 rays), graph-timed, and every arm at
+    # each tiling on a sample of it.
+    tile_tables = tiling_tables(tb, dev)
+    tilings = tiling_grid(4, t0, card, tile_tables, o, d, tm)
+    tiling_arm_rows = tiling_arms(4, t0, tile_tables, o, d, tm)
+    del tile_tables
     log(4, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
 
     # -- 5: slice 3 ---------------------------------------------------------
@@ -5779,10 +6264,21 @@ def main() -> int:
     cfg4 = {f"config4_{r}_launches": s16[f"mesh1m_whitted_{r}_{spp}spp"][
         "launches"] for r, spp in ((256, 1), (512, 4))}
     mxu16 = s16["mxu_vs_intersect"]
-    log(16, t_all, "the whole run, phases 0-16")
+    # -- 17: bench config 6 --------------------------------------------------
+    del s16
+    torch.cuda.empty_cache()
+    s17 = slice17(dev, card, t_all)
+    with open(os.path.join(REPO, "chiprun_out", "slice17.json"), "w") as f:
+        json.dump(dict(card=card, **s17), f, indent=1)
+    cfg6 = {name: {f"config6_{leg}_launches": row["launches"][name]
+                   for leg, row in s17["legs"].items()
+                   if leg.startswith("sweep")}
+            for name in ("sweep", "prologue")}
+    log(17, t_all, "the whole run, phases 0-17")
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
-                       frames=frames,
+                       frames=frames, tilings=tilings,
+                       tiling_arms=tiling_arm_rows,
                        per_launch=per_launch, dead_chunk=dead_chunk,
                        prologue_agreement=[pro_tot, e_pro]), f, indent=1)
 
@@ -5812,7 +6308,10 @@ def main() -> int:
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
              **inst, **lights3, **public, **shard_sweep, **f14["sweep"],
-             **{k: v["sweep"] for k, v in cfg4.items()}),
+             **{k: v["sweep"] for k, v in cfg4.items()}, **cfg6["sweep"],
+             tilings={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "steps") if f in r}
+                      for k, r in tilings.items()}),
         entry("sweep_certified", f"{JAX_SWEEP}:69",
               frames["exact_edges"]["launches"], err("certified"), cert),
         entry("sweep_bf16", f"{JAX_SWEEP}:253", frames["bf16"]["launches"],
@@ -5842,7 +6341,8 @@ def main() -> int:
              sppm_skipped_chunks=sppm_launches["skipped_chunks"], **anim_pro,
              **env_pro, **inst_pro, **lights3_pro, **public_pro,
              **shard_pro, **f14["prologue"],
-             **{k: v["prologue"] for k, v in cfg4.items()}),
+             **{k: v["prologue"] for k, v in cfg4.items()},
+             **cfg6["prologue"]),
         dict(entry("intersect", "trace_tpu/ops/intersect_pallas.py:94",
                    frames["fused_5k"]["launches"], fused["max_abs_err"],
                    dict(fused, library_ms=mxu16["mxu_graph_ms"]),

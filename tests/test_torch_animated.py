@@ -179,7 +179,7 @@ def test_animated_frame_matches_rebuilt_scene(jax_images, scenes, which,
         # built from the same vertex bits, bit for bit. Only the f32
         # constants of the device build (the JAX package's) part from it.
         mt = TM.build_clusters_device(moved, 64)
-        host = TC.ClusterAccel(*(x.numpy() for x in mt[:4]), 64)
+        host = TC.to_host(mt)
         v = TTri.to_numpy(moved)
         dbl = TS.SweepTables(TC.refit_clusters(host, v.v0, v.v1, v.v2), 8)
         np.testing.assert_array_equal(

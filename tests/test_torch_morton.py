@@ -200,7 +200,7 @@ def test_device_build_within_bound_of_jitted_jax(jx, which):
 def test_device_tables_equal_host_packing(jx, kind):
     _, tt = _mesh(jx, "soup5k")
     ta = TM.build_clusters_device(TTri.to_device(tt, "cpu"), LEAF)
-    host = TC.ClusterAccel(*(x.numpy() for x in ta[:4]), ta.leaf_tris)
+    host = TC.to_host(ta)
     opt = dict(panel_bf16=kind == "bf16", panel_hilo=kind == "hilo")
     dt = TS.SweepTables(ta, 8, **opt)
     ht = TS.SweepTables(host, 8, **opt)
@@ -330,7 +330,7 @@ def test_refit_equals_a_static_build_of_the_same_clusters(jx):
     ma = TM.build_clusters_device(dev, LEAF)
     macc = TS.SweepAccelerator(TS.SweepTables(ma, 8), "cpu")
     macc.refit(dev.v0, dev.v1, dev.v2)
-    host = TC.ClusterAccel(*(x.numpy() for x in ma[:4]), LEAF)
+    host = TC.to_host(ma)
     packed = TC.refit_clusters(host, tt.v0, tt.v1, tt.v2)
     ref = TS.SweepTables(packed, 8)
     for f in ("panel", "slot_to_tri", "s_lo", "s_hi"):

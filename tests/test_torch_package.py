@@ -35,7 +35,7 @@ def test_every_module_is_listed():
 # The port's scripts outside the package: they run on the GPU machine too.
 SCRIPTS = ["chip_smoke.py", "scripts/torch_sweep_launches.py",
            "scripts/torch_sweep_warps.py", "scripts/torch_intersect_tiles.py",
-           "scripts/torch_walk_calls.py"]
+           "scripts/torch_walk_calls.py", "scripts/torch_sweep_tilings.py"]
 
 
 def _assert_no_jax_imports(path):

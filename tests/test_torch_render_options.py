@@ -65,14 +65,43 @@ def _render(scene, res=RES, spp=SPP, **kw):
     return state, cam.film.to_image(state).numpy(), integ
 
 
-@pytest.fixture(scope="module")
-def jax_chunked(jax_shadows):
-    return _jax_render(jax_shadows)
+def _jax_queue_render():
+    """The JAX package's planar li with a queue of 250 on the 12^2 glass
+    scene: (image, queue_drops, useful_rays)."""
+    jsc = _glass_scene(JBuilder, JGlass, JMatte, j_point_light, JT)
+    cam = JSph.build_camera(resolution=12, filename="unused.png")
+    ji = JWhitted(cam, JU.UniformSampler(1, seed=0), max_depth=DEPTH,
+                  queue_capacity=250, li_impl="planar")
+    img = np.asarray(cam.film.to_image(ji.render(jsc)))
+    return img, int(ji.last_queue_drops), int(ji.last_useful_rays)
 
 
 @pytest.fixture(scope="module")
-def jax_one_chunk_useful(jax_shadows):
-    return _jax_render(jax_shadows, pixel_chunk=1 << 16)[1]
+def jax_renders(jax_shadows):
+    """Every JAX render the module compares with, each its own XLA
+    compile, run in threads: XLA compiles outside the GIL, so the four
+    compiles overlap (the module took ~90 s with them one after another).
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    jobs = {"chunked": lambda: _jax_render(jax_shadows),
+            "one_chunk": lambda: _jax_render(jax_shadows,
+                                             pixel_chunk=1 << 16),
+            "sorted": lambda: _jax_render(jax_shadows, sort_materials=True),
+            "queue": _jax_queue_render}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {k: ex.submit(f) for k, f in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_chunked(jax_renders):
+    return jax_renders["chunked"]
+
+
+@pytest.fixture(scope="module")
+def jax_one_chunk_useful(jax_renders):
+    return jax_renders["one_chunk"][1]
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +215,7 @@ def _glass_scene(builder, glass, matte, light, t, **build_kw):
     return b.build(**build_kw)
 
 
-def test_queue_capacity_drops_match_jax_planar():
+def test_queue_capacity_drops_match_jax_planar(jax_renders):
     """queue_capacity as in JAX's planar li, cap = max(capacity, lanes):
     at 250 for 196 lanes children overflow, and the drop count, the
     useful rays and the image match JAX's."""
@@ -196,11 +225,7 @@ def test_queue_capacity_drops_match_jax_planar():
                                                      MatteMaterial)
     from trace_tpu_torch.scene import SceneBuilder
 
-    jsc = _glass_scene(JBuilder, JGlass, JMatte, j_point_light, JT)
-    cam = JSph.build_camera(resolution=12, filename="unused.png")
-    ji = JWhitted(cam, JU.UniformSampler(1, seed=0), max_depth=DEPTH,
-                  queue_capacity=250, li_impl="planar")
-    img_j = np.asarray(cam.film.to_image(ji.render(jsc)))
+    img_j, drops_j, useful_j = jax_renders["queue"]
     tsc = _glass_scene(SceneBuilder, GlassMaterial, MatteMaterial,
                        point_light, T, device="cpu")
     out = {}
@@ -211,10 +236,10 @@ def test_queue_capacity_drops_match_jax_planar():
         out[cap] = (tcam.film.to_image(ti.render(tsc)).numpy(),
                     ti.last_queue_drops, ti.last_useful_rays)
     img, drops, useful = out[250]
-    print(f"queue_capacity 250: drops {drops} (JAX {int(ji.last_queue_drops)}"
-          f"), MSE {mse(img, img_j):.3e}")
-    assert drops == int(ji.last_queue_drops) > 0
-    assert useful == int(ji.last_useful_rays)
+    print(f"queue_capacity 250: drops {drops} (JAX {drops_j}), MSE "
+          f"{mse(img, img_j):.3e}")
+    assert drops == drops_j > 0
+    assert useful == useful_j
     assert mse(img, img_j) < MSE_GATE
     # A larger queue drops less; one that holds every child drops none.
     assert out[None][1] > drops > out[1000][1] == 0
@@ -225,10 +250,10 @@ def sorted_render(scene):
     return _render(scene, pixel_chunk=CHUNK, sort_materials=True)
 
 
-def test_sort_materials_matches_jax_packed_sort(jax_shadows, sorted_render):
+def test_sort_materials_matches_jax_packed_sort(jax_renders, sorted_render):
     """sort_materials=True on the planar queue against the JAX package's
     sort (on its packed li): the MSE gate."""
-    img_j, _, drops_j = _jax_render(jax_shadows, sort_materials=True)
+    img_j, _, drops_j = jax_renders["sorted"]
     _, img, integ = sorted_render
     print(f"sort_materials vs JAX's packed sort: MSE {mse(img, img_j):.3e}, "
           f"max abs {np.abs(img - img_j).max():.3e}")

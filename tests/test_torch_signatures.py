@@ -36,11 +36,16 @@ EXCLUDED_MODULES = {
     "utils.pytree": "JAX pytree registration",
     "native": "the JAX package's binding of the SAH builder (the port's: "
               "accel/native.py over csrc/bvh_builder.cpp)",
-    "ops.sweep_pallas": "the Pallas sweep (the port's: ops/sweep.py and "
-                        "csrc/sweep.cu, csrc/entry.cu)",
     "ops.intersect_pallas": "the Pallas all-pairs test (the port's: "
                             "ops/intersect.py and csrc/intersect.cu)",
 }
+
+# JAX modules and names whose port lives under another name: the Pallas
+# sweep's public construction is ops/sweep.py's (over csrc/sweep.cu and
+# csrc/entry.cu).
+PORT_MODULES = {"ops.sweep_pallas": "ops.sweep"}
+PORT_NAMES = {("ops.sweep_pallas", "PallasSweepAccelerator"):
+              "SweepAccelerator"}
 
 _PACKED = "the packed stack's [..., 3] form (the port keeps the planar one)"
 # (module, name) the port leaves out, by design, with the reason.
@@ -102,14 +107,22 @@ EXCLUDED = {
         "instance records (the port's: InstancedGeometry.make_hit_record)",
     ("accel.wbvh", "traverse_batch"): "the JAX package's XLA walk (the "
         "port's: csrc/bvh_walk.cu through walk, its twin walk_plain)",
+    **{("ops.sweep_pallas", f"PallasSweepAccelerator.{n}"): _PACKED + ": the "
+       "accelerators' packed closest / any_hit (the port's interface: "
+       "intersect)" for n in ("closest", "any_hit")},
 }
 
 
 # Keywords of a name the port has that it leaves out, with the reason.
+_INTERPRET = {"interpret": "the Pallas interpreter (the port runs the "
+                            "kernel's plain PyTorch version on the CPU)"}
 EXCLUDED_KEYWORDS = {
     ("wavefront.path", "uniform_sample_one_light"): {
         "light_cdf": "a power-weighted pick that no caller in the JAX "
                      "package passes (its integrators pick uniformly)"},
+    **{("ops.sweep_pallas", q): _INTERPRET for q in (
+        "PallasSweepAccelerator", "PallasSweepAccelerator.from_tables",
+        "attach")},
 }
 
 
@@ -129,7 +142,8 @@ def _jax_modules():
 
 def _cases():
     """(module tail, qualified name) of every public function, class
-    constructor and public or __call__ method the JAX package defines."""
+    constructor and public or __call__ method (class and static methods
+    too) the JAX package defines."""
     out = []
     for tail in _jax_modules():
         mod = importlib.import_module("trace_tpu." + tail)
@@ -142,6 +156,8 @@ def _cases():
             elif inspect.isclass(obj):
                 out.append((tail, name))
                 for m, f in sorted(vars(obj).items()):
+                    if isinstance(f, (classmethod, staticmethod)):
+                        f = f.__func__
                     if (not m.startswith("_") or m == "__call__") and \
                             inspect.isfunction(f):
                         out.append((tail, f"{name}.{m}"))
@@ -151,7 +167,16 @@ def _cases():
 CASES = _cases()
 
 
+def _port_name(tail, qual):
+    """(module tail, qualified name) of a JAX name's port."""
+    head, _, rest = qual.partition(".")
+    head = PORT_NAMES.get((tail, head), head)
+    return PORT_MODULES.get(tail, tail), head + ("." + rest if rest else "")
+
+
 def _resolve(root, tail, qual):
+    if root == "trace_tpu_torch":
+        tail, qual = _port_name(tail, qual)
     obj = importlib.import_module(f"{root}.{tail}")
     for part in qual.split("."):
         obj = getattr(obj, part)
@@ -189,6 +214,8 @@ def test_port_takes_every_jax_keyword(tail, qual):
 def test_exclusions_are_absent_from_the_port(key):
     """Every exclusion names something the port does not have."""
     tail, qual = key
+    if qual is not None:
+        tail, qual = _port_name(tail, qual)
     try:
         obj = importlib.import_module(f"trace_tpu_torch.{tail}")
     except ImportError:
@@ -211,6 +238,9 @@ def test_the_cases_cover_the_ported_names():
                  "accel.morton:attach", "film.filters:Filter",
                  "scene:Scene.bump_version", "scene:Scene.with_geometry",
                  "accel.instances:build_instances",
+                 "ops.sweep_pallas:PallasSweepAccelerator",
+                 "ops.sweep_pallas:PallasSweepAccelerator.from_tables",
+                 "ops.sweep_pallas:SweepTables", "ops.sweep_pallas:attach",
                  "utils.stats:trace_profile"):
         assert want in names, want
     assert len(CASES) > 300

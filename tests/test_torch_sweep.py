@@ -19,9 +19,10 @@ package (trace_tpu.accel.clusters, trace_tpu.ops.sweep_pallas).
 - The CUDA kernels against their plain versions on the card (``cuda``
   marker, skipped without a GPU): the sweep in every arm (certified, bf16
   and hi/lo panels, step counts, double-buffered), also on the tie
-  panels, and the block entry kernel: bit-equal. The kernel refuses any
-  block but 32 rays (its CTA of 16 warps would not fit the registers);
-  the Python side's constants match the CUDA source's.
+  panels, and the block entry kernel: bit-equal. The kernel serves
+  blocks of 32k rays, 1 <= k <= 16, and refuses others; the Python
+  side's constants match the CUDA source's. (The JAX package's own
+  tilings: tests/test_torch_sweep_tilings.py.)
 
 JAX is imported inside the ``jx`` fixture, so the ``cuda`` test also runs
 where JAX is not installed (``pytest --noconftest -m cuda``).
@@ -398,10 +399,12 @@ def test_kernel_constants_match_the_cuda_source():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_rays", [64, 128])
-def test_cuda_kernel_refuses_other_block_sizes(block_rays):
-    # A CTA of 16 warps serves 32 rays; a larger block would not fit an
-    # SM's registers, so the wrapper refuses it before any launch.
+@pytest.mark.parametrize("block_rays, served", [
+    (32, True), (128, True), (512, True), (48, False), (1024, False)])
+def test_cuda_kernel_block_sizes(block_rays, served):
+    # Blocks of 32k rays, 1 <= k <= 16, run (a thread a ray, 16 / k column
+    # groups, at most 512 threads a CTA); the wrapper refuses any other
+    # block before any launch.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -410,9 +413,15 @@ def test_cuda_kernel_refuses_other_block_sizes(block_rays):
     suffix = torch.zeros(1, 2, device=dev)
     panel = torch.zeros(2, 16, 128, device=dev)
     launches = TS.sweep_kernel.launches
-    with pytest.raises(ValueError, match="blocks of 32 rays"):
-        TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
-    assert TS.sweep_kernel.launches == launches
+    if not served:
+        with pytest.raises(ValueError, match="blocks of 32k rays"):
+            TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
+        assert TS.sweep_kernel.launches == launches
+        return
+    t, i = TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
+    torch.cuda.synchronize()
+    assert TS.sweep_kernel.launches == launches + 1
+    assert (i == -1).all() and torch.isinf(t).all()
 
 
 @pytest.mark.cuda

@@ -14,13 +14,14 @@ runs it as plain XLA; it holds no Pallas kernel):
    clusters);
 2. clusters are ordered once by demand (how many rays enter them) and
    swept in stages of ``stage_clusters``, each stage testing its
-   triangles against the whole ray batch (matmul-factored
-   Moller-Trumbore, or the watertight test);
+   triangles against the batch's lanes not yet done (the factored
+   Moller-Trumbore test, or the watertight one);
 3. a lane retires when the least entry distance over the unswept stages
    (a suffix-min over the demand order) passes its best hit.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -39,17 +40,20 @@ INF = float("inf")
 
 class ClusterAccel(NamedTuple):
     """Host numpy (the SAH build), or device tensors (accel/morton.py, or
-    a ClusterAccelerator's copy). ``s_lo``/``s_hi``, ``packed`` and
-    ``super_size`` serve ``traverse``; the sweep reads the first five."""
+    a ClusterAccelerator's copy), in the JAX package's field order (so a
+    positional construction reads the same in both). ``s_lo``/``s_hi``,
+    ``packed`` and ``super_size`` serve ``traverse`` (None and 1 from the
+    device build); the sweep reads ``c_lo``, ``c_hi``, ``packed_mt``,
+    ``tri_id`` and ``leaf_tris``."""
     c_lo: np.ndarray       # [C, 3] cluster AABBs
     c_hi: np.ndarray
+    s_lo: np.ndarray | None    # [S, 3] super AABBs, S = ceil(C/G)
+    s_hi: np.ndarray | None
+    packed: np.ndarray | None  # [C, 9L->%128] v0 | v1 | v2 rows
     packed_mt: np.ndarray  # [C, 16L->%128] MT constants n|e1|e2|w|q|v0n
     tri_id: np.ndarray     # [C, L->%128] int32 global id; -1 = padding
     leaf_tris: int
-    s_lo: np.ndarray | None = None    # [S, 3] super AABBs, S = ceil(C/G)
-    s_hi: np.ndarray | None = None
-    packed: np.ndarray | None = None  # [C, 9L->%128] v0 | v1 | v2 rows
-    super_size: int = 1
+    super_size: int
 
 
 def _super_bounds(c_lo: np.ndarray, c_hi: np.ndarray, g: int):
@@ -93,8 +97,8 @@ def build_clusters(tris: tri_mod.Triangles, leaf_tris: int = 32,
         packed_mt = np.pad(packed_mt, ((0, pad), (0, 0)))
         tri_id = np.pad(tri_id, ((0, pad), (0, 0)), constant_values=-1)
     return ClusterAccel(np.ascontiguousarray(c_lo),
-                        np.ascontiguousarray(c_hi), packed_mt, tri_id,
-                        int(leaf_tris), s_lo, s_hi, packed, g)
+                        np.ascontiguousarray(c_hi), s_lo, s_hi, packed,
+                        packed_mt, tri_id, int(leaf_tris), g)
 
 
 def refit_clusters(accel: ClusterAccel, v0, v1, v2) -> ClusterAccel:
@@ -218,12 +222,23 @@ def _test_stage(accel: ClusterAccel, stage: int, h: int, perm, o, d,
     return best_t, tid[j]
 
 
+def _dot3(a, r):
+    """(a0 r0 + a1 r1) + a2 r2 for rows a [N, 3] and columns r [3, K],
+    elementwise (two in-place multiply-adds after a product: three passes
+    over the [N, K] result), so a lane's value does not depend on which
+    other lanes are tested with it, as a matrix product's could."""
+    out = a[:, 0:1] * r[0]
+    out.addcmul_(a[:, 1:2], r[1])
+    return out.addcmul_(a[:, 2:3], r[2])
+
+
 def _test_stage_mt(accel: ClusterAccel, stage: int, h: int, perm, o, d, m,
                    limit, certified: bool = False):
-    """_test_stage with the matmul-factored Moller-Trumbore test: six [N, 3]
-    @ [3, h*L] products (f32; TF32 off). ``m`` = o x d per ray.
-    ``certified``: every boundary test widened by its rounding-error bound
-    (mxu.mt_epilogue_certified)."""
+    """_test_stage with the factored Moller-Trumbore test: six [N, 3] x
+    [3, h*L] three-term dot products, elementwise in f32 (:func:`_dot3`:
+    a matrix product's bits could depend on how many lanes a stage tests).
+    ``m`` = o x d per ray. ``certified``: every boundary test widened by
+    its rounding-error bound (mxu.mt_epilogue_certified)."""
     l = accel.leaf_tris
     seg = l * 3
     cids = _stage_ids(perm, stage, h)
@@ -236,19 +251,18 @@ def _test_stage_mt(accel: ClusterAccel, stage: int, h: int, perm, o, d, m,
     n_m, e1_m, e2_m, w_m, q_m = rhs(0), rhs(1), rhs(2), rhs(3), rhs(4)
     v0n = rows[:, 5 * seg:5 * seg + l].reshape(h * l)
     tid = accel.tri_id[cids][:, :l].reshape(h * l)
-    mm = torch.matmul
-    det = -mm(d, n_m)
-    u_det = mm(m, e2_m) - mm(d, w_m)
-    v_det = -mm(m, e1_m) - mm(d, q_m)
-    t_det = mm(o, n_m) - v0n[None, :]
+    det = -_dot3(d, n_m)
+    u_det = _dot3(m, e2_m) - _dot3(d, w_m)
+    v_det = -_dot3(m, e1_m) - _dot3(d, q_m)
+    t_det = _dot3(o, n_m) - v0n[None, :]
     if certified:
         o_a, d_a = o.abs(), d.abs()
         ma = mxu_mod.abs_cross(o_a, d_a)
         eps = mxu_mod.MT_ERR_EPS
-        err_det = eps * mm(d_a, n_m.abs())
-        err_u = eps * (mm(ma, e2_m.abs()) + mm(d_a, w_m.abs()))
-        err_v = eps * (mm(ma, e1_m.abs()) + mm(d_a, q_m.abs()))
-        err_t = eps * (mm(o_a, n_m.abs()) + v0n.abs()[None, :])
+        err_det = eps * _dot3(d_a, n_m.abs())
+        err_u = eps * (_dot3(ma, e2_m.abs()) + _dot3(d_a, w_m.abs()))
+        err_v = eps * (_dot3(ma, e1_m.abs()) + _dot3(d_a, q_m.abs()))
+        err_t = eps * (_dot3(o_a, n_m.abs()) + v0n.abs()[None, :])
         ok, t = mxu_mod.mt_epilogue_certified(det, u_det, v_det, t_det,
                                               err_det, err_u, err_v, err_t)
     else:
@@ -281,13 +295,26 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     sweep. ``accel`` holds tensors on the rays' device. Returns (hit [N]
     bool, t [N], tri_id [N] i32). ``stats`` (a dict) receives the stages
     swept (``stages``), the calls (``calls``) and the most stages a call
-    has (``most_stages``). Under core/sync.py's no_host_reads every stage runs (a lane
-    that is done tests against a limit of -inf, so the result is the
-    same); otherwise the sweep stops once every lane is done."""
+    has (``most_stages``). Under core/sync.py's no_host_reads every stage
+    runs over every lane (a lane that is done tests against a limit of
+    -inf, so the result is the same); otherwise each stage tests only the
+    lanes not yet done, the sweep stops once every lane is done, and a
+    call with no lane whose t_max >= 0 (uncertified) returns at once."""
     n = o.shape[0]
     c = accel.c_lo.shape[0]
     g = accel.super_size
     dev = o.device
+    if not certified and not sync_free() and not bool((t_max >= 0).any()):
+        # No lane can hit (the plain epilogue's t is > 0, and a hit needs
+        # t < t_max): every lane gives what the sweep gives it, without
+        # the [N, C] entry table.
+        if stats is not None:
+            for k in ("stages", "most_stages"):
+                stats[k] = stats.get(k, 0)
+            stats["calls"] = stats.get("calls", 0) + 1
+        return (torch.zeros(n, dtype=torch.bool, device=dev),
+                torch.full((n,), INF, dtype=F32, device=dev),
+                torch.zeros(n, dtype=torch.int32, device=dev))
     if g > 1:
         # A super's entry lower-bounds its members': the demand order and
         # the early-out stay conservative.
@@ -319,16 +346,35 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     s = 0
     static = sync_free()   # every stage: no host read (core/sync.py)
-    while s < n_stages and (static or not bool(done.all())):
-        limit = torch.where(done, -INF, torch.minimum(best_t, t_max))
+    while s < n_stages:
+        if static:
+            # Every lane, a done one against a limit of -inf.
+            lane = None
+            limit = torch.where(done, -INF, torch.minimum(best_t, t_max))
+            oa, da, ma = o, d, m
+        else:
+            # Only the lanes not done (the stage's one host read): each
+            # lane's test reads its own row alone, so the result is the
+            # same as testing every lane.
+            lane = (~done).nonzero().squeeze(1)
+            if lane.numel() == 0:
+                break
+            limit = torch.minimum(best_t[lane], t_max[lane])
+            oa, da, ma = o[lane], d[lane], m[lane]
         if use_mxu:
-            st, si = _test_stage_mt(accel, s, h, perm, o, d, m, limit,
+            st, si = _test_stage_mt(accel, s, h, perm, oa, da, ma, limit,
                                     certified)
         else:
-            st, si = _test_stage(accel, s, h, perm, o, d, limit)
-        better = st < best_t
-        best_t = torch.where(better, st, best_t)
-        best_i = torch.where(better, si, best_i)
+            st, si = _test_stage(accel, s, h, perm, oa, da, limit)
+        if lane is None:
+            better = st < best_t
+            best_t = torch.where(better, st, best_t)
+            best_i = torch.where(better, si, best_i)
+        else:
+            bt, bi = best_t[lane], best_i[lane]
+            better = st < bt
+            best_t[lane] = torch.where(better, st, bt)
+            best_i[lane] = torch.where(better, si, bi)
         if any_hit:
             # Retire on a hit only: JAX's best_t <= t_max also retires a
             # lane with no hit when t_max = inf (ROADMAP C).
@@ -343,12 +389,23 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     return hit, torch.where(hit, best_t, INF), best_i.clamp_min(0)
 
 
+ARRAY_FIELDS = ("c_lo", "c_hi", "s_lo", "s_hi", "packed", "packed_mt",
+                "tri_id")
+
+
 def to_device(accel: ClusterAccel, device) -> ClusterAccel:
-    """The accel's arrays as tensors on ``device``."""
+    """The accel's arrays as tensors on ``device`` (a tensor already
+    there is kept, not copied)."""
     def dev(a):
         return None if a is None else torch.as_tensor(a).to(device)
-    return accel._replace(**{f: dev(getattr(accel, f)) for f in (
-        "c_lo", "c_hi", "packed_mt", "tri_id", "s_lo", "s_hi", "packed")})
+    return accel._replace(**{f: dev(getattr(accel, f)) for f in ARRAY_FIELDS})
+
+
+def to_host(accel: ClusterAccel) -> ClusterAccel:
+    """The accel's arrays as host numpy arrays."""
+    def host(a):
+        return a.cpu().numpy() if torch.is_tensor(a) else a
+    return accel._replace(**{f: host(getattr(accel, f)) for f in ARRAY_FIELDS})
 
 
 class ClusterAccelerator:
@@ -357,19 +414,12 @@ class ClusterAccelerator:
     ``ray_chunk``, so the [rays x clusters] entry table stays bounded; a
     batch of several chunks is coherence-sorted first (``sort_key``), so
     each chunk's sweep retires early. ``certified``: the widened epilogue
-    (exact_shared_edges). On a card the stage products need full f32:
-    construction raises while ``torch.backends.cuda.matmul.allow_tf32``
-    is on."""
+    (exact_shared_edges)."""
 
     def __init__(self, accel: ClusterAccel, device, stage_clusters: int = 64,
                  ray_chunk: int = 16384, sort_rays: bool = True,
                  certified: bool = False):
         self.device = torch.device(device)
-        if self.device.type == "cuda" and \
-                torch.backends.cuda.matmul.allow_tf32:
-            raise ValueError("the cluster traversal's stage products need "
-                             "full f32: torch.backends.cuda.matmul."
-                             "allow_tf32 is on")
         self.stage_clusters = int(stage_clusters)
         self.ray_chunk = int(ray_chunk)
         self.sort_rays = bool(sort_rays)
@@ -388,6 +438,21 @@ class ClusterAccelerator:
         self.world_inv_extent = torch.from_numpy(
             (1.0 / np.maximum(hi - lo, 1e-12)).astype(np.float32)).to(
                 self.device)
+
+    def view(self, stage_clusters: int | None = None,
+             ray_chunk: int | None = None,
+             certified: bool | None = None) -> "ClusterAccelerator":
+        """A copy with other traversal options that shares this one's
+        device tensors (a frame's accelerator, integrators/common.py)."""
+        v = copy.copy(self)
+        if stage_clusters is not None:
+            v.stage_clusters = int(stage_clusters)
+        if ray_chunk is not None:
+            v.ray_chunk = int(ray_chunk)
+        if certified is not None:
+            v.certified = bool(certified)
+        v.stats = {}
+        return v
 
     def refit(self, v0, v1, v2) -> None:
         """Refresh the clusters for moved vertices [T, 3] (host or device)

@@ -108,7 +108,8 @@ def build_clusters_device(tris, leaf_tris: int = 32) -> ClusterAccel:
                            v0n, torch.zeros((c, mt_pad), dtype=F32,
                                             device=dev)], 1)
     tri_id_p = torch.cat([tri_id, tri_id.new_full((c, (-l) % 128), -1)], 1)
-    return ClusterAccel(lo_b, hi_b, packed_mt, tri_id_p, l)
+    return ClusterAccel(lo_b, hi_b, None, None, None, packed_mt, tri_id_p, l,
+                        1)
 
 
 def attach(scene, leaf_tris: int = 32, stage_clusters: int = 64,

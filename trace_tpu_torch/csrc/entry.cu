@@ -89,6 +89,8 @@ constexpr int kSupers = 128;  // entry_kernel: supers per CTA, one a thread
 constexpr int kThreads = 128;  // prologue_kernel: threads per ray block
 constexpr int kPer = 2;        // prologue_kernel: supers a thread tests
 constexpr int kTile = kThreads * kPer;
+// prologue_kernel's static shared memory: warp_count[kPer][kThreads / 32].
+constexpr size_t kStaticSmem = sizeof(int) * kPer * (kThreads / 32);
 
 __device__ __forceinline__ void slab(float lo, float hi, float o, float inv,
                                      float &tn, float &tf) {
@@ -308,7 +310,10 @@ extern "C" int prologue_launch(const float *lo, const float *hi,
                                void *stream) {
   const size_t smem = (size_t)2 * block_rays * sizeof(float4) +
                       (size_t)key_cap * sizeof(unsigned long long);
-  if (smem > 48 * 1024) {
+  // The static warp counts share the 48 KB a launch may take without the
+  // attribute (a block of 512 rays with 4096 keys needs exactly 48 KB of
+  // dynamic memory, and the launch failed without it).
+  if (smem + kStaticSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         prologue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

@@ -27,13 +27,14 @@ Options, as in the JAX package (all off by default):
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 
 import numpy as np
 import torch
 
-from ..accel.clusters import (ClusterAccel, entry_boxes, refit_clusters,
-                              sort_key)
+from ..accel.clusters import (ClusterAccel, build_clusters, entry_boxes,
+                              refit_clusters, sort_key)
 from ..accel.mxu import MT_ERR_EPS, mt_epilogue, mt_epilogue_certified
 from ..core.sync import sync_free
 from .nvcc import CudaLibrary, check_tensors
@@ -48,12 +49,30 @@ INF = float("inf")
 BF16_PANEL_ERR_EPS = 1.25 * 2.0 ** -9
 HILO_PANEL_ERR_EPS = 2.0 ** -17
 
-# The CUDA kernel's CTA: SWEEP_WARPS warps serve one block of
-# KERNEL_BLOCK_RAYS rays (csrc/sweep.cu's kWarps and kBlockRays). A larger
-# block would need more registers than an SM has, so the kernel serves
-# this block size only; the plain version takes any.
+# The CUDA kernel's CTA (csrc/sweep.cu's kWarps, kBlockRays, kMaxBlockRays,
+# kTileCols): a block of B = 32k rays, 1 <= k <= 16, runs 16 / k column
+# groups of B threads, a thread a ray; at B = KERNEL_BLOCK_RAYS SWEEP_WARPS
+# warps serve the block. A super's panel is staged whole at B = 32 when it
+# has at most KERNEL_TILE_COLS columns, else in tiles of that many. The
+# plain version takes any block.
 SWEEP_WARPS = 16
 KERNEL_BLOCK_RAYS = 32
+KERNEL_MAX_BLOCK_RAYS = SWEEP_WARPS * KERNEL_BLOCK_RAYS
+KERNEL_TILE_COLS = 1024
+
+
+def kernel_serves(block_rays: int) -> bool:
+    """Whether the CUDA sweep serves blocks of ``block_rays`` rays: 32k
+    with 1 <= k <= 16."""
+    b = int(block_rays)
+    return KERNEL_BLOCK_RAYS <= b <= KERNEL_MAX_BLOCK_RAYS \
+        and b % KERNEL_BLOCK_RAYS == 0
+
+
+def kernel_tiled(block_rays: int, gl: int) -> bool:
+    """Whether a launch takes the tiled kernel (any block but 32, or a
+    panel wider than KERNEL_TILE_COLS columns)."""
+    return int(block_rays) != KERNEL_BLOCK_RAYS or gl > KERNEL_TILE_COLS
 
 
 def bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -335,10 +354,12 @@ def arm_name(kind: str, certified: bool, pipeline: bool,
 class SweepKernel:
     """ctypes binding of csrc/sweep.cu (ops/nvcc.py), built at the first
     launch. ``launches`` counts kernel launches, ``arm_launches`` the same
-    per arm (:func:`arm_name`)."""
+    per arm (:func:`arm_name`), ``tiled_launches`` those that took the
+    tiled kernel (:func:`kernel_tiled`)."""
 
     def __init__(self):
         self.launches = 0
+        self.tiled_launches = 0
         self.arm_launches = collections.Counter()
         self.lib = CudaLibrary(
             "sweep", "sweep_launch",
@@ -347,6 +368,7 @@ class SweepKernel:
 
     def reset_counts(self) -> None:
         self.launches = 0
+        self.tiled_launches = 0
         self.arm_launches.clear()
 
     def __call__(self, rays, order, suffix, panel, block_rays: int,
@@ -368,11 +390,12 @@ class SweepKernel:
             (panel, panel.dtype, (n_supers, panel.shape[1], gl))))
         if dev.type != "cuda" or gl % 8:
             raise ValueError("sweep kernel: CUDA tensors, GL % 8 == 0")
-        if b != KERNEL_BLOCK_RAYS:
+        if not kernel_serves(b):
             raise ValueError(
                 f"sweep kernel: block_rays {b}; the kernel serves blocks of "
-                f"{KERNEL_BLOCK_RAYS} rays ({SWEEP_WARPS} warps a block, "
-                f"more would not fit an SM's registers)")
+                f"32k rays, 1 <= k <= 16 ({KERNEL_BLOCK_RAYS} to "
+                f"{KERNEL_MAX_BLOCK_RAYS}: a thread a ray, at most "
+                f"{KERNEL_MAX_BLOCK_RAYS} threads a CTA)")
         launch = self.lib.load()
         best_t = torch.empty(nb * b, dtype=F32, device=dev)
         best_i = torch.empty(nb * b, dtype=torch.int32, device=dev)
@@ -392,6 +415,8 @@ class SweepKernel:
         self.launches += 1
         self.arm_launches[arm_name(kind, certified, pipeline,
                                    collect_stats)] += 1
+        if kernel_tiled(b, gl):
+            self.tiled_launches += 1
         return out
 
 
@@ -571,32 +596,66 @@ def prologue(s_lo, s_hi, o_p, d_p, t_p, block_rays: int):
 
 
 class SweepAccelerator:
-    """Triangle closest-hit / any-hit through the sweep. Tables are device
-    tensors built once per scene.
+    """Triangle closest-hit / any-hit through the sweep (the JAX package's
+    PallasSweepAccelerator). Tables are device tensors, moved to
+    ``device`` once here; a table that already lies there is kept, not
+    copied.
 
-    ``block_rays``: rays per kernel block (one CTA); the CUDA kernel
-    serves ``KERNEL_BLOCK_RAYS`` only, the plain version any size.
-    ``ray_chunk``: rays per launch.
-    ``certified``, ``pipeline``, ``collect_stats``: the sweep's options
-    (module docstring); with ``collect_stats`` every launch appends its
-    per-block step counts [NB] to ``last_steps``. ``skipped_chunks``
-    counts the chunks :meth:`intersect` gave the miss result without a
-    launch (no live lane). ``tables`` may be host numpy or device tensors
-    (a frame's device build); the world box of the ray sort is reduced
-    from the super boxes on the device."""
+    ``accel``: a ClusterAccel, packed here into SweepTables of ``group``
+    clusters a super (8 when None) with ``panel_bf16`` / ``panel_hilo``;
+    or SweepTables packed elsewhere (then ``group`` and the panel options
+    must be left unset). ``block_rays``: rays per kernel block (one CTA):
+    32k with 1 <= k <= 16 on a card, any on the CPU. The port's default is
+    32 (the JAX package's 512: ROADMAP §C). ``ray_chunk``: rays per
+    launch. ``sort_rays``: coherence-sort the rays first (so each block
+    enters few supers). ``certified``, ``pipeline``, ``collect_stats``:
+    the sweep's options (module docstring); with ``collect_stats`` every
+    launch appends its per-block step counts [NB] to ``last_steps``.
+    ``skipped_chunks`` counts the chunks :meth:`intersect` gave the miss
+    result without a launch (no live lane). The world box of the ray sort
+    is reduced from the super boxes on the device."""
 
-    def __init__(self, tables: SweepTables, device, block_rays: int = 32,
-                 ray_chunk: int = 65536, certified: bool = False,
-                 pipeline: bool = False, collect_stats: bool = False):
+    def __init__(self, accel, device="cuda", group: int | None = None,
+                 block_rays: int = 32, ray_chunk: int = 65536,
+                 sort_rays: bool = True, pipeline: bool = False,
+                 certified: bool = False, panel_bf16: bool = False,
+                 panel_hilo: bool = False, collect_stats: bool = False):
+        if isinstance(accel, SweepTables):
+            if (group is not None and group != accel.group) or panel_bf16 \
+                    or panel_hilo:
+                raise ValueError("SweepAccelerator: group and the panel "
+                                 "options pack a ClusterAccel; these tables "
+                                 "are packed already")
+            tables = accel
+        elif isinstance(accel, ClusterAccel):
+            tables = SweepTables(accel, 8 if group is None else group,
+                                 panel_bf16=panel_bf16, panel_hilo=panel_hilo)
+        else:
+            raise TypeError(f"SweepAccelerator: a ClusterAccel or "
+                            f"SweepTables, not {type(accel).__name__}")
         self.device = torch.device(device)
         self.block_rays = int(block_rays)
         self.ray_chunk = int(ray_chunk)
+        self.sort_rays = bool(sort_rays)
         self.certified = bool(certified)
         self.pipeline = bool(pipeline)
         self.collect_stats = bool(collect_stats)
         self.last_steps = []
         self.skipped_chunks = 0
         self._load(tables)
+
+    @classmethod
+    def from_tables(cls, tables: SweepTables, *, device="cuda",
+                    block_rays: int = 128, ray_chunk: int = 8192,
+                    sort_rays: bool = True, pipeline: bool = False,
+                    certified: bool = False) -> "SweepAccelerator":
+        """The sweep over pre-packed tables, with the JAX package's
+        from_tables defaults (blocks of 128 rays, 8192 rays a launch): the
+        route of huge static scenes, whose tables the caller packs once
+        and hands to every frame (integrators/common.py)."""
+        return cls(tables, device, block_rays=block_rays,
+                   ray_chunk=ray_chunk, sort_rays=sort_rays,
+                   pipeline=pipeline, certified=certified)
 
     def _load(self, tables: SweepTables) -> None:
         dev = self.device
@@ -609,6 +668,23 @@ class SweepAccelerator:
         self.world_lo = self.s_lo.amin(0)
         self.world_inv_extent = 1.0 / (self.s_hi.amax(0)
                                        - self.world_lo).clamp_min(1e-12)
+
+    def view(self, block_rays: int | None = None,
+             ray_chunk: int | None = None,
+             certified: bool | None = None) -> "SweepAccelerator":
+        """A copy with another block, chunk or certification that shares
+        this one's device tensors (a frame's accelerator,
+        integrators/common.py)."""
+        v = copy.copy(self)
+        if block_rays is not None:
+            v.block_rays = int(block_rays)
+        if ray_chunk is not None:
+            v.ray_chunk = int(ray_chunk)
+        if certified is not None:
+            v.certified = bool(certified)
+        v.last_steps = []
+        v.skipped_chunks = 0
+        return v
 
     def refit(self, v0, v1, v2) -> None:
         """Refresh the tables for moved vertices [T, 3] (host or device)
@@ -627,7 +703,9 @@ class SweepAccelerator:
             tb.n_supers, -1)[:, :tb.group * l].reshape(-1, l)
         host = [x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
                 for x in (v0, v1, v2)]
-        acc = refit_clusters(ClusterAccel(None, None, None, slot, l), *host)
+        acc = refit_clusters(ClusterAccel(
+            c_lo=None, c_hi=None, s_lo=None, s_hi=None, packed=None,
+            packed_mt=None, tri_id=slot, leaf_tris=l, super_size=1), *host)
         self._load(SweepTables(acc, tb.group, panel_bf16=tb.panel_bf16,
                                panel_hilo=tb.panel_hilo))
 
@@ -694,19 +772,20 @@ class SweepAccelerator:
     def intersect(self, o, d, t_max, any_hit: bool):
         """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32).
 
-        Rays are coherence-sorted first (direction octant, then Morton
-        order of the origin) so each block enters few supers; lanes with
-        t_max < 0 are dead and sort last. Only the chunks that hold a live
-        lane run the prologue and the sweep (``live_chunks``); the others
-        get what the sweep gives a dead lane -- hit false, t +inf and the
-        triangle of slot 0 -- and count in ``skipped_chunks``. In the
-        sync-free mode (core/sync.py) every chunk launches, with no host
-        read: a chunk with no live lane gives the same result."""
+        With ``sort_rays`` the rays are coherence-sorted first (direction
+        octant, then Morton order of the origin) so each block enters few
+        supers; lanes with t_max < 0 are dead and sort last. Only the
+        chunks that hold a live lane run the prologue and the sweep
+        (``live_chunks``); the others get what the sweep gives a dead lane
+        -- hit false, t +inf and the triangle of slot 0 -- and count in
+        ``skipped_chunks``. In the sync-free mode (core/sync.py) every
+        chunk launches, with no host read: a chunk with no live lane gives
+        the same result."""
         n = o.shape[0]
-        perm = self.coherence_order(o, d, t_max)
-        o, d, t_max = o[perm], d[perm], t_max[perm]
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(n, device=perm.device)
+        perm = None
+        if self.sort_rays:
+            perm = self.coherence_order(o, d, t_max)
+            o, d, t_max = o[perm], d[perm], t_max[perm]
         c = self.ray_chunk
         hit = torch.zeros(n, dtype=torch.bool, device=o.device)
         t = torch.full((n,), INF, dtype=F32, device=o.device)
@@ -718,4 +797,31 @@ class SweepAccelerator:
         for s in starts:
             hit[s:s + c], t[s:s + c], idx[s:s + c] = self._traverse_chunk(
                 o[s:s + c], d[s:s + c], t_max[s:s + c], any_hit)
+        if perm is None:
+            return hit, t, idx
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(n, device=perm.device)
         return hit[inv], t[inv], idx[inv]
+
+
+def attach(scene, leaf_tris: int = 64, group: int = 8,
+           max_prims_per_leaf: int = 4, block_rays: int = 32,
+           ray_chunk: int = 16384, pipeline: bool = False,
+           certified: bool | None = None):
+    """Install the sweep over an SAH cluster build of the scene's
+    triangles (the JAX package's sweep_pallas.attach; the port's block is
+    32 rays, JAX's 512: ROADMAP §C) and bump the scene's version.
+    ``certified`` defaults to the scene's exact_shared_edges."""
+    if scene.n_triangles == 0:
+        return scene
+    from ..shapes import triangle as tri_mod
+
+    if certified is None:
+        certified = bool(scene.exact_edges)
+    accel = build_clusters(tri_mod.to_numpy(scene.triangles), leaf_tris,
+                           max_prims_per_leaf)
+    scene.bump_version()
+    scene.accel = SweepAccelerator(
+        accel, scene.device, group=group, block_rays=block_rays,
+        ray_chunk=ray_chunk, pipeline=pipeline, certified=certified)
+    return scene

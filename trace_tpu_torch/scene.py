@@ -243,6 +243,15 @@ class Scene:
             np.asarray(tri_light_id, np.int32).reshape(-1)).to(dev)
         self.set_lights(light_mod.preprocess(lights, *self.bounding_sphere()))
         self._version = 0
+        # The accelerator over the last host tables a frame was given
+        # (integrators/common.py::geometry_accelerator).
+        self.geometry_cache = None
+
+    @property
+    def triangles_host(self) -> tri_mod.Triangles:
+        """The triangle table as host numpy arrays (the JAX Scene's
+        ``triangles_host``; a device table is read back)."""
+        return tri_mod.to_numpy(self.triangles)
 
     def bump_version(self) -> None:
         """Call after changing the scene in place (its lights, accelerator
