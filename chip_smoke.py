@@ -50,11 +50,16 @@ Phases (each prints lines with its seconds; any failure raises):
      must be refused (ValueError: the kernel serves blocks of 32k rays,
      1 <= k <= 16); the same chunk at each (group, block) of TILINGS --
      (8, 32), (8, 128), (8, 512) and bench config 6's (64, 128), GL 4096
-     -- f32 and certified, graph-timed, with plain ms, steps and bound,
-     bit-equal to plain, and the bf16, hi/lo, step-counting and
-     double-buffered arms graph-timed; every arm at each of ARM_TILINGS on every 32nd
-     ray of the chunk, closest and any-hit, t, slot and steps bit-equal
-     to plain, the prologue bit-equal at each block;
+     -- and config 6's own launch shape, 8192 rays at (64, 128) (64 ray
+     blocks: the chunk's first, which enter no super, and its first 8192
+     that hit), f32 and certified, graph-timed, with plain ms, steps and
+     bound, bit-equal to plain, the tiled kernel's cluster
+     shape (as the CUDA library computes it, equal to ops.sweep's mirror)
+     and ptxas's registers and spills, and the bf16, hi/lo,
+     step-counting and double-buffered arms graph-timed; every arm at
+     each of ARM_TILINGS on every 32nd ray of the chunk, closest and
+     any-hit, t, slot and steps bit-equal to plain, the prologue
+     bit-equal at each block;
   5. slice 3, the shadows and Cornell scenes and the path tracer:
      a. goldens on the card: shadows 16^2 (Whitted, 1 spp, seed 11, depth
         3) against tests/goldens/shadows16.npy and Cornell 48^2 (path
@@ -391,13 +396,16 @@ Phases (each prints lines with its seconds; any failure raises):
         the flat clusters (bench.py's positional ClusterAccel, super 1),
         chunks of 2048; (d) the port's default tiling (group 8, blocks of
         32, chunks of 65536) on the same clusters. Each a warm frame
-        (launches counted from 0) and two timed with CUDA events: ms,
+        (launches counted from 0) and two timed with CUDA events (one for
+        (b), whose frames take ~28 s, for the run's time): ms,
         sweep, tiled and prologue launches, the cluster stages, peak GiB,
-        useful_rays, workload Mrays/s. Gates: every 32nd sweep launch of
-        (a) and (d), and the last, and its prologue equal to plain, bit
-        for bit; the images within MSE 5e-4 of one another (the largest
-        reported); queue_drops 0; the tables every call read kept their
-        data pointer across the frames;
+        useful_rays, workload Mrays/s; (a)'s every sweep launch and its
+        prologue recorded and replayed as CUDA graphs: the tiled kernel's
+        and the prologue's ms a frame. Gates: every 32nd sweep launch of
+        (d) and every 4th of (a), and the last, and its prologue equal to
+        plain, bit for bit; the images within MSE 5e-4 of one another
+        (the largest reported); queue_drops 0; the tables every call read
+        kept their data pointer across the frames;
      c. the prologue kernel at 3,906 supers (group 64) and 31,250 (group
         8), blocks of 128 and 512 rays, on 8192 camera rays that reach
         the terrain, at its shared-memory key capacity and at 64 keys a
@@ -421,8 +429,11 @@ bvh_walk with its launches in 12c's frame and one SPPM iteration of 12d,
 timed on 12a's camera call, and with its launches in one stepwise 1024^2
 iteration and per fused replay of phase 15, the iteration's walk ms and
 the 1M camera call's ms and bound; sweep and prologue also with their
-launches in 16a's two config-4 frames and in config 6's sweep legs (17b),
-the sweep with phase 4's tiling grid),
+launches in 16a's two config-4 frames and in config 6's sweep legs (17b);
+sweep_tiled, the tiled kernel at the JAX package's tilings: launches in
+config 6's leg (a), ms, plain ms and bound on its 8192-ray launch shape
+(phase 4's chunk's first 8192 rays that hit), with phase 4's tiling grid
+and leg (a)'s kernel ms a frame),
 the card's name and power limit, and
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -571,10 +582,16 @@ def sweep_bound(args, per_block, panel, block_rays, certified):
     return bound(ops, nbytes)
 
 
-# (group, block) of phase 4's tiling grid on the 1M camera chunk: the
-# port's default, blocks of 128 and 512 rays, and bench config 6's sweep
-# (group 64: GL 4096, staged in tiles); ARM_TILINGS for every arm.
-TILINGS = ((8, 32), (8, 128), (8, 512), (64, 128))
+# (group, block, cut) of phase 4's tiling grid on the 1M camera chunk
+# (cut "": the whole chunk; "cN" its first N rays, "hN" its first N rays
+# that hit the mesh): the port's default, blocks of 128 and 512 rays,
+# bench config 6's sweep (group 64: GL 4096, staged in tiles), and config
+# 6's own launch shape, chunks of 8192 rays (64 blocks of 128): the sorted
+# chunk's first 8192, which enter no super (the launch's fixed cost), and
+# its first 8192 that hit; ARM_TILINGS for every arm.
+CONFIG6_CHUNK = 8192
+TILINGS = ((8, 32, ""), (8, 128, ""), (8, 512, ""), (64, 128, ""),
+           (64, 128, f"c{CONFIG6_CHUNK}"), (64, 128, f"h{CONFIG6_CHUNK}"))
 ARM_TILINGS = ((8, 32), (8, 128), (8, 512), (64, 32), (64, 128), (64, 512))
 
 
@@ -671,21 +688,60 @@ def tiling_arms(phase, t0, tables, o, d, tm, stride=32):
     return rows
 
 
-def tiling_grid(phase, t0, card, tables, o, d, tm):
-    """A sorted chunk through the kernel at each (group, block) of TILINGS,
-    f32 and certified: graph-timed ms (10 launches replayed), the plain
-    version's ms (once), steps and the busiest block's, the bound
-    (sweep_bound); t and slot bit-equal to plain. Returns {"GxB_arm":
-    row}."""
+def tiling_name(g, b, cut="") -> str:
+    """A tiling's key: "GxB" and its cut ("cN", "hN" or "")."""
+    return f"{g}x{b}{cut}"
+
+
+def cut_rays(cut, hit):
+    """The rays of a tiling's cut of a chunk (an index): all (""), the
+    first N ("cN"), or the first N of those that hit ("hN"; ``hit``: the
+    chunk's hit mask, in its order)."""
+    if not cut:
+        return slice(None)
+    n = int(cut[1:])
+    return slice(0, n) if cut[0] == "c" else hit.nonzero()[:n, 0]
+
+
+def tiled_shape_of(b, regs) -> dict:
+    """The tiled kernel's launch shape at block ``b`` as the CUDA library
+    computes it, held to ops.sweep's mirror (kernel_cluster), with ptxas's
+    (registers, spill stores, spill loads) of its f32 and certified f32
+    arms from ``regs`` (ptxas_summary)."""
+    from trace_tpu_torch.ops import sweep as TS
+
+    shape = TS.sweep_kernel.tiled_shape(b)
+    if (shape["cluster"], shape["cta_rays"], shape["groups"]) \
+            != TS.kernel_cluster(b):
+        raise AssertionError(f"tiled kernel shape {shape} differs from "
+                             f"kernel_cluster({b}) {TS.kernel_cluster(b)}")
+    shape["ptxas"] = {n: (r, sp, lo) for n, r, sp, lo in regs
+                      if n in ("tiled_f32", "tiled_certified_f32")}
+    return shape
+
+
+def tiling_grid(phase, t0, card, tables, o, d, tm, regs):
+    """A sorted chunk through the kernel at each (group, block, cut) of
+    TILINGS, f32 and certified: graph-timed ms (10 launches replayed), the
+    plain version's ms (once), steps and the busiest block's, the bound
+    (sweep_bound); t, slot and steps bit-equal to plain; the tiled
+    kernel's cluster shape and registers (tiled_shape_of). Returns
+    {"GxB<cut>_arm": row}."""
     import torch
     from trace_tpu_torch.ops import sweep as TS
 
     rows = {}
-    for g, b in TILINGS:
+    hit = TS.SweepAccelerator(tables[8][0], o.device, sort_rays=False
+                              ).intersect(o, d, tm, False)[0]
+    for g, b, cut in TILINGS:
         tb, panels = tables[g]
         acc = TS.SweepAccelerator(tb, o.device, block_rays=b)
-        args = acc.prologue(o, d, tm)
+        sel = cut_rays(cut, hit)
+        args = acc.prologue(o[sel], d[sel], tm[sel])
         p = panels["f32"]
+        tiled = TS.kernel_tiled(b, tb.gl_pad)
+        shape = tiled_shape_of(b, regs) if tiled else None
+        key = tiling_name(g, b, cut)
         for cert in (False, True):
             # The plain version once, timed with CUDA events (phase 2's
             # checks have warmed it up).
@@ -698,27 +754,36 @@ def tiling_grid(phase, t0, card, tables, o, d, tm):
                                          collect_stats=True)
             torch.cuda.synchronize()
             row = dict(group=g, block_rays=b, gl=tb.gl_pad,
+                       rays=int(args[0].shape[1]), blocks=int(ks.numel()),
                        certified=cert, steps=int(ks.sum()),
                        max_block_steps=int(ks.max()),
                        equal=bool(torch.equal(kt, pt) and torch.equal(ki, pi)
                                   and torch.equal(ks, ps)),
-                       found=int((ki >= 0).sum()))
+                       found=int((ki >= 0).sum()),
+                       max_abs_err=compare(kt, ki, pt, pi)["max_abs_err"],
+                       tiled=tiled, shape=shape)
             row["ms"] = graph_ms(lambda: TS.sweep_kernel(
                 *args, p, b, False, certified=cert), 10)
             row["plain_ms"] = ev[0].elapsed_time(ev[1])
             row["bound_ms"], row["bound_by"] = sweep_bound(args, ks, p, b,
                                                            cert)
-            name = f"{g}x{b}_{'certified' if cert else 'f32'}"
+            name = f"{key}_{'certified' if cert else 'f32'}"
             rows[name] = row
-            log(phase, t0, f"chunk of {o.shape[0]} rays at group {g}, block "
+            log(phase, t0, f"chunk of {row['rays']} rays at group {g}, block "
                 f"{b}, {'certified' if cert else 'f32'}: kernel "
                 f"{row['ms']:.4f} ms graph-timed, plain "
                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
                 f"({row['bound_by']}, {100 * row['bound_ms'] / row['ms']:.1f}"
                 f"% of it), steps {row['steps']}, busiest block "
-                f"{row['max_block_steps']}, bit-equal {row['equal']}; card "
-                f"{card}")
-            if not row["equal"] or not row["found"]:
+                f"{row['max_block_steps']}, bit-equal {row['equal']}; "
+                + (f"tiled kernel: cluster of {shape['cluster']} CTAs x "
+                   f"{shape['cta_rays']} rays x {shape['groups']} groups, "
+                   f"{shape['smem_bytes']} B shared a CTA, ptxas "
+                   f"(registers, spill stores, spill loads) "
+                   f"{shape['ptxas']}; " if tiled else "sweep_kernel; ")
+                + f"card {card}")
+            # (The sorted chunk's first rays enter no super.)
+            if not row["equal"] or (cut[:1] != "c" and not row["found"]):
                 raise AssertionError(f"[{phase}] {name}: {row}")
         # The other arms' kernel ms at this tiling (tiling_arms holds
         # them to plain); bounds as the f32 and certified rows'.
@@ -726,12 +791,12 @@ def tiling_grid(phase, t0, card, tables, o, d, tm):
                                ("f32_stats", "f32", dict(collect_stats=True)),
                                ("f32_pipelined", "f32",
                                 dict(pipeline=True))):
-            rows[f"{g}x{b}_{arm}"] = dict(
+            rows[f"{key}_{arm}"] = dict(
                 group=g, block_rays=b, ms=graph_ms(
                     lambda: TS.sweep_kernel(*args, panels[kind], b, False,
                                             **opt), 10))
-        log(phase, t0, f"group {g}, block {b}, other arms: "
-            + ", ".join(f"{a} {rows[f'{g}x{b}_{a}']['ms']:.4f} ms"
+        log(phase, t0, f"{key}, other arms: "
+            + ", ".join(f"{a} {rows[f'{key}_{a}']['ms']:.4f} ms"
                         for a in ("bf16", "hilo", "f32_stats",
                                   "f32_pipelined")) + f"; card {card}")
     return rows
@@ -812,12 +877,11 @@ def ptxas_summary(logtext: str) -> list:
         if m:
             name = m.group(1)
             t = re.search(r"sweep_kernelILb(\d)ELi(\d)ELb(\d)ELb(\d)E", name)
-            tl = re.search(r"sweep_tiled_kernelILb(\d)ELi(\d)ELb(\d)E",
-                           name)
+            tl = re.search(r"sweep_tiled_kernelILb(\d)ELi(\d)EE", name)
             if tl:
-                c, k, p = tl.groups()
+                c, k = tl.groups()
                 name = "tiled_" + arm_name(("f32", "bf16", "hilo")[int(k)],
-                                           c == "1", p == "1", False)
+                                           c == "1", False, False)
             elif t:
                 c, k, s, p = t.groups()
                 name = arm_name(("f32", "bf16", "hilo")[int(k)], c == "1",
@@ -4474,12 +4538,15 @@ class CaptureRecorder:
     while the block runs), keep the tensors of every ``stride``-th call
     of ops.sweep's prologue and sweep (the accelerator's two launches a
     chunk), and the last: the prologue's inputs and (order, suffix), the
-    sweep's inputs and (best t, best slot)."""
+    sweep's inputs and (best t, best slot). With ``keep_all``, ``every``
+    also holds each call's (prologue inputs, sweep args, sweep keywords),
+    to replay them."""
 
-    def __init__(self, stride, capture_only=True):
+    def __init__(self, stride, capture_only=True, keep_all=False):
         self.stride = stride
         self.capture_only = capture_only
         self.calls = []
+        self.every = [] if keep_all else None
         self.n = 0
 
     def _keeps(self):
@@ -4507,6 +4574,8 @@ class CaptureRecorder:
                     self.calls.append(dict(prologue=self.pending, sweep=(
                         a, k, res)))
                 self.last = dict(prologue=self.pending, sweep=(a, k, res))
+                if self.every is not None:
+                    self.every.append((self.pending[0], a, k))
                 self.n += 1
             return res
 
@@ -5453,16 +5522,20 @@ class TablePointers:
             c.intersect = fn
 
 
-def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride):
+def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride,
+          launch_times=False, n_timed=2):
     """One leg of config 6: the scene's knobs set, one warm frame (with a
     ``stride``, every stride-th sweep launch, and the last, kept with its
-    prologue) with the launches counted from 0, then two frames timed
-    with CUDA events; peak GiB over the three; the table pointers every
-    call read. -> (row, image)."""
+    prologue) with the launches counted from 0, then ``n_timed`` frames
+    timed with CUDA events; peak GiB over them all; the table pointers
+    every call read. With ``launch_times``, the warm frame's sweep launches and
+    their prologues replayed, each kind as one CUDA graph: their ms a
+    frame (graph_ms). -> (row, image)."""
     import torch
     from trace_tpu_torch.integrators.whitted import WhittedIntegrator
     from trace_tpu_torch.models import mesh_heavy
-    from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
+    from trace_tpu_torch.ops.sweep import (block_entry_kernel, kernel_tiled,
+                                           sweep_kernel)
     from trace_tpu_torch.sampler import uniform as U
 
     for k, v in knobs.items():
@@ -5477,7 +5550,8 @@ def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride):
     block_entry_kernel.reset_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = CaptureRecorder(stride, capture_only=False) if stride else None
+    rec = CaptureRecorder(stride, capture_only=False,
+                          keep_all=launch_times) if stride else None
     with TablePointers() as tp:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -5494,7 +5568,7 @@ def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride):
                         tiled=sweep_kernel.tiled_launches,
                         prologue=block_entry_kernel.launches)
         times, state = [], None
-        for _ in range(2):
+        for _ in range(n_timed):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -5513,6 +5587,23 @@ def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride):
     cached = scene.geometry_cache
     if cached is not None and hasattr(cached[2], "stats"):
         row["cluster_stats"] = dict(cached[2].stats)
+    if rec is not None and launch_times:
+        every = rec.every
+        rec.every = None
+
+        def sweeps():
+            for _, a, k in every:
+                sweep_kernel(*a, **k)
+
+        def prologues():
+            for pa, _, _ in every:
+                block_entry_kernel(*pa)
+
+        n_tiled = sum(kernel_tiled(a[4], a[3].shape[2]) for _, a, _ in every)
+        row["launch_ms"] = dict(launches=len(every), tiled=n_tiled,
+                                sweep_ms=graph_ms(sweeps, 2),
+                                prologue_ms=graph_ms(prologues, 2))
+        del every
     if rec is not None:
         pro, swp, kept = rec.check(piece=PROLOGUE_PIECE)
         row.update(prologue=pro, sweep=swp, kept_launches=len(kept))
@@ -5585,7 +5676,10 @@ def slice17(dev, card, t_all):
         stride = (4 if name == "sweep_g64_b128" else CAPTURE_STRIDE) \
             if sample else None
         row, images[name] = leg17("17b", t0, card, scene, tris_dev,
-                                  accels[name], knobs, n_rays, stride)
+                                  accels[name], knobs, n_rays, stride,
+                                  launch_times=name == "sweep_g64_b128",
+                                  n_timed=1 if name == "clusters_super32"
+                                  else 2)
         row["knobs"] = knobs
         legs[name] = row
         log("17b", t0, f"{name}: frames {row['warm_ms']:.1f} (warm), "
@@ -5599,6 +5693,11 @@ def slice17(dev, card, t_all):
                else "")
             + (f"; sampled launches {row['kept_launches']}: prologue "
                f"{row['prologue']}, sweep {row['sweep']}" if sample else "")
+            + (f"; its {row['launch_ms']['launches']} sweep launches "
+               f"({row['launch_ms']['tiled']} tiled) replayed: "
+               f"{row['launch_ms']['sweep_ms']:.3f} ms a frame, their "
+               f"prologues {row['launch_ms']['prologue_ms']:.3f} ms"
+               if "launch_ms" in row else "")
             + f"; card {card}")
         bad = row["queue_drops"] != 0 or row["table_pointers"] != 1 \
             or not np.isfinite(images[name]).all() \
@@ -6092,7 +6191,7 @@ def main() -> int:
     # GL 4096; blocks of 128 and 512 rays), graph-timed, and every arm at
     # each tiling on a sample of it.
     tile_tables = tiling_tables(tb, dev)
-    tilings = tiling_grid(4, t0, card, tile_tables, o, d, tm)
+    tilings = tiling_grid(4, t0, card, tile_tables, o, d, tm, regs)
     tiling_arm_rows = tiling_arms(4, t0, tile_tables, o, d, tm)
     del tile_tables
     log(4, t0, f"whole run so far {time.perf_counter() - t_all:.1f} s")
@@ -6274,6 +6373,8 @@ def main() -> int:
                    for leg, row in s17["legs"].items()
                    if leg.startswith("sweep")}
             for name in ("sweep", "prologue")}
+    leg_a = s17["legs"]["sweep_g64_b128"]
+    c6_key = tiling_name(64, 128, f"h{CONFIG6_CHUNK}")
     log(17, t_all, "the whole run, phases 0-17")
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
@@ -6308,7 +6409,19 @@ def main() -> int:
                    max(r["max_abs_err"] for r in res.values()), t32("f32")),
              sppm_launches=sppm_launches["sweep_launches"], **anim, **env,
              **inst, **lights3, **public, **shard_sweep, **f14["sweep"],
-             **{k: v["sweep"] for k, v in cfg4.items()}, **cfg6["sweep"],
+             **{k: v["sweep"] for k, v in cfg4.items()}, **cfg6["sweep"]),
+        # The tiled kernel (csrc/sweep.cu::sweep_tiled_kernel) at the JAX
+        # package's tilings: launches in config 6's leg (a), timed on that
+        # leg's launch shape (8192 rays at group 64, blocks of 128).
+        dict(entry("sweep_tiled", f"{JAX_SWEEP}:213",
+                   leg_a["launches"]["tiled"],
+                   max(r["max_abs_err"] for r in tilings.values()
+                       if r.get("tiled") and "max_abs_err" in r),
+                   tilings[f"{c6_key}_f32"]),
+             shape=tilings[f"{c6_key}_f32"]["shape"],
+             config6_frame_ms=leg_a["ms"],
+             config6_tiled_ms_a_frame=leg_a["launch_ms"]["sweep_ms"],
+             config6_prologue_ms_a_frame=leg_a["launch_ms"]["prologue_ms"],
              tilings={k: {f: r[f] for f in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "steps") if f in r}
                       for k, r in tilings.items()}),

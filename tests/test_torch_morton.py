@@ -358,7 +358,8 @@ def test_cuda_device_build_matches_cpu():
         tris = TTri.transform_triangles(TTri.to_device(tt, dev), xf)
         acc = TM.build_clusters_device(tris, LEAF)
         tb = TS.SweepTables(acc, 8)
-        out[dev] = [x.cpu() for x in (*tris, *acc[:4], tb.panel,
+        out[dev] = [x.cpu() for x in (*tris, acc.c_lo, acc.c_hi,
+                                      acc.packed_mt, acc.tri_id, tb.panel,
                                       tb.slot_to_tri, tb.s_lo, tb.s_hi)]
     for i, (a, b) in enumerate(zip(out["cpu"], out["cuda"])):
         assert torch.equal(a, b), i

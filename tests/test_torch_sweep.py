@@ -19,7 +19,8 @@ package (trace_tpu.accel.clusters, trace_tpu.ops.sweep_pallas).
 - The CUDA kernels against their plain versions on the card (``cuda``
   marker, skipped without a GPU): the sweep in every arm (certified, bf16
   and hi/lo panels, step counts, double-buffered), also on the tie
-  panels, and the block entry kernel: bit-equal. The kernel serves
+  panels, at the JAX package's tilings through the tiled kernel's
+  clusters, and the block entry kernel: bit-equal. The kernel serves
   blocks of 32k rays, 1 <= k <= 16, and refuses others; the Python
   side's constants match the CUDA source's. (The JAX package's own
   tilings: tests/test_torch_sweep_tilings.py.)
@@ -391,37 +392,58 @@ def test_kernel_constants_match_the_cuda_source():
 
     src = open(os.path.join(os.path.dirname(TS.__file__), os.pardir, "csrc",
                             "sweep.cu")).read()
-    consts = dict(re.findall(r"constexpr int (kWarps|kBlockRays) = (\d+);",
-                             src))
+    consts = dict(re.findall(
+        r"constexpr int (kWarps|kBlockRays|kTileCols|kMaxCluster) = (\d+);",
+        src))
     assert int(consts["kWarps"]) == TS.SWEEP_WARPS
     assert int(consts["kBlockRays"]) == TS.KERNEL_BLOCK_RAYS
+    assert int(consts["kTileCols"]) == TS.KERNEL_TILE_COLS
+    # kernel_cluster mirrors cluster_of(): the same cap on the cluster.
+    assert int(consts["kMaxCluster"]) == TS.KERNEL_MAX_CLUSTER
     assert TSc.BLOCK_RAYS == TS.KERNEL_BLOCK_RAYS
 
 
+BLOCK_CASES = [(32, True, 128), (128, True, 128), (512, True, 128),
+               (48, False, 128), (1024, False, 128), (128, True, 4096),
+               (512, True, 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("block_rays, served", [
-    (32, True), (128, True), (512, True), (48, False), (1024, False)])
-def test_cuda_kernel_block_sizes(block_rays, served):
-    # Blocks of 32k rays, 1 <= k <= 16, run (a thread a ray, 16 / k column
-    # groups, at most 512 threads a CTA); the wrapper refuses any other
-    # block before any launch.
+@pytest.mark.parametrize(
+    "block_rays, served, gl", BLOCK_CASES,
+    ids=[f"{b}-{v}" + (f"-gl{g}" if g != 128 else "")
+         for b, v, g in BLOCK_CASES])
+def test_cuda_kernel_block_sizes(block_rays, served, gl):
+    # Blocks of 32k rays, 1 <= k <= 16, run (a thread a ray; above 32 rays
+    # a cluster of CTAs, kernel_cluster); the wrapper refuses any other
+    # block before any launch. GL 4096 stages four tiles a super.
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    rays = torch.zeros(10, block_rays, device=dev)
-    order = torch.zeros(1, 2, dtype=torch.int32, device=dev)
-    suffix = torch.zeros(1, 2, device=dev)
-    panel = torch.zeros(2, 16, 128, device=dev)
+    rays = torch.zeros(10, 2 * block_rays, device=dev)
+    order = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    suffix = torch.zeros(2, 2, device=dev)
+    panel = torch.zeros(2, 16, gl, device=dev)
     launches = TS.sweep_kernel.launches
+    tiled = TS.sweep_kernel.tiled_launches
     if not served:
         with pytest.raises(ValueError, match="blocks of 32k rays"):
             TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
         assert TS.sweep_kernel.launches == launches
         return
-    t, i = TS.sweep_kernel(rays, order, suffix, panel, block_rays, False)
+    t, i, steps = TS.sweep_kernel(rays, order, suffix, panel, block_rays,
+                                  False, collect_stats=True)
     torch.cuda.synchronize()
     assert TS.sweep_kernel.launches == launches + 1
+    assert TS.sweep_kernel.tiled_launches == tiled + int(
+        TS.kernel_tiled(block_rays, gl))
     assert (i == -1).all() and torch.isinf(t).all()
+    assert (steps == 0).all()     # t_lim 0: no lane can improve
+    if TS.kernel_tiled(block_rays, gl):
+        c, cta, groups = TS.kernel_cluster(block_rays)
+        shape = TS.sweep_kernel.tiled_shape(block_rays)
+        assert (shape["cluster"], shape["cta_rays"], shape["groups"]) == (
+            c, cta, groups)
 
 
 @pytest.mark.cuda
@@ -457,16 +479,17 @@ def test_cuda_kernel_matches_plain():
 @pytest.mark.parametrize("kind", ["f32", "bf16", "hilo"])
 def test_cuda_kernel_arms_match_plain(kind):
     # Every arm of the kernel -- certified or not, with step counts,
-    # double-buffered or not -- against the plain version: bit-equal.
+    # double-buffered or not -- against the plain version: bit-equal, at
+    # (group, block) (8, 32) (sweep_kernel) and, through the tiled
+    # kernel's clusters, (64, 128) and (64, 512): GL 4096, four tiles a
+    # super (the group-8 tables regrouped, chip_smoke.regroup_tables).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    import chip_smoke
     from trace_tpu_torch.models import mesh_heavy
 
     dev = torch.device("cuda")
     scene = mesh_heavy.build_scene(20_000, device=dev)
-    acc = scene.accel
-    panel = TS.panel_tensor(
-        TS.cast_panel(acc.tables.panel, kind == "bf16", kind == "hilo"), dev)
     rng = np.random.default_rng(42)
     o = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(np.float32))
     o[:, 1] = 6.0
@@ -474,25 +497,34 @@ def test_cuda_kernel_arms_match_plain(kind):
     d[:, 1] = -d[:, 1].abs()
     d = d / d.norm(dim=1, keepdim=True)
     o, d = o.to(dev), d.to(dev)
-    for any_hit, tm in ((False, float("inf")), (True, 8.0)):
-        t_max = torch.full((3000,), tm, device=dev)
-        perm = acc.coherence_order(o, d, t_max)
-        args = (*acc.prologue(o[perm], d[perm], t_max[perm]), panel,
-                acc.block_rays, any_hit)
-        for certified in (False, True):
-            pt, pi, ps = TS.sweep_plain(*args, certified=certified,
-                                        collect_stats=True)
-            for pipeline in (False, True):
-                kt, ki, ks = TS.sweep_kernel(*args, certified=certified,
-                                             collect_stats=True,
+    for group, block in ((8, 32), (64, 128), (64, 512)):
+        tb = scene.accel.tables if group == 8 else \
+            chip_smoke.regroup_tables(scene.accel.tables, group // 8)
+        acc = TS.SweepAccelerator(tb, dev, block_rays=block)
+        panel = TS.panel_tensor(
+            TS.cast_panel(tb.panel, kind == "bf16", kind == "hilo"), dev)
+        tiled = TS.sweep_kernel.tiled_launches
+        for any_hit, tm in ((False, float("inf")), (True, 8.0)):
+            t_max = torch.full((3000,), tm, device=dev)
+            perm = acc.coherence_order(o, d, t_max)
+            args = (*acc.prologue(o[perm], d[perm], t_max[perm]), panel,
+                    block, any_hit)
+            for certified in (False, True):
+                pt, pi, ps = TS.sweep_plain(*args, certified=certified,
+                                            collect_stats=True)
+                for pipeline in (False, True):
+                    kt, ki, ks = TS.sweep_kernel(*args, certified=certified,
+                                                 collect_stats=True,
+                                                 pipeline=pipeline)
+                    nt, ni = TS.sweep_kernel(*args, certified=certified,
                                              pipeline=pipeline)
-                nt, ni = TS.sweep_kernel(*args, certified=certified,
-                                         pipeline=pipeline)
-                torch.cuda.synchronize()
-                assert (ki >= 0).sum() > 100
-                for a, b in ((kt, pt), (ki, pi), (ks, ps), (nt, pt),
-                             (ni, pi)):
-                    assert torch.equal(a, b)
+                    torch.cuda.synchronize()
+                    assert (ki >= 0).sum() > 100
+                    for a, b in ((kt, pt), (ki, pi), (ks, ps), (nt, pt),
+                                 (ni, pi)):
+                        assert torch.equal(a, b)
+        assert TS.sweep_kernel.tiled_launches - tiled == (
+            0 if group == 8 else 16)
 
 
 @pytest.mark.cuda

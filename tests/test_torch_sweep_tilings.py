@@ -11,10 +11,12 @@ from_tables, attach), against the JAX package (trace_tpu.ops.sweep_pallas).
   contracts the K=3 dots, the port rounds every product), ids equal where
   the winning t is untied, and the supers swept (``collect_stats``) equal.
 - The tiled kernel's split of a super (csrc/sweep.cu::sweep_tiled_kernel)
-  modelled in PyTorch: column tiles, each split over column groups, every
-  group keeping the least t with strict '<' in column order, the groups
-  merged by (t, column); bit-equal to ``sweep_plain`` on tables whose every
-  hit ties with a twin in a later tile and another group.
+  modelled in PyTorch: a block's rays over a cluster of CTAs, column
+  tiles, each split over column groups in whole vectors, every group
+  keeping the least t with strict '<' in column order, the groups merged
+  by (t, column), the stop vote ORed across the cluster; bit-equal to
+  ``sweep_plain`` (t, slot and steps) on tables whose every hit ties with
+  a twin in a later tile and another group. A per-CTA vote is not.
 - The construction with the JAX package's keywords: the tables a
   ClusterAccel gives at group 64 equal JAX's, from_tables' defaults,
   attach against the scene's own sweep, ``sort_rays`` off, refusals.
@@ -170,11 +172,9 @@ def test_plain_prologue_at_group_64_matches_jax_lines(jx, terrain,
 # -- the tiled kernel's split, modelled ----------------------------------
 
 
-def _twin_tables(seed=61):
-    """Tables of GL 128 whose hits all tie across tiles and groups: columns
-    [64, 128) repeat [0, 64) (the padding of a 64-column super), and
-    columns 33-40 repeat 24-31 (tile 0's last group, twinned in tile 1's
-    second group at tiles of 32 columns and four groups)."""
+def _twin_mesh(seed=61):
+    """(verts [1200, 3], idx [400, 3]): 400 small random triangles in a
+    10-unit cube."""
     rng = np.random.default_rng(seed)
     nt = 400
     c = rng.uniform(-5, 5, (nt, 3)).astype(np.float32)
@@ -183,6 +183,15 @@ def _twin_tables(seed=61):
                            0).astype(np.float32)
     idx = np.stack([np.arange(nt), np.arange(nt) + nt,
                     np.arange(nt) + 2 * nt], -1)
+    return verts, idx
+
+
+def _twin_tables(seed=61):
+    """Tables of GL 128 whose hits all tie across tiles and groups: columns
+    [64, 128) repeat [0, 64) (the padding of a 64-column super), and
+    columns 33-40 repeat 24-31 (tile 0's last group, twinned in tile 1's
+    second group at tiles of 32 columns and four groups)."""
+    verts, idx = _twin_mesh(seed)
     tt = TTri.pack_triangle_mesh(TT.identity(), idx, verts)
     tb = TS.SweepTables(TC.build_clusters(tt, 16), 4)    # GL 64 -> 128
     panel = tb.panel.copy()
@@ -195,12 +204,19 @@ def _twin_tables(seed=61):
 
 
 def _sweep_tiled(rays, order, suffix, panel, block_rays, any_hit, tile,
-                 groups, certified=False):
-    """sweep_plain with each super's columns staged in tiles of ``tile``
-    and each tile split over ``groups`` slices, as sweep_tiled_kernel
-    splits them: every group keeps the least t over its slices (strict '<'
-    in column order: the earliest column among equal t), then per ray the
-    groups merge by (t, column)."""
+                 groups, certified=False, cluster=1, vec=1, vote="cluster"):
+    """sweep_plain with each block's rays in ``cluster`` sub-blocks (the
+    CTAs of csrc/sweep.cu::sweep_tiled_kernel's cluster), each super's
+    columns staged in tiles of ``tile`` and each tile split over
+    ``groups`` slices of whole ``vec``-column vectors, as the kernel
+    splits them: every group keeps the least t over its slices (strict
+    '<' in column order: the earliest column among equal t), then per ray
+    the groups merge by (t, column). ``vote``: "cluster" -- every
+    sub-block leaves at the first step where no lane of the block can
+    improve (the kernel's stop vote, ORed across the cluster); "cta" --
+    each sub-block leaves on its own lanes' vote. -> (t, slot, steps):
+    steps of each block's first sub-block (what the kernel's rank 0
+    writes)."""
     nb, n_supers = order.shape
     b = int(block_rays)
     gl = panel.shape[2]
@@ -210,13 +226,17 @@ def _sweep_tiled(rays, order, suffix, panel, block_rays, any_hit, tile,
     best_t = torch.full((nb, b), float("inf"))
     best_i = torch.full((nb, b), -1, dtype=torch.int32)
     big = torch.iinfo(torch.int32).max
-    live = torch.ones(nb, dtype=torch.bool)
+    live = torch.ones(nb, cluster, dtype=torch.bool)
+    steps = torch.zeros(nb, cluster, dtype=torch.int32)
     for s in range(n_supers):
         lane_limit = (torch.where(best_t <= t_lim, -float("inf"), t_lim)
                       if any_hit else torch.minimum(best_t, t_lim))
-        live &= (suffix[:, s, None] < lane_limit).any(dim=1)
+        cta = (suffix[:, s, None, None]
+               < lane_limit.reshape(nb, cluster, -1)).any(dim=2)
+        live &= cta.any(dim=1, keepdim=True) if vote == "cluster" else cta
         if not bool(live.any()):
             break
+        steps += live.to(torch.int32)
         sid = order[:, s].long()
         ok, t = TS._panel_test(r[:, :, :, None], panel[sid], certified,
                                err_eps)
@@ -225,9 +245,10 @@ def _sweep_tiled(rays, order, suffix, panel, block_rays, any_hit, tile,
         gt = torch.full((groups, nb, b), float("inf"))
         gk = torch.full((groups, nb, b), -1, dtype=torch.int32)
         for c0 in range(0, gl, tile):
-            tc = min(tile, gl - c0)
+            nv = min(tile, gl - c0) // vec
             for w in range(groups):
-                k0, k1 = c0 + w * tc // groups, c0 + (w + 1) * tc // groups
+                k0 = c0 + w * nv // groups * vec
+                k1 = c0 + (w + 1) * nv // groups * vec
                 if k0 == k1:
                     continue
                 tw = t[..., k0:k1]
@@ -243,19 +264,17 @@ def _sweep_tiled(rays, order, suffix, panel, block_rays, any_hit, tile,
             take = (gt[w] < mt) | ((gt[w] == mt) & (gk[w] < mk))
             mt, mk = torch.where(take, gt[w], mt), torch.where(take, gk[w],
                                                                mk)
-        better = live[:, None] & (mt < best_t)
+        lanes = live.repeat_interleave(b // cluster, dim=1)
+        better = lanes & (mt < best_t)
         best_t = torch.where(better, mt, best_t)
         best_i = torch.where(better, sid[:, None].to(torch.int32) * gl + mk,
                              best_i)
-    return best_t.reshape(-1), best_i.reshape(-1)
+    return best_t.reshape(-1), best_i.reshape(-1), steps[:, 0]
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
-@pytest.mark.parametrize("block_rays, tile, groups",
-                         [(32, 32, 16), (128, 32, 4), (128, 64, 4),
-                          (512, 128, 1), (96, 48, 5)])
-def test_tiled_split_merge_matches_plain_on_ties(block_rays, tile, groups,
-                                                 any_hit):
+def _tie_case(block_rays, any_hit):
+    """The twin tables and a sorted chunk's kernel inputs at
+    ``block_rays``: (tables, accelerator, (rays, order, suffix))."""
     tb = _twin_tables()
     acc = TS.SweepAccelerator(tb, "cpu", block_rays=block_rays)
     rng = np.random.default_rng(62)
@@ -266,19 +285,98 @@ def test_tiled_split_merge_matches_plain_on_ties(block_rays, tile, groups,
     t_max[::7] = -1.0
     ot, dt, tm = (torch.from_numpy(x) for x in (o, d, t_max))
     perm = acc.coherence_order(ot, dt, tm)
-    args = acc.prologue(ot[perm], dt[perm], tm[perm])
+    return tb, acc, acc.prologue(ot[perm], dt[perm], tm[perm])
+
+
+# (block_rays, tile, groups, cluster, vec): one-CTA splits, then
+# the cluster kernel's shapes (kernel_cluster: 4 CTAs of 32 rays x 16
+# groups at B 128; 8 of 64 x 8 or 16 of 32 x 16 at B 512; 4 columns a
+# vector).
+SPLITS = [(32, 32, 16, 1, 1), (128, 32, 4, 1, 1), (128, 64, 4, 1, 1),
+          (512, 128, 1, 1, 1), (96, 48, 5, 1, 1), (128, 64, 16, 4, 4),
+          (512, 128, 8, 8, 4), (512, 64, 16, 16, 4)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
+@pytest.mark.parametrize(
+    "block_rays, tile, groups, cluster, vec", SPLITS,
+    ids=[f"{b}-{t}-{g}" + (f"-c{c}" if c > 1 else "")
+         for b, t, g, c, _ in SPLITS])
+def test_tiled_split_merge_matches_plain_on_ties(block_rays, tile, groups,
+                                                 cluster, vec, any_hit):
+    tb, acc, args = _tie_case(block_rays, any_hit)
     for certified in (False, True):
-        pt, pi = TS.sweep_plain(*args, acc.panel, block_rays, any_hit,
-                                certified=certified)
-        st, si = _sweep_tiled(*args, acc.panel, block_rays, any_hit, tile,
-                              groups, certified=certified)
+        pt, pi, ps = TS.sweep_plain(*args, acc.panel, block_rays, any_hit,
+                                    certified=certified, collect_stats=True)
+        st, si, ss = _sweep_tiled(*args, acc.panel, block_rays, any_hit,
+                                  tile, groups, certified=certified,
+                                  cluster=cluster, vec=vec)
         assert torch.equal(st, pt) and torch.equal(si, pi)
+        assert torch.equal(ss, ps)
         found = pi >= 0
         assert int(found.sum()) > (20 if any_hit else 60)
         # Every hit has a twin in a later column: the earlier one wins.
         col = pi[found] % tb.gl_pad
         assert bool((col < 64).all()) and not bool(
             ((col >= 33) & (col < 41)).any())
+
+
+@pytest.mark.parametrize("block_rays, cluster", [(128, 4), (512, 8)])
+def test_cluster_stop_vote_must_be_cluster_wide(block_rays, cluster):
+    # Any-hit, unsorted blocks: every CTA but the last aims its rays along
+    # the normals of super 0's triangles from 2.5 units away; the last
+    # CTA's rays point away from the mesh and never hit, so each block
+    # goes on (their limit stays t_max) after the others' lanes have all
+    # hit. A CTA stopping on its own lanes would keep their first hits,
+    # where the block's walk lowers some t, and its rank-0 steps would not
+    # be the block's.
+    verts, idx = _twin_mesh()
+    tb = _twin_tables()
+    acc = TS.SweepAccelerator(tb, "cpu", block_rays=block_rays)
+    tri = verts[idx]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    first = tb.slot_to_tri[:tb.gl_pad]
+    rng = np.random.default_rng(63)
+    n = 2 * block_rays
+    pick = rng.choice(np.unique(first[first >= 0]), n)
+    u = nrm[pick] * np.where(rng.random(n) < 0.5, -1.0, 1.0)[:, None]
+    o, d = tri.mean(axis=1)[pick] + 2.5 * u, -u
+    away = (np.arange(n) % block_rays) >= block_rays - block_rays // cluster
+    o[away], d[away] = 20.0, 1.0 / np.sqrt(3.0)
+    args = acc.prologue(*(torch.from_numpy(x.astype(np.float32)) for x in (
+        o, d, np.full(n, 6.0))))
+    pt, pi, ps = TS.sweep_plain(*args, acc.panel, block_rays, True,
+                                collect_stats=True)
+    split = dict(tile=64, groups=512 * cluster // block_rays,
+                 cluster=cluster, vec=4)
+    st, si, ss = _sweep_tiled(*args, acc.panel, block_rays, True, **split)
+    assert torch.equal(st, pt) and torch.equal(si, pi) and torch.equal(ss, ps)
+    assert int((pi >= 0).sum()) == int((~away).sum())
+    ct, ci, cs = _sweep_tiled(*args, acc.panel, block_rays, True, vote="cta",
+                              **split)
+    assert not torch.equal(ct, pt) and not torch.equal(cs, ps)
+
+
+def test_kernel_cluster_shapes():
+    # The cluster the tiled kernel launches for each served block: a power
+    # of two dividing B / 32 (at most KERNEL_MAX_CLUSTER), whole warps of
+    # rays a CTA, at most 512 threads.
+    assert TS.kernel_cluster(32) == (1, 32, 16)
+    assert TS.kernel_cluster(128) == (4, 32, 16)
+    assert TS.kernel_cluster(512) == (TS.KERNEL_MAX_CLUSTER,
+                                      512 // TS.KERNEL_MAX_CLUSTER,
+                                      TS.KERNEL_MAX_CLUSTER)
+    assert TS.kernel_cluster(96) == (1, 96, 5)
+    assert TS.kernel_cluster(384) == (4, 96, 5)
+    for k in range(1, 17):
+        c, cta, groups = TS.kernel_cluster(32 * k)
+        assert c * cta == 32 * k and cta % 32 == 0 and (c & (c - 1)) == 0
+        assert c <= TS.KERNEL_MAX_CLUSTER and cta * groups <= 512
+        assert groups == 512 // cta
+    for bad in (16, 48, 544):
+        with pytest.raises(ValueError):
+            TS.kernel_cluster(bad)
 
 
 # -- the public construction ----------------------------------------------

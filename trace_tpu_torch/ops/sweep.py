@@ -21,8 +21,9 @@ Options, as in the JAX package (all off by default):
   bf16, or as an f32(hi) + f32(lo) pair of bf16 rows; the certified
   bound widens to match (``err_eps``).
 - ``collect_stats``: the number of supers each block swept.
-- ``pipeline``: the kernel copies the next super's panel while it tests
-  the current one (same results, bit for bit).
+- ``pipeline``: the 32-ray kernel copies the next super's panel while it
+  tests the current one (same results, bit for bit); the tiled kernel's
+  ring of bulk copies always does, so the flag only names its arm there.
 """
 from __future__ import annotations
 
@@ -49,16 +50,17 @@ INF = float("inf")
 BF16_PANEL_ERR_EPS = 1.25 * 2.0 ** -9
 HILO_PANEL_ERR_EPS = 2.0 ** -17
 
-# The CUDA kernel's CTA (csrc/sweep.cu's kWarps, kBlockRays, kMaxBlockRays,
-# kTileCols): a block of B = 32k rays, 1 <= k <= 16, runs 16 / k column
-# groups of B threads, a thread a ray; at B = KERNEL_BLOCK_RAYS SWEEP_WARPS
-# warps serve the block. A super's panel is staged whole at B = 32 when it
-# has at most KERNEL_TILE_COLS columns, else in tiles of that many. The
-# plain version takes any block.
+# The CUDA kernels' shapes (csrc/sweep.cu's kWarps, kBlockRays,
+# kMaxBlockRays, kTileCols, kMaxCluster): sweep_kernel serves B = 32 rays
+# with SWEEP_WARPS warps when a super's panel has at most KERNEL_TILE_COLS
+# columns; sweep_tiled_kernel serves every other block of B = 32k rays, 1
+# <= k <= 16, over a cluster of CTAs (kernel_cluster), staging each super
+# in tiles of KERNEL_TILE_COLS columns. The plain version takes any block.
 SWEEP_WARPS = 16
 KERNEL_BLOCK_RAYS = 32
 KERNEL_MAX_BLOCK_RAYS = SWEEP_WARPS * KERNEL_BLOCK_RAYS
 KERNEL_TILE_COLS = 1024
+KERNEL_MAX_CLUSTER = 8
 
 
 def kernel_serves(block_rays: int) -> bool:
@@ -73,6 +75,24 @@ def kernel_tiled(block_rays: int, gl: int) -> bool:
     """Whether a launch takes the tiled kernel (any block but 32, or a
     panel wider than KERNEL_TILE_COLS columns)."""
     return int(block_rays) != KERNEL_BLOCK_RAYS or gl > KERNEL_TILE_COLS
+
+
+def kernel_cluster(block_rays: int) -> tuple:
+    """The tiled kernel's cluster for a block of ``block_rays`` rays (a
+    mirror of csrc/sweep.cu's cluster_of): (CTAs C, rays a CTA, column
+    groups a CTA). C is the largest power of two, at most
+    KERNEL_MAX_CLUSTER, that divides block_rays / 32; each CTA holds
+    block_rays / C rays, a thread a ray, in 512 // (block_rays / C)
+    column groups."""
+    if not kernel_serves(block_rays):
+        raise ValueError(f"block_rays {block_rays}: the kernel serves 32k, "
+                         f"1 <= k <= 16")
+    k = int(block_rays) // KERNEL_BLOCK_RAYS
+    c = 1
+    while 2 * c <= KERNEL_MAX_CLUSTER and k % (2 * c) == 0:
+        c *= 2
+    cta = int(block_rays) // c
+    return c, cta, KERNEL_MAX_BLOCK_RAYS // cta
 
 
 def bf16_bits(x: np.ndarray) -> np.ndarray:
@@ -371,12 +391,26 @@ class SweepKernel:
         self.tiled_launches = 0
         self.arm_launches.clear()
 
+    def tiled_shape(self, block_rays: int, kind: str = "f32") -> dict:
+        """The tiled kernel's launch shape, as the CUDA library computes
+        it (builds the library): cluster CTAs, rays a CTA, column groups
+        and dynamic shared memory bytes a CTA."""
+        fn = self.lib.function("sweep_tiled_shape", [
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+        out = (ctypes.c_int * 4)()
+        if fn(int(block_rays), _KIND_CODE[kind], out) != 0:
+            raise ValueError(f"sweep kernel: block_rays {block_rays}")
+        return dict(zip(("cluster", "cta_rays", "groups", "smem_bytes"),
+                        out))
+
     def __call__(self, rays, order, suffix, panel, block_rays: int,
                  any_hit: bool, certified: bool = False,
                  err_eps: float | None = None, collect_stats: bool = False,
                  pipeline: bool = False):
         """Same contract as :func:`sweep_plain`, on CUDA tensors;
-        ``pipeline`` double-buffers the panel copy (same results)."""
+        ``pipeline`` double-buffers the panel copy of the 32-ray kernel
+        (same results; the tiled kernel always stages through its ring).
+        A launch the card refuses (e.g. no cluster that fits) raises."""
         nb, n_supers = order.shape
         kind = _panel_kind(panel)
         if err_eps is None:
@@ -604,9 +638,10 @@ class SweepAccelerator:
     ``accel``: a ClusterAccel, packed here into SweepTables of ``group``
     clusters a super (8 when None) with ``panel_bf16`` / ``panel_hilo``;
     or SweepTables packed elsewhere (then ``group`` and the panel options
-    must be left unset). ``block_rays``: rays per kernel block (one CTA):
-    32k with 1 <= k <= 16 on a card, any on the CPU. The port's default is
-    32 (the JAX package's 512: ROADMAP §C). ``ray_chunk``: rays per
+    must be left unset). ``block_rays``: rays per kernel block (one CTA
+    at 32, a cluster of CTAs above: :func:`kernel_cluster`): 32k with 1
+    <= k <= 16 on a card, any on the CPU. The port's default is 32 (the
+    JAX package's 512: ROADMAP §C). ``ray_chunk``: rays per
     launch. ``sort_rays``: coherence-sort the rays first (so each block
     enters few supers). ``certified``, ``pipeline``, ``collect_stats``:
     the sweep's options (module docstring); with ``collect_stats`` every
