@@ -36,7 +36,7 @@ def test_every_module_is_listed():
 SCRIPTS = ["chip_smoke.py", "scripts/torch_sweep_launches.py",
            "scripts/torch_sweep_warps.py", "scripts/torch_intersect_tiles.py",
            "scripts/torch_walk_calls.py", "scripts/torch_sweep_tilings.py",
-           "scripts/torch_config6_leg.py"]
+           "scripts/torch_config6_leg.py", "scripts/torch_frame_spans.py"]
 
 
 def _assert_no_jax_imports(path):

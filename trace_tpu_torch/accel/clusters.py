@@ -29,8 +29,9 @@ import torch
 
 from ..shapes import triangle as tri_mod
 from ..wavefront.geom import _watertight
-from ..core.sync import sync_free
+from ..core.sync import any_on_host, sync_free
 from ..core.vec import V3
+from ..utils.stats import span, spanned
 from . import mxu as mxu_mod
 from . import native
 
@@ -304,7 +305,7 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
     c = accel.c_lo.shape[0]
     g = accel.super_size
     dev = o.device
-    if not certified and not sync_free() and not bool((t_max >= 0).any()):
+    if not certified and not sync_free() and not any_on_host(t_max >= 0):
         # No lane can hit (the plain epilogue's t is > 0, and a hit needs
         # t < t_max): every lane gives what the sweep gives it, without
         # the [N, C] entry table.
@@ -356,7 +357,8 @@ def traverse(accel: ClusterAccel, o, d, t_max, stage_clusters: int = 64,
             # Only the lanes not done (the stage's one host read): each
             # lane's test reads its own row alone, so the result is the
             # same as testing every lane.
-            lane = (~done).nonzero().squeeze(1)
+            with span("host_read"):
+                lane = (~done).nonzero().squeeze(1)
             if lane.numel() == 0:
                 break
             limit = torch.minimum(best_t[lane], t_max[lane])
@@ -465,6 +467,7 @@ class ClusterAccelerator:
         return traverse(self.dev_clusters, o, d, t_max, self.stage_clusters,
                         any_hit, certified=self.certified, stats=self.stats)
 
+    @spanned("intersect")
     def intersect(self, o, d, t_max, any_hit: bool):
         """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32)."""
         if o.shape[0] <= self.ray_chunk:

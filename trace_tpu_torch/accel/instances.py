@@ -77,6 +77,7 @@ from ..core.sync import static_route, sync_free
 from ..core.vec import V3
 from ..shapes import sphere as sph_mod
 from ..shapes import triangle as tri_mod
+from ..utils.stats import span, spanned
 from ..wavefront import geom as G
 from .clusters import entry_boxes
 
@@ -184,6 +185,7 @@ class _Instanced:
     def _load_base(self, dev) -> None:
         raise NotImplementedError
 
+    @spanned("intersect")
     def traverse(self, o: V3, d: V3, t_max, any_hit: bool = False):
         """(hit [N], t [N], element [N] i32, instance [N] i32)."""
         return sweep_instances(self, o, d, t_max, any_hit)
@@ -384,7 +386,8 @@ def sweep_instances(geom, o: V3, d: V3, t_max, any_hit: bool = False,
     t = torch.full((n,), INF, dtype=F32, device=dev)
     elem = torch.zeros((n,), dtype=torch.int32, device=dev)
     inst = torch.zeros((n,), dtype=torch.int32, device=dev)
-    live = (t_max >= 0).nonzero().squeeze(1)
+    with span("host_read"):
+        live = (t_max >= 0).nonzero().squeeze(1)
     if live.numel() == 0:
         return hit, t, elem, inst
     pick = lambda v: V3(v.x[live], v.y[live], v.z[live])
@@ -440,7 +443,8 @@ def _walk_chunk(geom, o: V3, d: V3, t_max, entry_p, perm, any_hit: bool,
                         torch.full_like(entry_p[:, :1], INF)], 1)
     done = torch.zeros(t_max.shape, dtype=torch.bool, device=t_max.device)
     for r0 in range(0, n_i, g):
-        lanes = (~done).nonzero().squeeze(1)         # a host read
+        with span("host_read"):
+            lanes = (~done).nonzero().squeeze(1)
         if lanes.numel() == 0:
             break
         geom.groups_visited += 1
@@ -450,8 +454,9 @@ def _walk_chunk(geom, o: V3, d: V3, t_max, entry_p, perm, any_hit: bool,
         bt = best_t[lanes]
         lim = torch.minimum(bt, tm)
         ent = entry_p[lanes, r0:r1]
-        pa, pk = (torch.isfinite(ent) & (ent <= lim[:, None])).nonzero(
-            as_tuple=True)                           # a host read
+        with span("host_read"):
+            pa, pk = (torch.isfinite(ent) & (ent <= lim[:, None])).nonzero(
+                as_tuple=True)
         t_g = torch.full(ent.shape, INF, dtype=F32, device=ent.device)
         e_g = torch.zeros(ent.shape, dtype=torch.int32, device=ent.device)
         if pa.numel():

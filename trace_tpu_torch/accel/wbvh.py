@@ -27,6 +27,7 @@ import torch
 from ..core.vec import V3
 from ..shapes import triangle as tri_mod
 from ..ops.bvh_walk import LIMITS, STACK_CAP, walk_kernel
+from ..utils.stats import spanned
 from ..wavefront.geom import _watertight
 from .bvh import LinearBVH, build_bvh
 from .clusters import sorted_chunks
@@ -283,6 +284,7 @@ class TreeWalk:
         return walk(self.nodes, self.tris, o, d, t_max, any_hit=any_hit,
                     limit=self.limit, stack_depth=self.stack_depth)
 
+    @spanned("intersect")
     def intersect(self, o, d, t_max, any_hit: bool):
         """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32)."""
         t, i = sorted_chunks(o, d, t_max, self.world_lo,

@@ -23,6 +23,8 @@ import contextvars
 
 import torch
 
+from ..utils.stats import span
+
 _ROUTE = contextvars.ContextVar("static_route", default=None)
 _CONSTANTS = {}
 
@@ -58,6 +60,12 @@ def no_host_reads(route: StaticRoute | None = None):
         yield
     finally:
         _ROUTE.reset(token)
+
+
+def any_on_host(mask: torch.Tensor) -> bool:
+    """``bool(mask.any())``: one host read, in a ``host_read`` span."""
+    with span("host_read"):
+        return bool(mask.any())
 
 
 def device_constant(values, dtype, device) -> torch.Tensor:

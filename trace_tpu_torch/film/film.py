@@ -20,6 +20,7 @@ import torch
 
 from ..core import spectrum as spec
 from ..core.math import scatter_add
+from ..utils.stats import spanned
 from .filters import LanczosSincFilter, weights
 
 F32 = torch.float32
@@ -96,6 +97,7 @@ class Film:
         step = r / np.float32(FILTER_TABLE_WIDTH)
         return [float(v) for v in inv_r], [float(v) for v in step]
 
+    @spanned("film.splat")
     def add_samples(self, state: FilmState, p_film, L_rgb, sample_weight,
                     valid=None) -> FilmState:
         """Scatter N samples over their filter footprints (film.jl:134-164).
@@ -150,6 +152,7 @@ class Film:
                              wf).reshape(state.weight_sum.shape)
         return FilmState(new_xyz, new_ws, state.splat_xyz)
 
+    @spanned("film.splat")
     def add_samples_grid(self, state: FilmState, p_film, L_rgb,
                          sample_weight, origin, grid_hw,
                          valid=None) -> FilmState:

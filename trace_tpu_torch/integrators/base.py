@@ -30,6 +30,7 @@ from ..film.film import FilmState
 from ..lights.lights import num_lights
 from ..sampler import uniform as U
 from ..sampler.uniform import UniformSampler
+from ..utils.stats import count, span, spanned
 from . import common
 from .common import sanitize_radiance
 
@@ -100,16 +101,19 @@ class SamplerIntegrator:
         share in parallel.render) draws what the whole grid draws there.
         -> (p_film [N, 2], sanitized radiance [N, 3], weight [N], aux)."""
         spp = self.sampler.samples_per_pixel
-        ks = U.lane_keys(U.fold_in(base_key, s), ids)
-        p_film, u_lens, u_time = U.get_camera_samples_lanes(
-            U.fold_lanes(ks, 0), pixels)
-        p_film = pix_f + lo[s] + (p_film - pix_f) * scale[s]
-        rd, weight = self.camera.generate_ray_differentials(
-            p_film, u_lens, u_time)
-        rd = scale_differentials(rd, float(np.float32(1.0 / np.sqrt(spp))))
+        with span("camera"):
+            ks = U.lane_keys(U.fold_in(base_key, s), ids)
+            p_film, u_lens, u_time = U.get_camera_samples_lanes(
+                U.fold_lanes(ks, 0), pixels)
+            p_film = pix_f + lo[s] + (p_film - pix_f) * scale[s]
+            rd, weight = self.camera.generate_ray_differentials(
+                p_film, u_lens, u_time)
+            rd = scale_differentials(rd,
+                                     float(np.float32(1.0 / np.sqrt(spp))))
         l, aux = self.li(scene, rd, U.fold_lanes(ks, 1))
         return p_film, sanitize_radiance(l), weight, aux
 
+    @spanned("render")
     def render(self, scene, geometry=None, geometry_transform=None,
                geometry_accel=None) -> FilmState:
         """Render ``scene`` in chunks of ``pixel_chunk`` lanes (module
@@ -143,32 +147,38 @@ class SamplerIntegrator:
         useful = torch.zeros((), dtype=torch.int64, device=dev)
         chunk = min(self.pixel_chunk, n)
         for start in range(0, n, chunk):
-            part, p_ids, valid = pixels[start:start + chunk], None, None
-            if chunk < n:
-                p_ids = ids[start:start + chunk]
-                valid = torch.ones(chunk, dtype=torch.bool, device=dev)
-                pad = chunk - part.shape[0]
-                if pad:   # the tail: lanes at pixel (0, 0), invalid
-                    zeros = part.new_zeros((pad, 2))
-                    part = torch.cat([part, zeros])
-                    p_ids = torch.cat([p_ids, U.pixel_ids(zeros)])
-                    valid[chunk - pad:] = False
-            pix_f = part.to(F32)
-            for s in range(spp):
-                p_film, l, weight, aux = self.sample(
-                    scene, part, pix_f, ids if p_ids is None else p_ids,
-                    base_key, s, lo, scale)
-                if valid is None:
-                    state = film.add_samples_grid(state, p_film, l, weight,
-                                                  (x0, y0), grid_hw)
-                else:
-                    state = film.add_samples(
-                        state, p_film, torch.where(valid[:, None], l, 0.0),
-                        torch.where(valid, weight, 0.0), valid=valid)
-                drops = drops + aux["queue_drops"]
-                useful = useful + aux["useful_rays"]
-        self.last_queue_drops = int(drops)
-        self.last_useful_rays = int(useful)
+            with span("chunk"):
+                part, p_ids, valid = pixels[start:start + chunk], None, None
+                if chunk < n:
+                    p_ids = ids[start:start + chunk]
+                    valid = torch.ones(chunk, dtype=torch.bool, device=dev)
+                    pad = chunk - part.shape[0]
+                    if pad:   # the tail: lanes at pixel (0, 0), invalid
+                        zeros = part.new_zeros((pad, 2))
+                        part = torch.cat([part, zeros])
+                        p_ids = torch.cat([p_ids, U.pixel_ids(zeros)])
+                        valid[chunk - pad:] = False
+                count("chunk_lanes_issued", chunk)
+                count("chunk_lanes_valid", min(chunk, n - start))
+                pix_f = part.to(F32)
+                for s in range(spp):
+                    p_film, l, weight, aux = self.sample(
+                        scene, part, pix_f, ids if p_ids is None else p_ids,
+                        base_key, s, lo, scale)
+                    if valid is None:
+                        state = film.add_samples_grid(
+                            state, p_film, l, weight, (x0, y0), grid_hw)
+                    else:
+                        state = film.add_samples(
+                            state, p_film,
+                            torch.where(valid[:, None], l, 0.0),
+                            torch.where(valid, weight, 0.0), valid=valid)
+                    drops = drops + aux["queue_drops"]
+                    useful = useful + aux["useful_rays"]
+        with span("host_read"):
+            self.last_queue_drops = int(drops)
+        with span("host_read"):
+            self.last_useful_rays = int(useful)
         if self.stats is not None:
             self.stats.stop("render")
             self.stats.add("specular_queue_drops", self.last_queue_drops)

@@ -39,6 +39,7 @@ from ..accel.mxu import MXUAccelerator
 from ..accel.wbvh import WBVHAccelerator
 from ..ops.intersect import IntersectAccelerator
 from ..ops.sweep import SweepAccelerator
+from ..utils.stats import spanned
 
 # The accelerators whose routes read nothing on the host under
 # no_host_reads.
@@ -123,6 +124,7 @@ class _Block:
             capture_ms=(time.perf_counter() - t1) * 1e3,
             launches={k: after[k] - before[k] for k in after})
 
+    @spanned("sppm.replay")
     def replay(self, state, it: int):
         for f in fields(state):
             getattr(self.state, f.name).copy_(getattr(state, f.name))

@@ -63,6 +63,7 @@ from ..core.sync import StaticRoute, no_host_reads
 from ..core.vec import V3
 from ..lights import lights as light_mod
 from ..sampler import uniform as U
+from ..utils.stats import span, spanned
 from ..wavefront import path as WP
 from ..wavefront import shade as S
 from . import common
@@ -266,6 +267,7 @@ class SPPMIntegrator:
 
     # -- phase 1: camera pass ------------------------------------------------
 
+    @spanned("sppm.camera_pass")
     def _camera_pass_all(self, scene, pixels, it_key):
         """Every pixel chunk -> (ld_add [P, 3], VisiblePoints)."""
         from ..wavefront import sppm_camera
@@ -330,6 +332,7 @@ class SPPMIntegrator:
 
     # -- phase 3: photon walk ------------------------------------------------
 
+    @spanned("sppm.photon_walk")
     def _photon_walk_all(self, scene, halton_base, light_cdf, light_pmf,
                          grid: dict) -> dict:
         """Every photon chunk -> splat records: dict of p, d, beta [S, 3],
@@ -448,6 +451,7 @@ class SPPMIntegrator:
 
     # -- phase 5: pixel update and image -------------------------------------
 
+    @spanned("sppm.update")
     def _update_pixels(self, state: SPPMState, ld_add) -> SPPMState:
         has = state.m > 0
         mf = state.m.to(F32)
@@ -619,7 +623,8 @@ class SPPMIntegrator:
                                           light_pmf, grid)
         counts = splat["count"]
         offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-        total = int(counts.sum())
+        with span("host_read"):
+            total = int(counts.sum())
         if self.mesh is not None:
             phi, m_cnt = self._pair_loop_sharded(
                 state.phi, state.m, total, offsets, splat, vp, state.radius,
@@ -704,7 +709,8 @@ class SPPMIntegrator:
                 scene, state, n_iters, it0, pixels, key, light_cdf,
                 light_pmf, k)
         self.last_pair_totals = totals
-        most, *pairs = torch.cat([totals.max()[None], over]).tolist()
+        with span("host_read"):
+            most, *pairs = torch.cat([totals.max()[None], over]).tolist()
         caps = self.fused_pair_capacity
         overflow = False
         for g, need in zip(scene.instanced, pairs):
@@ -759,8 +765,12 @@ class SPPMIntegrator:
 
     def _count(self, vp, grid, splat, total, n_pix) -> None:
         sc = grid["sorted_cells"]
-        occupied = int(((sc[1:] != sc[:-1]) & (sc[1:] < self.n_pixels)).sum()
-                       ) + int(sc[0] < self.n_pixels)
+        with span("host_read"):
+            occupied, visible, records = torch.stack([
+                ((sc[1:] != sc[:-1]) & (sc[1:] < self.n_pixels)).sum()
+                + (sc[0] < self.n_pixels),
+                (vp.valid & ~(vp.beta == 0.0).all(-1)).sum(),
+                (splat["count"] > 0).sum()]).tolist()
         add = {
             "photons_traced": self.photons_per_iteration,
             "photon_vp_pairs": total,
@@ -768,9 +778,8 @@ class SPPMIntegrator:
             "rays_dispatched": (n_pix * self.max_depth * 2
                                 + self.photons_per_iteration * self.max_depth),
             "grid_cells_occupied": occupied,
-            "visible_points": int((vp.valid
-                                   & ~(vp.beta == 0.0).all(-1)).sum()),
-            "splat_records": int((splat["count"] > 0).sum()),
+            "visible_points": visible,
+            "splat_records": records,
         }
         for k, v in add.items():
             self.stats.add(k, v)

@@ -30,6 +30,7 @@ from __future__ import annotations
 import collections
 import copy
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -38,6 +39,7 @@ from ..accel.clusters import (ClusterAccel, build_clusters, entry_boxes,
                               refit_clusters, sort_key)
 from ..accel.mxu import MT_ERR_EPS, mt_epilogue, mt_epilogue_certified
 from ..core.sync import sync_free
+from ..utils.stats import count, span
 from .nvcc import CudaLibrary, check_tensors
 
 F32 = torch.float32
@@ -795,14 +797,24 @@ class SweepAccelerator:
     def live_chunks(self, t_max) -> list:
         """The starts of the chunks of ``t_max`` (in launch order) that hold
         a lane the kernels treat as live: t_max >= 0 or NaN (pad_rays sends
-        +inf and NaN to 3e38, -inf to -1). One host read."""
+        +inf and NaN to 3e38, -inf to -1). One host read, of each chunk's
+        live lane count; their sum is the counter ``sweep_lanes_live``
+        (utils/stats.py)."""
         live = ~(t_max < 0)
         n, c = t_max.shape[0], self.ray_chunk
         pad = (-n) % c
         if pad:
             live = torch.cat([live, live.new_zeros(pad)])
-        flags = live.reshape(-1, c).any(dim=1).tolist()
-        return [i * c for i, f in enumerate(flags) if f]
+        # Counted on the card in groups of g lanes, a byte a group (no lane
+        # is widened: the one reduction kernel and the memory of .any()),
+        # then over the groups on the host.
+        g = math.gcd(c, 128)
+        groups = live.view(torch.uint8).reshape(-1, c // g, g).sum(
+            2, dtype=torch.uint8)
+        with span("host_read"):
+            lanes = groups.cpu().numpy().sum(1).tolist()
+        count("sweep_lanes_live", sum(lanes))
+        return [i * c for i, k in enumerate(lanes) if k]
 
     def intersect(self, o, d, t_max, any_hit: bool):
         """Rays o, d [N, 3], t_max [N] -> (hit [N], t [N], tri [N] i32).
@@ -815,28 +827,34 @@ class SweepAccelerator:
         -- hit false, t +inf and the triangle of slot 0 -- and count in
         ``skipped_chunks``. In the sync-free mode (core/sync.py) every
         chunk launches, with no host read: a chunk with no live lane gives
-        the same result."""
-        n = o.shape[0]
-        perm = None
-        if self.sort_rays:
-            perm = self.coherence_order(o, d, t_max)
-            o, d, t_max = o[perm], d[perm], t_max[perm]
-        c = self.ray_chunk
-        hit = torch.zeros(n, dtype=torch.bool, device=o.device)
-        t = torch.full((n,), INF, dtype=F32, device=o.device)
-        idx = self.slot_to_tri[0].clamp_min(0).to(torch.int32).expand(
-            n).clone()
-        starts = (range(0, n, c) if sync_free() else
-                  self.live_chunks(t_max))
-        self.skipped_chunks += -(-n // c) - len(starts)
-        for s in starts:
-            hit[s:s + c], t[s:s + c], idx[s:s + c] = self._traverse_chunk(
-                o[s:s + c], d[s:s + c], t_max[s:s + c], any_hit)
-        if perm is None:
-            return hit, t, idx
-        inv = torch.empty_like(perm)
-        inv[perm] = torch.arange(n, device=perm.device)
-        return hit[inv], t[inv], idx[inv]
+        the same result. Counters (utils/stats.py): ``sweep_launches``
+        (chunks launched, a prologue and a sweep each),
+        ``sweep_lanes_launched`` (their rays) and, outside the sync-free
+        mode only (it reads nothing there), ``sweep_lanes_live``."""
+        with span("intersect"):
+            n = o.shape[0]
+            perm = None
+            if self.sort_rays:
+                perm = self.coherence_order(o, d, t_max)
+                o, d, t_max = o[perm], d[perm], t_max[perm]
+            c = self.ray_chunk
+            hit = torch.zeros(n, dtype=torch.bool, device=o.device)
+            t = torch.full((n,), INF, dtype=F32, device=o.device)
+            idx = self.slot_to_tri[0].clamp_min(0).to(torch.int32).expand(
+                n).clone()
+            starts = (range(0, n, c) if sync_free() else
+                      self.live_chunks(t_max))
+            self.skipped_chunks += -(-n // c) - len(starts)
+            count("sweep_launches", len(starts))
+            count("sweep_lanes_launched", sum(min(c, n - s) for s in starts))
+            for s in starts:
+                hit[s:s + c], t[s:s + c], idx[s:s + c] = self._traverse_chunk(
+                    o[s:s + c], d[s:s + c], t_max[s:s + c], any_hit)
+            if perm is None:
+                return hit, t, idx
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(n, device=perm.device)
+            return hit[inv], t[inv], idx[inv]
 
 
 def attach(scene, leaf_tris: int = 64, group: int = 8,

@@ -23,7 +23,7 @@ import torch
 
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS, scale_differentials
-from ..core.sync import sync_free
+from ..core.sync import any_on_host, sync_free
 from ..core.vec import V3
 from ..sampler import uniform as U
 from . import geom as G
@@ -155,7 +155,7 @@ def camera_pass_body(integ, scene, pixels, lane_valid, key):
         ) + (torch.where(make_vp, lobes.eta, vp_frame[4]),)
         active = live & ~make_vp
         if depth == integ.max_depth or (
-                not sync_free() and not bool(active.any())):
+                not sync_free() and not any_on_host(active)):
             break
 
         u0, u1 = WW.uniform2(U.fold_lanes(k_depth, 1))

@@ -22,7 +22,7 @@ import torch
 
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS
-from ..core.sync import sync_free
+from ..core.sync import any_on_host, sync_free
 from ..sampler import halton as H
 from . import lights as WL
 from . import materials as WM
@@ -75,7 +75,7 @@ def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
     zero_i = torch.zeros((c,), dtype=torch.int32, device=dev)
     levels = []
     for depth in range(1, depth_max + 1):
-        if depth > 1 and not sync_free() and not bool(active.any()):
+        if depth > 1 and not sync_free() and not any_on_host(active):
             levels += [(zero3, zero3, zero3, zero_i, zero_i)] * (
                 depth_max + 1 - depth)
             break

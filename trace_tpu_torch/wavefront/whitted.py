@@ -38,6 +38,7 @@ from ..core import vec as V
 from ..core.ray import SPAWN_EPS
 from ..core.vec import V3
 from ..sampler import uniform as U
+from ..utils.stats import span
 from . import geom as G
 from . import lights as WL
 from . import materials as WM
@@ -336,55 +337,62 @@ def li(scene, rd, key, max_depth: int = 5, level_caps=None,
         q_rd = _ray_of(queue)
         beta = V3(queue["br"], queue["bg"], queue["bb"])
         active = queue["active"]
-        hit = closest_hit(scene, q_rd.o, q_rd.d, q_rd.t_max, q_rd.time,
-                          live=active)
+        with span("closest_hit"):
+            hit = closest_hit(scene, q_rd.o, q_rd.d, q_rd.t_max, q_rd.time,
+                              live=active)
         valid = active & hit.valid
         useful = useful + active.sum() + n_lights * valid.sum()
         hit = hit._replace(valid=valid)
-        if sort_materials:
-            order = torch.argsort(torch.where(valid, hit.material_id,
-                                              1 << 30), stable=True)
-            hit = G.HitP(*[V3(x.x[order], x.y[order], x.z[order])
-                           if isinstance(x, V3) else x[order] for x in hit])
-            queue = V.tree_gather(queue, order)
-            k_depth = k_depth[order]
-            q_rd = _ray_of(queue)
-            beta = V3(queue["br"], queue["bg"], queue["bb"])
-            active, valid = queue["active"], hit.valid
-        hit = G.compute_differentials(hit, q_rd)
-        lobes = WM.compute_scattering(scene.materials, hit)
-
-        contrib = WL.area_light_radiance(scene, hit, hit.wo)
-        contrib = contrib + sum_over_lights(scene, hit, lobes,
-                                            U.fold_lanes(k_depth, 0))
-        contrib = V.where(valid, sanitize(beta * contrib), 0.0)
-        if scene.env is not None:
-            # A lane either shades or escapes, so one add holds both.
-            bg = sanitize(beta * WL.env_le(scene, q_rd.d))
-            contrib = V.where(active & ~valid, bg, contrib)
-        c_pack = torch.stack([contrib.x, contrib.y, contrib.z], dim=1)
-        rank = queue["path"] - ((1 << (depth - 1)) - 1)
-        for r in range(1 << (depth - 1)):
-            l_buf.index_add_(0, queue["slot"],
-                             torch.where((rank == r)[:, None], c_pack, 0.0))
+        with span("shade"):
+            if sort_materials:
+                order = torch.argsort(torch.where(valid, hit.material_id,
+                                                  1 << 30), stable=True)
+                hit = G.HitP(*[V3(x.x[order], x.y[order], x.z[order])
+                               if isinstance(x, V3) else x[order]
+                               for x in hit])
+                queue = V.tree_gather(queue, order)
+                k_depth = k_depth[order]
+                q_rd = _ray_of(queue)
+                beta = V3(queue["br"], queue["bg"], queue["bb"])
+                active, valid = queue["active"], hit.valid
+            hit = G.compute_differentials(hit, q_rd)
+            lobes = WM.compute_scattering(scene.materials, hit)
+            contrib = WL.area_light_radiance(scene, hit, hit.wo)
+        with span("direct_light"):
+            contrib = contrib + sum_over_lights(scene, hit, lobes,
+                                                U.fold_lanes(k_depth, 0))
+        with span("accumulate"):
+            contrib = V.where(valid, sanitize(beta * contrib), 0.0)
+            if scene.env is not None:
+                # A lane either shades or escapes, so one add holds both.
+                bg = sanitize(beta * WL.env_le(scene, q_rd.d))
+                contrib = V.where(active & ~valid, bg, contrib)
+            c_pack = torch.stack([contrib.x, contrib.y, contrib.z], dim=1)
+            rank = queue["path"] - ((1 << (depth - 1)) - 1)
+            for r in range(1 << (depth - 1)):
+                l_buf.index_add_(0, queue["slot"],
+                                 torch.where((rank == r)[:, None], c_pack,
+                                             0.0))
 
         if depth == max_depth:
             break  # children of the last level are never traced
-        children = []
-        for branch, flags in enumerate(
-                (S.BSDF_SPECULAR | S.BSDF_REFLECTION,
-                 S.BSDF_SPECULAR | S.BSDF_TRANSMISSION)):
-            child, factor, ok = _sample_specular(
-                hit, lobes, q_rd, valid, U.fold_lanes(k_depth, branch + 1),
-                flags)
-            children.append(_queue_of(
-                child, V.where(ok, beta * factor, 0.0), queue["slot"],
-                queue["path"] * 2 + (branch + 1), ok))
-        allc = {k: torch.cat([c[k] for c in children]) for k in children[0]}
-        nxt = cap if level_caps is None else int(level_caps[depth - 1])
-        live = allc["active"].sum()
-        drops = drops + (live - nxt).clamp_min(0)
-        queue = _compact(allc, nxt)
+        with span("spawn"):
+            children = []
+            for branch, flags in enumerate(
+                    (S.BSDF_SPECULAR | S.BSDF_REFLECTION,
+                     S.BSDF_SPECULAR | S.BSDF_TRANSMISSION)):
+                child, factor, ok = _sample_specular(
+                    hit, lobes, q_rd, valid,
+                    U.fold_lanes(k_depth, branch + 1), flags)
+                children.append(_queue_of(
+                    child, V.where(ok, beta * factor, 0.0), queue["slot"],
+                    queue["path"] * 2 + (branch + 1), ok))
+            allc = {k: torch.cat([c[k] for c in children])
+                    for k in children[0]}
+            nxt = cap if level_caps is None else int(level_caps[depth - 1])
+            live = allc["active"].sum()
+            drops = drops + (live - nxt).clamp_min(0)
+            queue = _compact(allc, nxt)
     if not return_aux:
         return l_buf
     return l_buf, {"queue_drops": drops, "useful_rays": useful}
