@@ -908,9 +908,21 @@ def ptxas_summary(logtext: str) -> list:
     return out
 
 
+def eager_whitted(*args, **kw):
+    """A WhittedIntegrator on the eager route (``frame_graph=False``), for
+    the phases that count, record or time launches render by render
+    through the host's wrappers (3, 7-13, 15, 17's legs): a graph replay
+    issues none of them from the host. Phases 2-4 and 16 drive the
+    default route, the frame graph's."""
+    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+
+    return WhittedIntegrator(*args, frame_graph=False, **kw)
+
+
 def record_calls(integ, scene):
     """Render one frame and return the rays of every accelerator call:
-    [(o, d, t_max, any_hit)] (camera, shadow and specular rays)."""
+    [(o, d, t_max, any_hit)] (camera, shadow and specular rays). The frame
+    is issued eagerly (a graph replay calls no accelerator)."""
     calls = []
     acc = scene.accel
     traced = acc.intersect
@@ -920,10 +932,13 @@ def record_calls(integ, scene):
         return traced(o, d, t_max, any_hit)
 
     acc.intersect = record
+    graph = integ.frame_graph
+    integ.frame_graph = False
     try:
         integ.render(scene)
     finally:
         del acc.intersect
+        integ.frame_graph = graph
     return calls
 
 
@@ -1014,11 +1029,14 @@ def time_launches(phase, t0, acc, calls, chunks, panel, certified, card,
 
 
 def timed_frames(integ, scene, n=3, **render_kw):
-    """One warm frame, then ``n`` frames timed with CUDA events (ms);
-    ``render_kw`` goes to each render (animated geometry)."""
+    """One warm frame (two on the frame graph's route: the view's eager
+    first frame and its capture), then ``n`` frames timed with CUDA events
+    (ms); ``render_kw`` goes to each render (animated geometry)."""
     import torch
 
-    integ.render(scene, **render_kw)
+    replays = getattr(integ, "replays", None)   # Sampler integrators
+    for _ in range(2 if replays and replays(scene, **render_kw) else 1):
+        integ.render(scene, **render_kw)
     torch.cuda.synchronize()
     times, state = [], None
     for _ in range(n):
@@ -1041,7 +1059,7 @@ def slice3(dev, card, scene, t_all):
     the sweep on the 1M-triangle scene (module docstring)."""
     import torch
     from trace_tpu_torch.integrators.path import PathIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import cornell, mesh_heavy, spheres
     from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
                                            sweep_plain)
@@ -1750,7 +1768,7 @@ def slice7(dev, card, scene, t_all):
     from trace_tpu_torch.core import transform as T
     from trace_tpu_torch.integrators import common as IC
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import caustic_glass, caustic_moving, \
         mesh_heavy
     from trace_tpu_torch.ops import sweep as TS
@@ -2077,7 +2095,7 @@ def slice8(dev, card, scene, t_all):
     from trace_tpu_torch.film.film import Film
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import env_studio, mesh_heavy
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
@@ -2364,7 +2382,7 @@ def pair_image(scene, res=24):
     from trace_tpu_torch.core import transform as T
     from trace_tpu_torch.film.film import Film
     from trace_tpu_torch.film.filters import LanczosSincFilter
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.sampler.uniform import UniformSampler
 
     film = Film((res, res), filter=LanczosSincFilter((1.0, 1.0), 3.0),
@@ -2594,7 +2612,7 @@ def slice9(dev, card, t_all):
     import torch
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import sphere_field
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
@@ -3073,7 +3091,7 @@ def slice10(dev, card, t_all):
     from trace_tpu_torch.integrators import sppm as SP
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
     from trace_tpu_torch.sampler import uniform as U
@@ -3289,8 +3307,7 @@ def slice11(dev, card, scene, t_all):
 
     import torch
     from trace_tpu_torch import (BoxFilter, GaussianFilter, RenderStats,
-                                 StratifiedSampler, TriangleFilter,
-                                 WhittedIntegrator)
+                                 StratifiedSampler, TriangleFilter)
     from trace_tpu_torch.core import spectrum as spec
     from trace_tpu_torch.core.vec import V3
     from trace_tpu_torch.film.film import Film
@@ -3302,6 +3319,8 @@ def slice11(dev, card, scene, t_all):
     from trace_tpu_torch.utils.stats import trace_profile
     from trace_tpu_torch.wavefront import geom as WG
 
+    # 11a's and 11b's frames count launches per render: eager ones.
+    WhittedIntegrator = eager_whitted
     tmp = tempfile.gettempdir()
     acc = scene.accel
     out = {}
@@ -3828,7 +3847,7 @@ def slice12(dev, card, scene, t_all):
                                                 build_clusters)
     from trace_tpu_torch.core.vec import V3
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops.bvh_walk import walk_kernel
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
@@ -4389,7 +4408,7 @@ def slice13(dev, card, scene, t_all):
     import torch
     from trace_tpu_torch.integrators.path import PathIntegrator
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.parallel import render as PR
     from trace_tpu_torch.sampler import uniform as U
     from trace_tpu_torch.utils.stats import RenderStats
@@ -4570,10 +4589,10 @@ class CaptureRecorder:
         def sweep(*a, **k):
             res = swp(*a, **k)
             if self._keeps():
-                if self.n % self.stride == 0:
-                    self.calls.append(dict(prologue=self.pending, sweep=(
-                        a, k, res)))
+                # One record a call: the last is added at exit unless kept.
                 self.last = dict(prologue=self.pending, sweep=(a, k, res))
+                if self.n % self.stride == 0:
+                    self.calls.append(self.last)
                 if self.every is not None:
                     self.every.append((self.pending[0], a, k))
                 self.n += 1
@@ -4968,7 +4987,7 @@ def slice15(dev, card, scene, t_all):
     from trace_tpu_torch.accel import wbvh as W
     from trace_tpu_torch.integrators.fused import kernel_counts
     from trace_tpu_torch.integrators.sppm import SPPMIntegrator
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops import bvh_walk, intersect
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
@@ -5097,27 +5116,42 @@ def mse_of(a, b) -> float:
     return float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
 
 
-def frame16(integ, scene, rec=None):
-    """Phase 16a's frame: one warm frame (under ``rec``, a
-    CaptureRecorder, when given) with the sweep and prologue launches
-    counted from 0, then two timed with CUDA events, peak GiB over them
-    -> (row, last state)."""
+def frame16(integ, scene, rec):
+    """Phase 16a's frame on the frame graph's route: the view's first
+    frame (its body run eagerly) with the sweep and prologue launches
+    counted from 0; the second, which captures the body and replays it,
+    under ``rec`` (a CaptureRecorder of the capture, whose kept launches
+    then hold the replay's values) and held against plain; the graph's
+    launches a replay (its capture record) held equal to the first
+    frame's, and the replay bit-equal to it; then the graph dropped (it
+    was captured around the recorder's tensors) and the route timed
+    afresh, two warm frames and two replays, peak GiB over them -> (row,
+    last state)."""
     import torch
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
 
     sweep_kernel.reset_counts()
     block_entry_kernel.reset_counts()
-    if rec is None:
-        integ.render(scene)
-    else:
-        with rec:
-            integ.render(scene)
-    launches = dict(sweep=sweep_kernel.launches,
-                    prologue=block_entry_kernel.launches)
+    first = integ.render(scene)
+    eager = dict(sweep=sweep_kernel.launches,
+                 prologue=block_entry_kernel.launches)
+    with rec:
+        second = integ.render(scene)
+    torch.cuda.synchronize()
+    pro, swp, kept = rec.check()
+    rec.calls = []
+    replay = {k: integ.frame_graphs.captures[-1]["launches"][k]
+              for k in eager}
+    bit_equal = all(torch.equal(x, y) for x, y in zip(first, second))
+    del first, second
+    integ.frame_graphs = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times, state = timed_frames(integ, scene, n=2)
-    return dict(frame_ms=times, ms=float(np.mean(times)), launches=launches,
+    return dict(frame_ms=times, ms=float(np.mean(times)), launches=replay,
+                first_frame_launches=eager, replay_bit_equal=bit_equal,
+                prologue=pro, sweep=swp, kept_launches=len(kept),
+                dead_launches=sum(r["live"] == 0 for r in kept),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 useful_rays=integ.last_useful_rays,
                 queue_drops=integ.last_queue_drops), state
@@ -5227,35 +5261,45 @@ def slice16(dev, card, scene, replay_1024_ms, t_all):
             tmp, f"chip_smoke_cfg4_{res}.png"))
         integ = WhittedIntegrator(cam, U.UniformSampler(spp, seed=0),
                                   max_depth=2, **cfg4)
-        rec = CaptureRecorder(CAPTURE_STRIDE, capture_only=False) \
-            if res == 512 else None
-        row, states[res] = frame16(integ, scene, rec)
+        if not integ.replays(scene):
+            raise AssertionError(f"[16a] {name}: not the frame graph's "
+                                 f"route")
+        # Every launch of the 256^2 graph (its dead chunks too), every
+        # CAPTURE_STRIDE-th of the 512^2 one.
+        stride = 1 if res == 256 else CAPTURE_STRIDE
+        row, states[res] = frame16(integ, scene, CaptureRecorder(stride))
         n_pix = n_pix_of(cam)
         row["lanes"], row["chunks"] = n_pix, -(-n_pix // (1 << 16))
         row["workload_mrays"] = (n_pix * spp * (1 + n_lights) * 2
                                  / row["ms"] / 1e3)
-        if rec is not None:
-            pro, swp, kept = rec.check()
-            row.update(prologue=pro, sweep=swp, kept_launches=len(kept))
-            if prologue_disagrees(pro) or disagrees(swp) \
-                    or swp["t_bits_mismatch"] or len(kept) < 2:
-                raise AssertionError(f"[16a] {name}: sampled launches "
-                                     f"disagree: {pro} {swp}")
         frames[name] = row
         log("16a", t0, f"{name} (pixel_chunk 1 << 16, spp_per_dispatch 1: "
-            f"{n_pix} lanes in {row['chunks']} chunks x {spp} samples): "
-            f"frames {[round(x, 2) for x in row['frame_ms']]} ms (mean "
-            f"{row['ms']:.2f}, after a warm one); launches {row['launches']}"
-            f"; peak {row['peak_gib']:.3f} GiB; useful_rays "
+            f"{n_pix} lanes in {row['chunks']} chunks x {spp} samples), "
+            f"the frame graph's route: replays "
+            f"{[round(x, 2) for x in row['frame_ms']]} ms (mean "
+            f"{row['ms']:.2f}, after the view's eager frame and its "
+            f"capture); launches a replay {row['launches']} (the eager "
+            f"first frame's {row['first_frame_launches']}); the capture's "
+            f"replay bit-equal to the first frame {row['replay_bit_equal']};"
+            f" peak {row['peak_gib']:.3f} GiB; useful_rays "
             f"{row['useful_rays']}, queue_drops {row['queue_drops']}; "
-            f"workload {row['workload_mrays']:.3f} Mrays/s"
-            + (f"; every {CAPTURE_STRIDE}th sweep launch and the last "
-               f"({row['kept_launches']}) vs plain: prologue "
-               f"{row['prologue']}, sweep {row['sweep']}" if rec else "")
-            + f"; card {card}")
+            f"workload {row['workload_mrays']:.3f} Mrays/s; every "
+            f"{stride}th captured sweep launch and the last "
+            f"({row['kept_launches']}, {row['dead_launches']} with no live "
+            f"lane) vs plain: prologue {row['prologue']}, sweep "
+            f"{row['sweep']}; card {card}")
         if row["queue_drops"] != 0 or row["launches"]["sweep"] <= 0 or \
-                row["launches"]["prologue"] != row["launches"]["sweep"]:
+                row["launches"]["prologue"] != row["launches"]["sweep"] or \
+                row["launches"] != row["first_frame_launches"] or \
+                not row["replay_bit_equal"]:
             raise AssertionError(f"[16a] {name}: {row}")
+        if prologue_disagrees(row["prologue"]) or disagrees(row["sweep"]) \
+                or row["sweep"]["t_bits_mismatch"] \
+                or row["kept_launches"] < min(2, row["launches"]["sweep"]) \
+                or (stride == 1 and row["kept_launches"]
+                    != row["launches"]["sweep"]):
+            raise AssertionError(f"[16a] {name}: captured launches "
+                                 f"disagree: {row}")
     # The 512^2 frame as one chunk: the same image but for the splat's
     # summation order (the grid stencil against the scatter).
     cam = mesh_heavy.build_camera(512, os.path.join(tmp, "chip_smoke_"
@@ -5532,7 +5576,7 @@ def leg17(phase, t0, card, scene, tris, accel, knobs, n_rays, stride,
     their prologues replayed, each kind as one CUDA graph: their ms a
     frame (graph_ms). -> (row, image)."""
     import torch
-    from trace_tpu_torch.integrators.whitted import WhittedIntegrator
+    WhittedIntegrator = eager_whitted
     from trace_tpu_torch.models import mesh_heavy
     from trace_tpu_torch.ops.sweep import (block_entry_kernel, kernel_tiled,
                                            sweep_kernel)
@@ -6072,11 +6116,18 @@ def main() -> int:
         TI.intersect_kernel.reset_counts()
         if hasattr(sc.accel, "skipped_chunks"):
             sc.accel.skipped_chunks = 0
+        if not it.replays(sc):
+            raise AssertionError(f"{run}: not the frame graph's route")
         times, state = timed_frames(it, sc)
-        launches = (TI.intersect_kernel.launches if arm == "intersect"
-                    else sweep_kernel.arm_launches[arm])
+        # The frame graph's route: the view's eager first frame and its
+        # capture issue launches from Python, each the launches of a
+        # replay (the capture's record); the replays issue none.
+        per = it.frame_graphs.captures[-1]["launches"]
+        issued = (TI.intersect_kernel.launches if arm == "intersect"
+                  else sweep_kernel.arm_launches[arm])
+        launches = per["intersect" if arm == "intersect" else "sweep"]
         others = sweep_kernel.launches - (0 if arm == "intersect"
-                                          else launches)
+                                          else issued)
         ms = float(np.mean(times))
         img = it.camera.film.to_image(state).cpu().numpy()
         nonzero = float((img > 0).any(-1).mean())
@@ -6086,26 +6137,30 @@ def main() -> int:
             extra = (f", sweep steps per launch {steps[:8]}"
                      f"{'...' if len(steps) > 8 else ''}")
             sc.accel.last_steps = []
-        entry_launches = block_entry_kernel.launches
+        entry_launches = per["prologue"]
         skipped = getattr(sc.accel, "skipped_chunks", 0)
         frames[run] = dict(ms=ms, times=times, launches=launches,
                            entry_launches=entry_launches,
                            skipped_chunks=skipped,
                            peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        log(4, t0, f"{run}: frames {[round(x, 3) for x in times]} ms, mean "
-            f"{ms:.2f} ms, {rays_per_frame / ms / 1e3:.3f} Mrays/s, "
-            f"{arm} launches {launches} (other sweep arms {others}), "
-            f"prologue launches {entry_launches}, chunks skipped {skipped}, "
+        log(4, t0, f"{run}: replays {[round(x, 3) for x in times]} ms, "
+            f"mean {ms:.2f} ms, {rays_per_frame / ms / 1e3:.3f} Mrays/s, "
+            f"{arm} launches a replay {launches} (other sweep arms "
+            f"{others}), prologue launches a replay {entry_launches}, "
+            f"chunks skipped {skipped}, "
             f"queue_drops "
             f"{it.last_queue_drops}, useful_rays {it.last_useful_rays}, "
             f"non-zero pixels {nonzero:.3f}, peak mem "
             f"{frames[run]['peak_gib']:.2f} GiB{extra}")
-        if launches <= 0 or others or it.last_queue_drops != 0:
-            raise AssertionError(f"{run} did not run through {arm} cleanly")
-        if entry_launches != sweep_kernel.launches:
+        if launches <= 0 or others or it.last_queue_drops != 0 \
+                or issued != 2 * launches:
+            raise AssertionError(f"{run} did not run through {arm} cleanly"
+                                 f": {issued} issued, {launches} a replay")
+        if entry_launches != per["sweep"] \
+                or block_entry_kernel.launches != sweep_kernel.launches:
             raise AssertionError(f"{run}: {entry_launches} prologue "
-                                 f"launches for {sweep_kernel.launches} "
-                                 f"sweep launches")
+                                 f"launches for {per['sweep']} sweep "
+                                 f"launches a replay")
         if not (np.isfinite(img).all() and nonzero > 0.05):
             raise AssertionError(f"bad frame in {run}: non-zero {nonzero}")
         if run in ("default", "exact_edges"):
@@ -6113,7 +6168,8 @@ def main() -> int:
     exact.accel, scene.accel = eacc, acc
     log(4, t0, f"1M tris 256^2 1spp depth 2 ({rays_per_frame} rays/frame): "
         f"default {frames['default']['ms']:.2f} ms, exact_shared_edges "
-        f"{frames['exact_edges']['ms']:.2f} ms (CUDA events, mean of 3); "
+        f"{frames['exact_edges']['ms']:.2f} ms (CUDA events, mean of 3 "
+        f"replays); "
         f"PNGs {png}, {png_e}; card {card}")
 
     # Every sweep launch of the default and exact-edge frames.

@@ -3,8 +3,11 @@
     python scripts/torch_frame_spans.py [--cell mesh1m_whitted_256] \
         [--seed 1] [--frames 10] [--steps 3] [--out spans.json]
 
-Builds the cell from perfbench's files, as ``perfbench/run.py`` does,
-then: ``--frames`` frames with tracing off (host clock, each
+Builds the cell from perfbench's files, as ``perfbench/run.py`` does, with
+one change: a Whitted cell renders with ``frame_graph=False``, the eager
+route, so that every pass is issued from the host inside its span and the
+table stays pass by pass (a graph replay is one ``whitted.replay`` span).
+Then: ``--frames`` frames with tracing off (host clock, each
 ending in a synchronise); four passes of ``--steps`` frames under
 torch.profiler (CPU and CUDA activity), with spans off and on (inside
 ``trace_tpu_torch.utils.stats.collect()``) in turn; the last is read.
@@ -225,7 +228,11 @@ def main(argv=None) -> int:
         print("torch_frame_spans: needs a CUDA device", file=sys.stderr)
         return 2
     spec = harness.CellSpec(REPO, a.cell)
-    cell = spec.driver().Cell(spec.config, spec.traffic, a.seed, "cuda")
+    traffic = spec.traffic
+    if spec.config["integrator"] == "whitted":
+        traffic = dict(traffic, integrator_args=dict(
+            traffic.get("integrator_args", {}), frame_graph=False))
+    cell = spec.driver().Cell(spec.config, traffic, a.seed, "cuda")
     cell.setup()
     untraced = []
     for _ in range(a.frames):

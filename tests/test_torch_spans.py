@@ -81,11 +81,11 @@ def test_every_span_appears_nested(frame):
     for name in PASSES:
         assert up[name] == {"chunk"}, name
     # Closest hits and shadow rays go through the sweep; it reads once a
-    # call, and the render reads its two totals at the end.
+    # call, and the render reads its two totals at the end, in one read.
     assert up["intersect"] == {"closest_hit", "direct_light"}
     assert up["host_read"] == {"intersect", "render"}
     assert sum(1 for i, p in enumerate(parent) if spans[i][0] == "host_read"
-               and spans[p][0] == "render") == 2
+               and spans[p][0] == "render") == 1
 
 
 def test_host_reads_match_the_frame(frame):
@@ -93,7 +93,7 @@ def test_host_reads_match_the_frame(frame):
     calls = chunks * 2 * (1 + frame["lights"])   # depth 2, spp 1
     names = [s[0] for s in frame["spans"]]
     assert names.count("intersect") == calls
-    assert names.count("host_read") == calls + 2
+    assert names.count("host_read") == calls + 1
     assert names.count("chunk") == chunks
 
 

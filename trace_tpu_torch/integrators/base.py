@@ -16,11 +16,23 @@ draws hang off its pixel, so every chunking draws the same samples; the
 splats differ only in their summation order. ``spp_per_dispatch`` (the
 JAX package's cap on the samples of one TPU dispatch, a relay
 workaround) is accepted for the signature only, stored and read nowhere:
-the port issues a chunk's samples one after another as eager launches,
-so it has no dispatch to split. ``stats`` (a utils.stats.
-RenderStats) gathers the JAX twin's counters and the render's time.
+the port issues a chunk's samples one after another, so it has no
+dispatch to split. ``stats`` (a utils.stats.RenderStats) gathers the JAX
+twin's counters and the render's time.
+
+A frame is three parts: the per-view inputs (``frame_inputs``: the pixel
+grid and its ids, each chunk's lanes and ``valid`` mask, the strata, the
+key), the body (``frame_body``: the film zeroed, the chunk loop with its
+splats, the counts on the device) and one host read of the counts. An
+integrator that opts in (``frame_graph``) renders a view on the card
+through one CUDA graph of the body, captured under core/sync.py's
+``no_host_reads`` (integrators/fused.py::FrameGraphs): the view's first
+frame runs the body eagerly, each later one replays the graph;
+``replays`` says when a call takes this route.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -33,6 +45,7 @@ from ..sampler.uniform import UniformSampler
 from ..utils.stats import count, span, spanned
 from . import common
 from .common import sanitize_radiance
+from .fused import FrameGraphs, uncapturable
 
 F32 = torch.float32
 PIXEL_CHUNK = 1 << 16
@@ -57,7 +70,23 @@ def stratum_arrays(sampler, spp: int, device):
             torch.from_numpy(scale).to(device))
 
 
+class FrameInputs(NamedTuple):
+    """A frame's per-view inputs (``SamplerIntegrator.frame_inputs``).
+    ``chunks``: per chunk of lanes, (pixels [C, 2] int32, the same as
+    float32, pixel ids [C], valid [C] bool or None where one chunk is the
+    grid, the valid lane count); ``lanes``: the grid's lane count; ``lo``,
+    ``scale``: stratum_arrays; ``key``: the sampler's base key."""
+    chunks: list
+    lanes: int
+    lo: torch.Tensor
+    scale: torch.Tensor
+    key: torch.Tensor
+
+
 class SamplerIntegrator:
+    # The eager route unless a subclass opts in to the frame graph.
+    frame_graph = False
+
     def __init__(self, camera, sampler: UniformSampler | None = None,
                  max_depth: int = 5, pixel_chunk: int = PIXEL_CHUNK,
                  stats=None, spp_per_dispatch: int | None = None):
@@ -70,6 +99,7 @@ class SamplerIntegrator:
                                  else None)
         self.last_queue_drops = None
         self.last_useful_rays = None
+        self.frame_graphs = None
 
     def li(self, scene, rd, key):
         """``key``: per-lane keys [N, 2] -> (radiance [N, 3],
@@ -113,58 +143,66 @@ class SamplerIntegrator:
         l, aux = self.li(scene, rd, U.fold_lanes(ks, 1))
         return p_film, sanitize_radiance(l), weight, aux
 
-    @spanned("render")
-    def render(self, scene, geometry=None, geometry_transform=None,
-               geometry_accel=None) -> FilmState:
-        """Render ``scene`` in chunks of ``pixel_chunk`` lanes (module
-        docstring). ``geometry`` (optional): a Triangles table with
-        the scene's topology and moved vertices, which replaces the
-        scene's for this render -- one frame of animated geometry, its
-        sweep tables rebuilt on the device; ``geometry_transform`` moves
-        it there first; ``geometry_accel`` gives pre-built tables instead
-        (common.prepare_geometry)."""
-        scene = common.apply_geometry(scene, common.prepare_geometry(
-            scene, geometry, geometry_transform, geometry_accel))
-        dev = scene.device
-        film = self.camera.film
-        state = film.initial_state(dev)
-        pixels = self.pixel_grid(dev)
-        (x0, y0), (x1, y1) = film.sample_bounds()
-        grid_hw = (y1 - y0 + 1, x1 - x0 + 1)
-        spp = self.sampler.samples_per_pixel
-        base_key = U.key(self.sampler.seed, dev)
+    def replays(self, scene, geometry=None, geometry_transform=None,
+                geometry_accel=None) -> bool:
+        """Whether ``render`` with these arguments takes the frame graph
+        (integrators/fused.py::FrameGraphs): the integrator opts in
+        (``frame_graph``); no geometry arguments (an animated frame); no
+        ``stats`` (RenderStats synchronises at its timers); no instanced
+        geometry (the instance walks' pair buffers are sized on SPPM's
+        route only); no accelerator whose route may read the host
+        (fused.uncapturable); the card."""
+        return (self.frame_graph and geometry is None
+                and geometry_transform is None and geometry_accel is None
+                and self.stats is None and not scene.instanced
+                and uncapturable(scene) is None
+                and scene.device.type == "cuda")
+
+    def frame_inputs(self, device) -> FrameInputs:
+        """The frame's inputs that depend only on the view (module
+        docstring); host copies, so made outside a graph."""
+        pixels = self.pixel_grid(device)
         ids = U.pixel_ids(pixels)
         n = pixels.shape[0]
-        if self.stats is not None:
-            self.stats.start("render")
-            # Per level, one closest-hit and one shadow ray per light for
-            # every lane: the JAX twin's numerator (dead lanes counted).
-            self.stats.add("camera_samples", n * spp)
-            self.stats.add("rays_dispatched", n * spp * self.max_depth
-                           * (1 + num_lights(scene.lights)))
-        lo, scale = stratum_arrays(self.sampler, spp, dev)
+        chunk = min(self.pixel_chunk, n)
+        chunks = []
+        for start in range(0, n, chunk):
+            part, p_ids, valid = pixels[start:start + chunk], ids, None
+            if chunk < n:
+                p_ids = ids[start:start + chunk]
+                valid = torch.ones(chunk, dtype=torch.bool, device=device)
+                pad = chunk - part.shape[0]
+                if pad:   # the tail: lanes at pixel (0, 0), invalid
+                    zeros = part.new_zeros((pad, 2))
+                    part = torch.cat([part, zeros])
+                    p_ids = torch.cat([p_ids, U.pixel_ids(zeros)])
+                    valid[chunk - pad:] = False
+            chunks.append((part, part.to(F32), p_ids, valid,
+                           min(chunk, n - start)))
+        lo, scale = stratum_arrays(self.sampler,
+                                   self.sampler.samples_per_pixel, device)
+        return FrameInputs(chunks, n, lo, scale,
+                           U.key(self.sampler.seed, device))
+
+    def frame_body(self, scene, inputs: FrameInputs):
+        """The film zeroed, then each chunk's sample passes and splats ->
+        (film state, counts int64 [2]: queue drops, useful rays). Straight
+        line: under no_host_reads it reads nothing on the host."""
+        film = self.camera.film
+        dev = scene.device
+        state = film.initial_state(dev)
+        (x0, y0), (x1, y1) = film.sample_bounds()
+        grid_hw = (y1 - y0 + 1, x1 - x0 + 1)
         drops = torch.zeros((), dtype=torch.int64, device=dev)
         useful = torch.zeros((), dtype=torch.int64, device=dev)
-        chunk = min(self.pixel_chunk, n)
-        for start in range(0, n, chunk):
+        for part, pix_f, ids, valid, n_valid in inputs.chunks:
             with span("chunk"):
-                part, p_ids, valid = pixels[start:start + chunk], None, None
-                if chunk < n:
-                    p_ids = ids[start:start + chunk]
-                    valid = torch.ones(chunk, dtype=torch.bool, device=dev)
-                    pad = chunk - part.shape[0]
-                    if pad:   # the tail: lanes at pixel (0, 0), invalid
-                        zeros = part.new_zeros((pad, 2))
-                        part = torch.cat([part, zeros])
-                        p_ids = torch.cat([p_ids, U.pixel_ids(zeros)])
-                        valid[chunk - pad:] = False
-                count("chunk_lanes_issued", chunk)
-                count("chunk_lanes_valid", min(chunk, n - start))
-                pix_f = part.to(F32)
-                for s in range(spp):
+                count("chunk_lanes_issued", part.shape[0])
+                count("chunk_lanes_valid", n_valid)
+                for s in range(self.sampler.samples_per_pixel):
                     p_film, l, weight, aux = self.sample(
-                        scene, part, pix_f, ids if p_ids is None else p_ids,
-                        base_key, s, lo, scale)
+                        scene, part, pix_f, ids, inputs.key, s, inputs.lo,
+                        inputs.scale)
                     if valid is None:
                         state = film.add_samples_grid(
                             state, p_film, l, weight, (x0, y0), grid_hw)
@@ -175,12 +213,45 @@ class SamplerIntegrator:
                             torch.where(valid, weight, 0.0), valid=valid)
                     drops = drops + aux["queue_drops"]
                     useful = useful + aux["useful_rays"]
-        with span("host_read"):
-            self.last_queue_drops = int(drops)
-        with span("host_read"):
-            self.last_useful_rays = int(useful)
+        return state, torch.stack([drops, useful])
+
+    @spanned("render")
+    def render(self, scene, geometry=None, geometry_transform=None,
+               geometry_accel=None) -> FilmState:
+        """Render ``scene`` in chunks of ``pixel_chunk`` lanes (module
+        docstring): through the view's frame graph where ``replays``
+        holds, else eagerly. ``geometry`` (optional): a Triangles table
+        with the scene's topology and moved vertices, which replaces the
+        scene's for this render -- one frame of animated geometry, its
+        sweep tables rebuilt on the device; ``geometry_transform`` moves
+        it there first; ``geometry_accel`` gives pre-built tables instead
+        (common.prepare_geometry)."""
+        if self.replays(scene, geometry, geometry_transform,
+                        geometry_accel):
+            if self.frame_graphs is None:
+                self.frame_graphs = FrameGraphs()
+            state, counts = self.frame_graphs.run(self, scene)
+            self._read_counts(counts)
+            return state
+        scene = common.apply_geometry(scene, common.prepare_geometry(
+            scene, geometry, geometry_transform, geometry_accel))
+        inputs = self.frame_inputs(scene.device)
+        if self.stats is not None:
+            spp = self.sampler.samples_per_pixel
+            self.stats.start("render")
+            # Per level, one closest-hit and one shadow ray per light for
+            # every lane: the JAX twin's numerator (dead lanes counted).
+            self.stats.add("camera_samples", inputs.lanes * spp)
+            self.stats.add("rays_dispatched", inputs.lanes * spp
+                           * self.max_depth * (1 + num_lights(scene.lights)))
+        state, counts = self.frame_body(scene, inputs)
+        self._read_counts(counts)
         if self.stats is not None:
             self.stats.stop("render")
             self.stats.add("specular_queue_drops", self.last_queue_drops)
             self.stats.add("useful_rays", self.last_useful_rays)
         return state
+
+    def _read_counts(self, counts) -> None:
+        with span("host_read"):
+            self.last_queue_drops, self.last_useful_rays = counts.tolist()

@@ -18,11 +18,16 @@ class WhittedIntegrator(SamplerIntegrator):
     repeats its last entry. ``sort_materials``: each level's lanes in
     material order before shading (wavefront/whitted.py). ``li_impl``:
     "auto" or "planar"; the JAX package's "packed" oracle is not ported
-    (the port keeps one stack) and raises."""
+    (the port keeps one stack) and raises. ``frame_graph``: on the card,
+    where ``replays`` holds (integrators/base.py), a view's frames after
+    its first are replays of one CUDA graph; False issues every frame
+    eagerly, pass by pass (the same image, bit for bit). The path
+    integrator does not opt in: it keeps the eager route."""
 
     def __init__(self, *args, queue_capacity: int | None = None,
                  sort_materials: bool = False, li_impl: str = "auto",
-                 level_caps: tuple | None = None, **kw):
+                 level_caps: tuple | None = None, frame_graph: bool = True,
+                 **kw):
         if li_impl not in ("auto", "planar"):
             raise NotImplementedError(
                 f"li_impl={li_impl!r}: only the planar path is ported")
@@ -31,6 +36,7 @@ class WhittedIntegrator(SamplerIntegrator):
         self.sort_materials = bool(sort_materials)
         self.li_impl = li_impl
         self.level_caps = level_caps
+        self.frame_graph = bool(frame_graph)
 
     def _resolve_caps(self, n: int):
         caps = self.level_caps

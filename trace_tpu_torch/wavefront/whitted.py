@@ -393,6 +393,10 @@ def li(scene, rd, key, max_depth: int = 5, level_caps=None,
             live = allc["active"].sum()
             drops = drops + (live - nxt).clamp_min(0)
             queue = _compact(allc, nxt)
+            # Only the compacted queue is read from here on: the children
+            # go now, not when the next level rebinds them (the next
+            # level's intersection holds the frame's peak memory).
+            del children, allc
     if not return_aux:
         return l_buf
     return l_buf, {"queue_drops": drops, "useful_rays": useful}
