@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_jax_arrays import arrays_from_jax, both3, np3
+from torch_jax_arrays import arrays_from_jax, both3, jax_rules, np3
 from trace_tpu.core import transform as JT
 from trace_tpu.materials.materials import MatteMaterial as JMatte
 from trace_tpu.scene import SceneBuilder as JSceneBuilder
@@ -163,7 +163,8 @@ def _walks(scenes, case, t_max, any_hit):
     with jax.disable_jit():
         jr = jg.traverse(jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max),
                          any_hit)
-    tr = tg.traverse(to, td, torch.from_numpy(t_max), any_hit)
+    with jax_rules():
+        tr = tg.traverse(to, td, torch.from_numpy(t_max), any_hit)
     return [x.numpy() for x in tr], [np.asarray(x) for x in jr]
 
 
@@ -304,10 +305,11 @@ def _records(jg, tg, case, offset):
     o, d = probe_rays(case, seed=5)
     (to, _), (td, _) = both3(o), both3(d)
     tm = torch.full((N_RAYS,), float("inf"))
-    h, _, e, i = tg.traverse(to, td, tm)
     time = np.zeros(N_RAYS, np.float32)
-    trec = tg.make_hit_record(to, td, torch.from_numpy(time), e, i, h,
-                              prim_offset=offset)
+    with jax_rules():
+        h, _, e, i = tg.traverse(to, td, tm)
+        trec = tg.make_hit_record(to, td, torch.from_numpy(time), e, i, h,
+                                  prim_offset=offset)
     with jax.disable_jit():
         jrec = jg.make_hit_record(
             jnp.asarray(o), jnp.asarray(d), jnp.asarray(time),

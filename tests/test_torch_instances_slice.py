@@ -33,7 +33,7 @@ import torch
 
 from test_torch_instances import (grid_mesh, sphere_entry,
                                   sphere_transforms, tetra)
-from torch_jax_arrays import mse, port_scene
+from torch_jax_arrays import jax_rules, mse, port_scene
 from trace_tpu.camera.perspective import PerspectiveCamera as JCamera
 from trace_tpu.core import transform as JT
 from trace_tpu.film.film import Film as JFilm
@@ -164,9 +164,10 @@ def test_whitted_matches_jax(combo):
 
 def test_path_matches_jax(combo):
     cam = _tcam(16)
-    img = cam.film.to_image(PathIntegrator(
-        cam, UniformSampler(4, seed=3), max_depth=3).render(
-            combo["ts"])).numpy()
+    with jax_rules():
+        img = cam.film.to_image(PathIntegrator(
+            cam, UniformSampler(4, seed=3), max_depth=3).render(
+                combo["ts"])).numpy()
     _gate(img, combo["path"], "path 16^2")
 
 

@@ -57,7 +57,7 @@ import pytest
 import torch
 
 import chip_smoke as CS
-from torch_jax_arrays import mse
+from torch_jax_arrays import jax_rules, mse
 from trace_tpu_torch.models import caustic_glass, caustic_moving, sphere_field
 from trace_tpu_torch.integrators.path import PathIntegrator
 from trace_tpu_torch.integrators.sppm import SPPMIntegrator
@@ -140,10 +140,25 @@ DELTA = ["delta_sphere_field6_path32", "delta_sphere_field6_sppm32",
 
 @pytest.mark.parametrize("name", DELTA)
 def test_delta_light_scenes_unchanged(name):
-    img = _delta_render(name)
+    # The goldens predate the port's own spawn and sphere rules.
+    with jax_rules():
+        img = _delta_render(name)
     ref = np.load(os.path.join(GOLDENS, f"{name}.npy"))
     diff = np.abs(img - ref)
     print(f"{name}: max abs {diff.max():.3e}, pixels that differ "
           f"{int((diff.max(-1) > 0).sum())}")
+    assert img.shape == ref.shape and diff.max() <= 1e-6
+    assert ref.max() > 0.01
+
+
+@pytest.mark.parametrize("name", DELTA)
+def test_delta_light_scenes_on_the_port_rules(name):
+    """The same scenes on the port's own rules, the route the program
+    takes (the SPPM walks' normal-offset spawn, the sphere's
+    non-cancelling discriminant), against goldens rendered on those
+    rules (``<name>_port.npy``)."""
+    img = _delta_render(name)
+    ref = np.load(os.path.join(GOLDENS, f"{name}_port.npy"))
+    diff = np.abs(img - ref)
     assert img.shape == ref.shape and diff.max() <= 1e-6
     assert ref.max() > 0.01

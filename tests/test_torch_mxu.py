@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_jax_arrays import port_scene
+from torch_jax_arrays import jax_rules, port_scene
 from trace_tpu_torch import convert as C
 from trace_tpu_torch.accel import clusters as TC
 from trace_tpu_torch.accel import morton as TMo
@@ -141,16 +141,18 @@ def test_mxu_accelerator_closest_and_any_hit_match_jax(jx, attached):
     jo, jd, jtm = (jx.jnp.asarray(x) for x in (o, d, t_max))
     to, td, ttm = (torch.from_numpy(x) for x in (o, d, t_max))
     (jhs, jts, jis), (jht, jtt, jit) = js.accel.closest(js, jo, jd, jtm)
-    (ths, tts, tis), (tht, ttt, tit) = ts.accel.closest(ts, to, td, ttm)
+    with jax_rules():
+        (ths, tts, tis), (tht, ttt, tit) = ts.accel.closest(ts, to, td, ttm)
     for jh, jt, ji, th, tt, ti in ((jhs, jts, jis, ths, tts, tis),
                                    (jht, jtt, jit, tht, ttt, tit)):
         assert _agree(jh, jt, th, tt) > 0
         np.testing.assert_array_equal(ti.numpy()[th.numpy()],
                                       np.asarray(ji)[np.asarray(jh)])
+    with jax_rules():
+        occ = ts.accel.any_hit(ts, to, td, ttm)
+        h, t, i = ts.accel.intersect(to, td, ttm, False)
     np.testing.assert_array_equal(
-        ts.accel.any_hit(ts, to, td, ttm).numpy(),
-        np.asarray(js.accel.any_hit(js, jo, jd, jtm)))
-    h, t, i = ts.accel.intersect(to, td, ttm, False)
+        occ.numpy(), np.asarray(js.accel.any_hit(js, jo, jd, jtm)))
     assert torch.equal(h, tht) and torch.equal(t, ttt) and torch.equal(i, tit)
 
 

@@ -17,7 +17,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_jax_arrays import both3, lane_keys, mse, np3, port_scene
+from torch_jax_arrays import (both3, jax_rules, lane_keys, mse, np3,
+                              port_scene)
 from trace_tpu.models import cornell as JC
 from trace_tpu.wavefront import geom as JG
 from trace_tpu.wavefront import materials as JWM
@@ -62,7 +63,9 @@ def _hits(cornell, res=48):
     to, jo = both3(o)
     td, jd = both3(d)
     inf = np.full(n, np.inf, np.float32)
-    th = TWF.closest_hit(ts, to, td, torch.from_numpy(inf), torch.zeros(n))
+    with jax_rules():
+        th = TWF.closest_hit(ts, to, td, torch.from_numpy(inf),
+                             torch.zeros(n))
     jh = JWF.closest_hit(js, jo, jd, jnp.asarray(inf), jnp.zeros(n))
     np.testing.assert_array_equal(th.valid.numpy(), np.asarray(jh.valid))
     np.testing.assert_array_equal(th.prim_id.numpy(), np.asarray(jh.prim_id))
@@ -82,8 +85,9 @@ def test_estimate_direct_matches_jax(cornell):
     rng = np.random.default_rng(4)
     u = rng.uniform(0, 1, (4, n)).astype(np.float32)
     # The port's estimator takes a light per lane: light 0 on every lane.
-    t = TP.estimate_direct(ts, th, tl, torch.zeros(n, dtype=torch.int32),
-                           *[torch.from_numpy(x) for x in u])
+    with jax_rules():
+        t = TP.estimate_direct(ts, th, tl, torch.zeros(n, dtype=torch.int32),
+                               *[torch.from_numpy(x) for x in u])
     j = JP._estimate_direct_static(js, 0, jh, jl, *[jnp.asarray(x) for x in u])
     _close(t, j, "estimate_direct")
     assert int((np3(t).max(-1) > 0).sum()) > n // 4
@@ -93,7 +97,8 @@ def test_uniform_sample_one_light_matches_jax(cornell):
     js, ts = cornell
     th, jh, tl, jl, n = _hits(cornell)
     tk, jk = lane_keys(9, n)
-    t = TP.uniform_sample_one_light(ts, th, tl, tk)
+    with jax_rules():
+        t = TP.uniform_sample_one_light(ts, th, tl, tk)
     j = JP.uniform_sample_one_light(js, jh, jl, jk)
     _close(t, j, "uniform_sample_one_light")
     assert int((np3(t).max(-1) > 0).sum()) > n // 4
@@ -191,7 +196,8 @@ def test_li_matches_op_by_op_jax_on_every_lane(cornell):
         "o", "d", "t_max", "time", "has_differentials", "rx_origin",
         "ry_origin", "rx_direction", "ry_direction")])
     tk, jk = lane_keys(5, n)
-    t, aux = TP.li(ts, rd, tk, 3, 2)
+    with jax_rules():
+        t, aux = TP.li(ts, rd, tk, 3, 2)
     with jax.disable_jit():
         j, jaux = JP.li(js, jrd, jk, 3, 2, return_aux=True)
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-5,

@@ -22,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_jax_arrays import port_scene
+from torch_jax_arrays import jax_rules, port_scene
 from trace_tpu.core import transform as JT
 from trace_tpu.lights import lights as JL
 from trace_tpu.materials.materials import MatteMaterial as JMatte
@@ -156,7 +156,8 @@ def _t(a):
 
 def test_intersect_matches_jax(case):
     name, js, ts, (o, d, tm), jh = case[:5]
-    hit = ts.intersect(_t(o), _t(d), _t(tm))
+    with jax_rules():
+        hit = ts.intersect(_t(o), _t(d), _t(tm))
     valid = hit.valid.numpy()
     np.testing.assert_array_equal(valid, np.asarray(jh.valid))
     assert 0 < valid.sum() < len(valid) or name == "instanced"
@@ -171,7 +172,9 @@ def test_intersect_matches_jax(case):
         np.testing.assert_allclose(port.arr().numpy()[v],
                                    np.asarray(jax_)[v], rtol=1e-4, atol=1e-4)
     # With a time array given, the same record.
-    again = ts.intersect(_t(o), _t(d), _t(tm), time=torch.zeros(len(o)))
+    with jax_rules():
+        again = ts.intersect(_t(o), _t(d), _t(tm),
+                             time=torch.zeros(len(o)))
     assert torch.equal(again.t, hit.t)
 
 

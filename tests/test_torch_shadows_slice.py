@@ -16,7 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_jax_arrays import both3, mse, np3, port_scene
+from torch_jax_arrays import both3, jax_rules, mse, np3, port_scene
 from trace_tpu.integrators.whitted import WhittedIntegrator as JWhitted
 from trace_tpu.models import spheres as JSph
 from trace_tpu.sampler import uniform as JU
@@ -180,7 +180,9 @@ def test_compute_scattering_at_first_hits_matches_jax(jax_scene, scene,
     to, jo = both3(o)
     td, jd = both3(d)
     inf = np.full(N, np.inf, np.float32)
-    th = TWF.closest_hit(scene, to, td, torch.from_numpy(inf), torch.zeros(N))
+    with jax_rules():
+        th = TWF.closest_hit(scene, to, td, torch.from_numpy(inf),
+                             torch.zeros(N))
     jh = JWF.closest_hit(jax_scene, jo, jd, jnp.asarray(inf), jnp.zeros(N))
     valid = np.asarray(jh.valid)
     np.testing.assert_array_equal(th.valid.numpy(), valid)

@@ -26,7 +26,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from torch_jax_arrays import port_scene
+from torch_jax_arrays import jax_rules, port_scene
 from trace_tpu.bxdf import bsdf as JB
 from trace_tpu.bxdf import lobes as Jlb
 from trace_tpu.core import transform as JT
@@ -290,13 +290,14 @@ def walk_scene(request):
         jsp = JSP.photon_walk_body(ji, js, idx, jnp.ones(256, bool), cdf,
                                    pmf, grid["lo"], grid["res"],
                                    grid["inv_extent"], grid["sorted_cells"])
-    tld, tvp = TSC.camera_pass_body(
-        ti, ts, t(pix), torch.ones(len(pix), dtype=torch.bool),
-        TU.fold_in(TU.key(0, "cpu"), 1))
-    tsp = TSP.photon_walk_body(
-        ti, ts, torch.arange(256, 512), torch.ones(256, dtype=torch.bool),
-        t(cdf), t(pmf), t(grid["lo"]), t(grid["res"]),
-        t(grid["inv_extent"]), t(grid["sorted_cells"]), idx_max=511)
+    with jax_rules():
+        tld, tvp = TSC.camera_pass_body(
+            ti, ts, t(pix), torch.ones(len(pix), dtype=torch.bool),
+            TU.fold_in(TU.key(0, "cpu"), 1))
+        tsp = TSP.photon_walk_body(
+            ti, ts, torch.arange(256, 512), torch.ones(256, dtype=torch.bool),
+            t(cdf), t(pmf), t(grid["lo"]), t(grid["res"]),
+            t(grid["inv_extent"]), t(grid["sorted_cells"]), idx_max=511)
     return dict(name=request.param, jld=jld, jvp=jvp, tld=tld, tvp=tvp,
                 jsp=jsp, tsp=tsp)
 

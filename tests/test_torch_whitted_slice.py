@@ -41,6 +41,7 @@ from trace_tpu_torch.shapes.sphere import Spheres
 from trace_tpu_torch.shapes.triangle import Triangles
 from trace_tpu_torch.wavefront import geom as TG
 from trace_tpu_torch.wavefront import whitted as TWF
+from torch_jax_arrays import jax_rules
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens",
                       "mesh_heavy5k_32.npy")
@@ -233,7 +234,8 @@ def test_first_hits_match_jax(jax_scene, port_scene):
     jp = JG.RayP.of(jrd)
     tp = TG.RayP.of(trd)
     jh = JWF.closest_hit(jax_scene, jp.o, jp.d, jrd.t_max, jrd.time)
-    th = TWF.closest_hit(port_scene, tp.o, tp.d, trd.t_max, trd.time)
+    with jax_rules():
+        th = TWF.closest_hit(port_scene, tp.o, tp.d, trd.t_max, trd.time)
     valid = np.asarray(jh.valid)
     np.testing.assert_array_equal(th.valid.numpy(), valid)
     assert valid.sum() > 50

@@ -1,6 +1,9 @@
 """Carry a ``trace_tpu`` Scene across to the port as numpy arrays (the keys
 of ``trace_tpu_torch.convert.scene_from_numpy``), so both packages compute
 on identical data. Also the small converters the port's tests share."""
+import contextlib
+import functools
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -237,3 +240,44 @@ def np3(v) -> np.ndarray:
 
 def mse(a, b) -> float:
     return float(np.mean((np.asarray(a, np.float32) - b) ** 2))
+
+
+def spawn_along(p, n_geom, wi):
+    """The JAX package's continuation rule, ``p + wi * SPAWN_EPS``: 1e-6
+    along ``wi`` and nothing along the normal, below float32's resolution
+    where |p| > ~8. A spawn rule for the port's walks (their ``spawn``
+    argument)."""
+    from trace_tpu_torch.core.ray import SPAWN_EPS
+
+    return p + wi * SPAWN_EPS
+
+
+def cancelling_disc(o_obj, d_obj, a, od, radius):
+    """The JAX package's sphere discriminant, b^2 - 4ac as written, with
+    its cancelling c = |o|^2 - r^2: a stand-in for
+    ``geom._sphere_disc``."""
+    b = 2.0 * od
+    return b * b - 4.0 * a * (o_obj.length_squared() - radius * radius)
+
+
+@contextlib.contextmanager
+def jax_rules():
+    """The port with the two float32 rules of the JAX package that it has
+    left on purpose (ROADMAP §C.1-2, both repaired): a continuation of the
+    SPPM walks spawned 1e-6 along wi (:func:`spawn_along`, through the
+    walks' ``spawn`` argument), and the sphere's cancelling discriminant
+    (:func:`cancelling_disc` in place of ``geom._sphere_disc``). Tests
+    that hold the port's other arithmetic to the JAX package, or to
+    renders made under those rules, run the port inside it."""
+    from trace_tpu_torch.wavefront import geom as G
+    from trace_tpu_torch.wavefront import sppm_camera as SC
+    from trace_tpu_torch.wavefront import sppm_photon as SP
+
+    saved = (G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body)
+    G._sphere_disc = cancelling_disc
+    SC.camera_pass_body = functools.partial(saved[1], spawn=spawn_along)
+    SP.photon_walk_body = functools.partial(saved[2], spawn=spawn_along)
+    try:
+        yield
+    finally:
+        G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body = saved

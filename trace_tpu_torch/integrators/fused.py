@@ -5,7 +5,7 @@ The card's counterpart of the JAX package's one-dispatch iteration block
 (trace_tpu/integrators/sppm.py::_iterations_fused) is a CUDA graph of
 ``SPPMIntegrator._iterations_body``: captured once per (scene view,
 block length, pair chunks) and replayed with nothing read back inside the
-block. Before a block's capture it runs once eagerly on a side stream
+block. Before a block's capture it runs once eagerly on the current stream
 (on a copy of the state, the result dropped), so that modules load and
 the caches of the path (device constants, a view's area-light tables)
 fill outside the capture. A Whitted frame (``SamplerIntegrator.
@@ -143,11 +143,7 @@ class _Block:
                 light_pmf, pair_chunks)
 
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            body()
-        torch.cuda.current_stream(dev).wait_stream(side)
+        body()
         torch.cuda.synchronize(dev)
         warm_ms = (time.perf_counter() - t0) * 1e3
         self.graph, out, rec, _ = _capture(dev, body)

@@ -268,8 +268,9 @@ class SPPMIntegrator:
     # -- phase 1: camera pass ------------------------------------------------
 
     @spanned("sppm.camera_pass")
-    def _camera_pass_all(self, scene, pixels, it_key):
-        """Every pixel chunk -> (ld_add [P, 3], VisiblePoints)."""
+    def _camera_pass_all(self, scene, pixels, it_key, tally=None):
+        """Every pixel chunk -> (ld_add [P, 3], VisiblePoints). ``tally``:
+        a list that gets the walk's self-hit counts (camera_pass_body)."""
         from ..wavefront import sppm_camera
 
         lds, vps = [], []
@@ -278,7 +279,7 @@ class SPPMIntegrator:
             valid = torch.ones(part.shape[0], dtype=torch.bool,
                                device=part.device)
             ld, vp = sppm_camera.camera_pass_body(self, scene, part, valid,
-                                                  it_key)
+                                                  it_key, tally=tally)
             lds.append(ld)
             vps.append(vp)
         return torch.cat(lds), _cat_tree(vps)
@@ -334,12 +335,13 @@ class SPPMIntegrator:
 
     @spanned("sppm.photon_walk")
     def _photon_walk_all(self, scene, halton_base, light_cdf, light_pmf,
-                         grid: dict) -> dict:
+                         grid: dict, tally=None) -> dict:
         """Every photon chunk -> splat records: dict of p, d, beta [S, 3],
         start, count [S] int32, S = (max_depth - 1) x photons, laid out
         chunk by chunk, each chunk level by level. ``halton_base``: a host
         int, or a device scalar (the Halton digit loops then run their
-        full trip count)."""
+        full trip count). ``tally``: a list that gets the walk's self-hit
+        counts (photon_walk_body)."""
         from ..wavefront import sppm_photon
 
         np_iter = self.photons_per_iteration
@@ -357,7 +359,7 @@ class SPPMIntegrator:
                 light_cdf, light_pmf, grid["lo"], grid["res"],
                 grid["inv_extent"], grid["sorted_cells"],
                 idx_max=(None if torch.is_tensor(last) or last > M32
-                         else last)))
+                         else last), tally=tally))
         return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
 
     # -- phase 4: pair reduction ---------------------------------------------
@@ -594,6 +596,10 @@ class SPPMIntegrator:
             scene = common.apply_geometry(scene, geom)
         it_key = U.fold_in(key, iteration)
         n_pix = pixels.shape[0]
+        # The walks' self-hit counts, kept on the device for _count's read;
+        # the sharded passes keep none.
+        counting = self.stats is not None and self.mesh is None
+        tally = {"camera": [], "photon": []} if counting else {}
         if self.mesh is not None and self.shard_camera:
             from ..parallel.render import tree_map
             from ..parallel.sppm import camera_pass_sharded
@@ -602,7 +608,8 @@ class SPPMIntegrator:
             ld_add, vp = tree_map(lambda x: x[:n_pix], camera_pass_sharded(
                 self, scene, self.mesh, self.shard_axis, part, valid, it_key))
         else:
-            ld_add, vp = self._camera_pass_all(scene, pixels, it_key)
+            ld_add, vp = self._camera_pass_all(
+                scene, pixels, it_key, tally=tally.get("camera"))
         grid = self._build_grid(vp, state.radius)
         np_iter = self.photons_per_iteration
         halton_base = ((iteration - 1) * np_iter) & M32
@@ -620,7 +627,8 @@ class SPPMIntegrator:
                 grid["sorted_cells"], idx_max=last if last <= M32 else None)
         else:
             splat = self._photon_walk_all(scene, halton_base, light_cdf,
-                                          light_pmf, grid)
+                                          light_pmf, grid,
+                                          tally=tally.get("photon"))
         counts = splat["count"]
         offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
         with span("host_read"):
@@ -635,7 +643,7 @@ class SPPMIntegrator:
                                          grid["sorted_vp"],
                                          self.vp_kinds(scene))
         if self.stats is not None:
-            self._count(vp, grid, splat, total, pixels.shape[0])
+            self._count(vp, grid, splat, total, pixels.shape[0], tally)
         return self._update_pixels(
             SPPMState(state.ld, state.tau, state.radius, state.n, phi,
                       m_cnt), ld_add)
@@ -763,14 +771,21 @@ class SPPMIntegrator:
                 radius, sorted_vp, super_chunk, bases, tables=tables)
         return phi, m_cnt
 
-    def _count(self, vp, grid, splat, total, n_pix) -> None:
+    def _count(self, vp, grid, splat, total, n_pix, tally=None) -> None:
+        """Add an iteration's counters to ``stats`` in one host read; with
+        ``tally`` (step's self-hit counts of each walk) also
+        ``sppm_camera_self_hits`` and ``sppm_photon_self_hits``: bounces
+        whose next hit re-met the primitive they left at their origin."""
         sc = grid["sorted_cells"]
+        zero = sc.new_zeros((), dtype=torch.int64)
+        walks = [sum(tally[k], zero) for k in ("camera", "photon")
+                 if tally]
         with span("host_read"):
-            occupied, visible, records = torch.stack([
+            occupied, visible, records, *selfs = torch.stack([
                 ((sc[1:] != sc[:-1]) & (sc[1:] < self.n_pixels)).sum()
                 + (sc[0] < self.n_pixels),
                 (vp.valid & ~(vp.beta == 0.0).all(-1)).sum(),
-                (splat["count"] > 0).sum()]).tolist()
+                (splat["count"] > 0).sum(), *walks]).tolist()
         add = {
             "photons_traced": self.photons_per_iteration,
             "photon_vp_pairs": total,
@@ -781,6 +796,8 @@ class SPPMIntegrator:
             "visible_points": visible,
             "splat_records": records,
         }
+        if selfs:
+            add["sppm_camera_self_hits"], add["sppm_photon_self_hits"] = selfs
         for k, v in add.items():
             self.stats.add(k, v)
 

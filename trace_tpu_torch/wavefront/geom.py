@@ -124,12 +124,24 @@ def _clip_violated(cols, p: V3, phi):
             | (phi > cols["phi_max"]))
 
 
+def _sphere_disc(o_obj: V3, d_obj: V3, a, od, radius):
+    """The discriminant b^2 - 4ac of the sphere's quadratic, formed as
+    4a (r - l)(r + l), l the distance from the centre to the ray's line (o
+    less its projection on d). It does not cancel where |o| >> r, as
+    |o|^2 - r^2 does: at 1,170 units that rounds by 0.125 and widened the
+    sphere ~6% (Ray Tracing Gems ch. 7; pbrt-v4)."""
+    perp = (o_obj - d_obj * (od / a)).length()
+    return 4.0 * a * ((radius - perp) * (radius + perp))
+
+
 def _sphere_candidate(cols, o_obj: V3, d_obj: V3, t_max):
+    """(hit, t) of object-space rays against the sphere."""
     radius = cols["radius"]
     a = d_obj.length_squared()
-    b = 2.0 * o_obj.dot(d_obj)
+    od = o_obj.dot(d_obj)
+    b = 2.0 * od
     c = o_obj.length_squared() - radius * radius
-    disc = b * b - 4.0 * a * c
+    disc = _sphere_disc(o_obj, d_obj, a, od, radius)
     exists = disc >= 0.0
     sq = torch.sqrt(disc.clamp_min(0.0))
     q = -0.5 * (b + torch.where(b < 0.0, -sq, sq))

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..core import vec as V
-from ..core.ray import SPAWN_EPS, scale_differentials
+from ..core import ray as R
+from ..core.ray import scale_differentials
 from ..core.sync import any_on_host, sync_free
 from ..core.vec import V3
 from ..sampler import uniform as U
@@ -85,9 +86,13 @@ def _where_slot(mask, new: S.LobeSlotP, old: S.LobeSlotP) -> S.LobeSlotP:
                          for a, b in zip(new, old)])
 
 
-def camera_pass_body(integ, scene, pixels, lane_valid, key):
+def camera_pass_body(integ, scene, pixels, lane_valid, key,
+                     tally: list | None = None, spawn=R.spawn):
     """Visible points of a pixel chunk [C, 2] -> (ld_add [C, 3],
-    VisiblePoints with VP_LOBES packed slots)."""
+    VisiblePoints with VP_LOBES packed slots). ``tally`` (optional): a
+    list that gets each bounce's count of self hits
+    (core/ray.py::self_hits), device scalars. ``spawn``: the rule that
+    places a bounce's origin (core/ray.py)."""
     from ..integrators.sppm import VP_LOBES, VisiblePoints, _compact_lobes
 
     c = pixels.shape[0]
@@ -119,6 +124,9 @@ def camera_pass_body(integ, scene, pixels, lane_valid, key):
         k_depth = U.fold_lanes(ks, depth)
         hit = WW.closest_hit(scene, o, d, inf, time, live=active)
         live = active & hit.valid
+        if tally is not None and depth > 1:
+            tally.append(R.self_hits(live, hit.prim_id, hit.t, left, o))
+        left = hit.prim_id
         hit = hit._replace(valid=live)
         lobes = WM.compute_scattering(scene.materials, hit,
                                       allow_multiple_lobes=True,
@@ -174,7 +182,7 @@ def camera_pass_body(integ, scene, pixels, lane_valid, key):
                             beta_new)
         beta = V.where(ok, beta_next, beta)
         active = ok & ~killed
-        o = V.where(active, hit.p + bs.wi * SPAWN_EPS, o)
+        o = V.where(active, spawn(hit.p, hit.n, bs.wi), o)
         d = V.where(active, bs.wi, d)
         time = torch.where(active, hit.time, time)
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..core import vec as V
-from ..core.ray import SPAWN_EPS
+from ..core import ray as R
 from ..core.sync import any_on_host, sync_free
 from ..sampler import halton as H
 from . import lights as WL
@@ -41,11 +41,15 @@ def supports(scene) -> None:
 
 def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
                      light_pmf, grid_lo, grid_res, grid_inv_extent,
-                     sorted_cells, idx_max: int | None = None) -> dict:
+                     sorted_cells, idx_max: int | None = None,
+                     tally: list | None = None, spawn=R.spawn) -> dict:
     """Emit and walk a chunk of C photons (uint32 Halton indices in
     int64) -> splat records, dict of p, d, beta [(D-1) C, 3] and start,
     count [(D-1) C] int32, level by level. ``idx_max`` (optional) is a
-    host bound on the indices (it only shortens the digit loops)."""
+    host bound on the indices (it only shortens the digit loops).
+    ``tally`` (optional): a list that gets each bounce's count of self
+    hits (core/ray.py::self_hits), device scalars. ``spawn``: the rule
+    that places a bounce's origin (core/ray.py)."""
     from ..integrators.sppm import _hash_cells
 
     c = halton_idx.shape[0]
@@ -81,6 +85,9 @@ def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
             break
         hit = WW.closest_hit(scene, o, d, inf, time, live=active)
         live = active & hit.valid
+        if tally is not None and depth > 1:
+            tally.append(R.self_hits(live, hit.prim_id, hit.t, left, o))
+        left = hit.prim_id
         if depth > 1:
             g = []
             for ax, comp in enumerate((hit.p.x, hit.p.y, hit.p.z)):
@@ -118,7 +125,7 @@ def photon_walk_body(integ, scene, halton_idx, lane_valid, light_cdf,
                                   / bs.pdf.clamp_min(1e-20))
         q = (1.0 - WP.to_y(beta_new) / beta_y0).clamp_min(0.0)
         active = ok2 & (ri[dim + 2] >= q)
-        o = V.where(active, hit.p + bs.wi * SPAWN_EPS, o)
+        o = V.where(active, spawn(hit.p, hit.n, bs.wi), o)
         d = V.where(active, bs.wi, d)
         time = torch.where(active, hit.time, time)
 
