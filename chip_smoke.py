@@ -5,9 +5,9 @@
 
 Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep, prologue, intersect and walk kernels (one nvcc each,
-     in parallel, sm_90a) with ptxas's registers and spills per kernel
-     arm, the sweep's warps per CTA, and the SAH builder (g++);
+  1. build: the sweep, prologue, intersect, walk and splat kernels (one
+     nvcc each, in parallel, sm_90a) with ptxas's registers and spills
+     per kernel arm, the sweep's warps per CTA, and the SAH builder (g++);
   2. kernel vs plain, on the main paths' own launches:
      a. the 1M-triangle mesh_heavy scene: every sweep launch of one 256^2
         depth-2 frame (camera, shadow and specular rays, in the frame's
@@ -291,7 +291,8 @@ Phases (each prints lines with its seconds; any failure raises):
         of each size). Gates: every rank the same bits; frames within
         2e-6 of this process's single-device frames (also reported: equal
         to the two shares' films summed here); SPPM's counters equal to
-        the single-device run's, n and m equal, ld within 2e-6, tau
+        the single-device run's (but its self-hit counts, which the
+        sharded passes do not keep), n and m equal, ld within 2e-6, tau
         within 1e-5 relative;
      b. the same on one NCCL rank: the film bit-equal to the one-rank
         scatter (render_share) and SPPM bit-equal to one device (where an
@@ -354,6 +355,15 @@ Phases (each prints lines with its seconds; any failure raises):
         useful_rays, queue_drops (0), workload Mrays/s; every 32nd sweep
         launch of the 512^2 frame's warm render, and the last, against
         sweep_plain and its prologue against prologue_plain, bit for bit;
+        each frame's chunk splats through the gather kernel (the 256^2
+        frame's two, the second with 1,028 valid lanes; the 512^2
+        frame's 20), launches counted from 0 (one a chunk and sample,
+        equal in a replay), each bit-equal to splat_plain and to the
+        lane-order serial reference (the card's own footprint entries
+        of the chunk's valid lanes through the CPU's deterministic
+        scatter); the 256^2 frame's two graph-timed, with the plain
+        twin's ms, the byte bound and the parent's scatter route on the
+        same lanes;
         the 512^2 frame as one chunk (its ms and peak GiB) against the
         chunked one, MSE < 1e-8;
      b. Whitted sort_materials=True against False on 16a's 256^2 frame:
@@ -430,6 +440,9 @@ timed on 12a's camera call, and with its launches in one stepwise 1024^2
 iteration and per fused replay of phase 15, the iteration's walk ms and
 the 1M camera call's ms and bound; sweep and prologue also with their
 launches in 16a's two config-4 frames and in config 6's sweep legs (17b);
+splat with its launches in 16a's 256^2 frame, timed on its full chunk
+(65,536 lanes) against the scatter route, the tail chunk's row beside,
+and its launches in the 512^2 frame;
 sweep_tiled, the tiled kernel at the JAX package's tilings: launches in
 config 6's leg (a), ms, plain ms and bound on its 8192-ray launch shape
 (phase 4's chunk's first 8192 rays that hit), with phase 4's tiling grid
@@ -898,6 +911,8 @@ def ptxas_summary(logtext: str) -> list:
                 name = "prologue"
             elif "entry_kernel" in name:
                 name = "block_entry_table"
+            elif "splat_gather_kernel" in name:
+                name = "splat"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -4147,6 +4162,9 @@ SHARD_FRAMES = (("whitted", 2), ("path", 3))   # config 4, mesh1m_path_256
 SHARD_SPPM = dict(initial_search_radius=0.3, max_depth=8, n_iterations=2,
                   photons_per_iteration=65536, seed=0)
 SPPM_FIELDS = ("ld", "tau", "radius", "n", "m")
+# Counters the single-device SPPM records and the sharded passes do not
+# (integrators/sppm.py::SPPMIntegrator.step counts self hits on one device).
+ONE_DEVICE_COUNTERS = ("sppm_camera_self_hits", "sppm_photon_self_hits")
 RANK_TIMEOUT_S = 600
 
 
@@ -4450,8 +4468,8 @@ def slice13(dev, card, scene, t_all):
     def gates(label, out_dir, world, exact):
         """Every rank the same bits; frames within SHARD_ATOL of the
         single-device frames (exact: the one-rank scatter's film bit for
-        bit); SPPM's counters equal to the single-device run's, n and m
-        equal, ld within SHARD_ATOL, tau within SHARD_TAU_RTOL relative
+        bit); SPPM's counters equal to the single-device run's (but
+        ONE_DEVICE_COUNTERS), n and m equal, ld within SHARD_ATOL, tau within SHARD_TAU_RTOL relative
         (exact: every field bit for bit where each iteration's pairs fit
         one pair chunk; beyond, one device adds the chunks into the
         running sums and a mesh adds each chunk's own sum)."""
@@ -4494,7 +4512,9 @@ def slice13(dev, card, scene, t_all):
         bits = all(np.array_equal(st[f], s1[f]) for f in SPPM_FIELDS)
         gathered = int((st["tau"].sum(-1) > 0).sum())
         pairs = [r["pairs"] for r in rows[0]["sppm"]["iterations"]]
-        stats_equal = all(r["sppm"]["stats"] == ref["stats"] for r in rows)
+        shared = {k: v for k, v in ref["stats"].items()
+                  if k not in ONE_DEVICE_COUNTERS}
+        stats_equal = all(r["sppm"]["stats"] == shared for r in rows)
         res["sppm"] = dict(ranks_same_bits=same, ld_max_abs_err=ld_err,
                            tau_max_rel_err=tau_rel, n_m_equal=counts_equal,
                            bit_equal=bits, pixels_gathered=gathered,
@@ -5116,25 +5136,125 @@ def mse_of(a, b) -> float:
     return float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
 
 
-def frame16(integ, scene, rec):
-    """Phase 16a's frame on the frame graph's route: the view's first
-    frame (its body run eagerly) with the sweep and prologue launches
-    counted from 0; the second, which captures the body and replays it,
-    under ``rec`` (a CaptureRecorder of the capture, whose kept launches
-    then hold the replay's values) and held against plain; the graph's
-    launches a replay (its capture record) held equal to the first
-    frame's, and the replay bit-equal to it; then the graph dropped (it
-    was captured around the recorder's tensors) and the route timed
-    afresh, two warm frames and two replays, peak GiB over them -> (row,
-    last state)."""
+class SplatRecorder:
+    """While a frame renders, keep every chunk splat of its film that
+    takes the gather kernel (``Film.add_samples`` with ``lanes`` on the
+    card): the state in, p_film, radiance, weight, the GridLanes and the
+    state out."""
+
+    def __init__(self, film):
+        self.film, self.calls = film, []
+
+    def __enter__(self):
+        add = self.film.add_samples
+
+        def record(state, p_film, L, w, valid=None, lanes=None):
+            new = add(state, p_film, L, w, valid=valid, lanes=lanes)
+            if lanes is not None:
+                self.calls.append(dict(state=state, p=p_film, L=L, w=w,
+                                       lanes=lanes, out=new))
+            return new
+
+        self.film.add_samples = record
+        return self
+
+    def __exit__(self, *exc):
+        del self.film.add_samples
+
+
+def check_splats(film, calls) -> dict:
+    """Each recorded chunk splat (SplatRecorder) against splat_plain on
+    the card and against the lane-order serial reference (the card's own
+    footprint entries of the chunk's valid lanes through the CPU's
+    deterministic scatter), bit for bit."""
     import torch
+    from trace_tpu_torch.core import spectrum as spec
+    from trace_tpu_torch.core.math import scatter_add
+    from trace_tpu_torch.ops.splat import splat_plain
+
+    k = film.fp_x * film.fp_y
+    plain = serial = True
+    err = 0.0
+    for c in calls:
+        s, nv = c["state"], c["lanes"].n_valid
+        xyz = spec.rgb_to_xyz(c["L"]) * c["w"][:, None]
+        twin = splat_plain(film, s, c["p"], xyz, c["lanes"])
+        flat, wf = film.footprint(c["p"][:nv])
+        contrib = wf[:, None] * xyz[:nv].repeat_interleave(k, dim=0)
+        ref = (scatter_add(s.xyz.cpu().reshape(-1, 3), flat.cpu(),
+                           contrib.cpu()).reshape(s.xyz.shape),
+               scatter_add(s.weight_sum.cpu().reshape(-1), flat.cpu(),
+                           wf.cpu()).reshape(s.weight_sum.shape))
+        for got, tw, r in zip(c["out"][:2], twin, ref):
+            plain &= torch.equal(got, tw)
+            serial &= torch.equal(got.cpu(), r)
+            err = max(err, float((got - tw).abs().max()),
+                      float((got.cpu() - r).abs().max()))
+    return dict(calls=len(calls),
+                valid_lanes=sorted({c["lanes"].n_valid for c in calls}),
+                plain_equal=plain, serial_equal=serial, max_abs_err=err)
+
+
+def splat_times(film, calls, reps=50) -> list:
+    """Per recorded chunk splat: the kernel graph-timed on its inputs,
+    the plain twin with CUDA events, the parent's route on the same
+    lanes graph-timed (Film.add_samples' scatter, the padded lanes'
+    radiance and weight zeroed: PyTorch's deterministic index_put_), and
+    the byte bound (the valid lanes' p_film and xyz read once, the film's
+    xyz and weight sum read and written once, the table)."""
+    import torch
+    from trace_tpu_torch.core import spectrum as spec
+    from trace_tpu_torch.ops.splat import splat_kernel, splat_plain
+
+    rows = []
+    for c in calls:
+        s, p, lanes = c["state"], c["p"], c["lanes"]
+        xyz = spec.rgb_to_xyz(c["L"]) * c["w"][:, None]
+        v = torch.arange(p.shape[0], device=p.device) < lanes.n_valid
+        L0 = torch.where(v[:, None], c["L"], 0.0)
+        w0 = torch.where(v, c["w"], 0.0)
+        nbytes = (lanes.n_valid * 5 * 4 + film.width * film.height * 4 * 4
+                  * 2 + lanes.table.numel() * 4)
+        bound_ms, bound_by = bound(0, nbytes)
+        ms = graph_ms(lambda: splat_kernel(film, s, p, xyz, lanes), reps)
+        rows.append(dict(
+            lanes=p.shape[0], valid_lanes=lanes.n_valid, ms=ms,
+            plain_ms=cuda_ms(lambda: splat_plain(film, s, p, xyz, lanes),
+                             3),
+            library_ms=graph_ms(lambda: film.add_samples(s, p, L0, w0,
+                                                         valid=v), reps),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+            bound_share=bound_ms / ms))
+    return rows
+
+
+def frame16(integ, scene, rec, time_splats=False):
+    """Phase 16a's frame on the frame graph's route: the view's first
+    frame (its body run eagerly) with the sweep, prologue and splat
+    launches counted from 0 and its chunk splats recorded (SplatRecorder);
+    the second, which captures the body and replays it, under ``rec`` (a
+    CaptureRecorder of the capture, whose kept launches then hold the
+    replay's values) and held against plain; the graph's launches a
+    replay (its capture record) held equal to the first frame's, and the
+    replay bit-equal to it; each recorded splat against splat_plain and
+    the serial reference (check_splats), and with ``time_splats`` timed
+    (splat_times); then the graph and the records dropped (it was
+    captured around the recorder's tensors) and the route timed afresh,
+    two warm frames and two replays, peak GiB over them -> (row, last
+    state)."""
+    import torch
+    from trace_tpu_torch.ops.splat import splat_kernel
     from trace_tpu_torch.ops.sweep import block_entry_kernel, sweep_kernel
 
+    film = integ.camera.film
     sweep_kernel.reset_counts()
     block_entry_kernel.reset_counts()
-    first = integ.render(scene)
+    splat_kernel.reset_counts()
+    with SplatRecorder(film) as splats:
+        first = integ.render(scene)
     eager = dict(sweep=sweep_kernel.launches,
-                 prologue=block_entry_kernel.launches)
+                 prologue=block_entry_kernel.launches,
+                 splat=splat_kernel.launches)
     with rec:
         second = integ.render(scene)
     torch.cuda.synchronize()
@@ -5145,15 +5265,20 @@ def frame16(integ, scene, rec):
     bit_equal = all(torch.equal(x, y) for x, y in zip(first, second))
     del first, second
     integ.frame_graphs = None
+    splat = check_splats(film, splats.calls)
+    if time_splats:
+        splat["times"] = splat_times(film, splats.calls)
+    del splats
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     times, state = timed_frames(integ, scene, n=2)
     return dict(frame_ms=times, ms=float(np.mean(times)), launches=replay,
                 first_frame_launches=eager, replay_bit_equal=bit_equal,
                 prologue=pro, sweep=swp, kept_launches=len(kept),
                 dead_launches=sum(r["live"] == 0 for r in kept),
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                useful_rays=integ.last_useful_rays,
+                splat=splat, peak_gib=torch.cuda.max_memory_allocated()
+                / 2**30, useful_rays=integ.last_useful_rays,
                 queue_drops=integ.last_queue_drops), state
 
 
@@ -5267,7 +5392,8 @@ def slice16(dev, card, scene, replay_1024_ms, t_all):
         # Every launch of the 256^2 graph (its dead chunks too), every
         # CAPTURE_STRIDE-th of the 512^2 one.
         stride = 1 if res == 256 else CAPTURE_STRIDE
-        row, states[res] = frame16(integ, scene, CaptureRecorder(stride))
+        row, states[res] = frame16(integ, scene, CaptureRecorder(stride),
+                                   time_splats=res == 256)
         n_pix = n_pix_of(cam)
         row["lanes"], row["chunks"] = n_pix, -(-n_pix // (1 << 16))
         row["workload_mrays"] = (n_pix * spp * (1 + n_lights) * 2
@@ -5288,11 +5414,30 @@ def slice16(dev, card, scene, replay_1024_ms, t_all):
             f"({row['kept_launches']}, {row['dead_launches']} with no live "
             f"lane) vs plain: prologue {row['prologue']}, sweep "
             f"{row['sweep']}; card {card}")
+        sp = row["splat"]
+        log("16a", t0, f"{name}: the first frame's {sp['calls']} chunk "
+            f"splats through the gather kernel (valid lanes "
+            f"{sp['valid_lanes']}; launches "
+            f"{row['first_frame_launches']['splat']}, a replay "
+            f"{row['launches']['splat']}): bit-equal "
+            f"to splat_plain {sp['plain_equal']}, to the serial reference "
+            f"{sp['serial_equal']}, max abs err {sp['max_abs_err']:.3e}"
+            + "".join(f"; chunk of {t['valid_lanes']} valid lanes: kernel "
+                      f"{t['ms']:.4f} ms graph-timed, plain "
+                      f"{t['plain_ms']:.3f}, the scatter {t['library_ms']:.4f}"
+                      f", bound {t['bound_ms']:.5f} ({t['bound_by']}, "
+                      f"{100 * t['bound_share']:.1f}%)"
+                      for t in sp.get("times", ())) + f"; card {card}")
         if row["queue_drops"] != 0 or row["launches"]["sweep"] <= 0 or \
                 row["launches"]["prologue"] != row["launches"]["sweep"] or \
                 row["launches"] != row["first_frame_launches"] or \
                 not row["replay_bit_equal"]:
             raise AssertionError(f"[16a] {name}: {row}")
+        if row["launches"]["splat"] != row["chunks"] * spp \
+                or sp["calls"] != row["chunks"] * spp \
+                or not (sp["plain_equal"] and sp["serial_equal"]):
+            raise AssertionError(f"[16a] {name}: chunk splats: {sp}, "
+                                 f"launches {row['launches']}")
         if prologue_disagrees(row["prologue"]) or disagrees(row["sweep"]) \
                 or row["sweep"]["t_bits_mismatch"] \
                 or row["kept_launches"] < min(2, row["launches"]["sweep"]) \
@@ -5835,6 +5980,7 @@ def main() -> int:
     from trace_tpu_torch.ops import intersect as TI
     from trace_tpu_torch.ops import sweep as TS
     from trace_tpu_torch.ops.bvh_walk import walk_kernel
+    from trace_tpu_torch.ops.splat import splat_kernel
     from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
                                            sweep_plain)
     from trace_tpu_torch.sampler import uniform as U
@@ -5854,13 +6000,14 @@ def main() -> int:
     # -- 1: builds, one nvcc per source, in parallel ------------------------
     t0 = time.perf_counter()
     libs = (sweep_kernel, block_entry_kernel, TI.intersect_kernel,
-            walk_kernel)
+            walk_kernel, splat_kernel)
     with ThreadPoolExecutor() as ex:   # nvcc runs outside the GIL
         list(ex.map(lambda k: k.lib.load(), libs))
     t_nvcc = time.perf_counter() - t0
     native.load()
     regs = ptxas_summary("".join(k.lib.build_log for k in libs))
-    log(1, t0, f"built sweep, prologue, intersect and walk kernels (nvcc "
+    log(1, t0, f"built sweep, prologue, intersect, walk and splat kernels "
+        f"(nvcc "
         f"{t_nvcc:.2f} s, in parallel) and SAH builder; sweep CTA: "
         f"{TS.SWEEP_WARPS} warps per {TS.KERNEL_BLOCK_RAYS} rays; "
         f"registers/spill "
@@ -6419,6 +6566,8 @@ def main() -> int:
     cfg4 = {f"config4_{r}_launches": s16[f"mesh1m_whitted_{r}_{spp}spp"][
         "launches"] for r, spp in ((256, 1), (512, 4))}
     mxu16 = s16["mxu_vs_intersect"]
+    splat16 = {r: s16[f"mesh1m_whitted_{r}_{spp}spp"]["splat"]
+               for r, spp in ((256, 1), (512, 4))}
     # -- 17: bench config 6 --------------------------------------------------
     del s16
     torch.cuda.empty_cache()
@@ -6520,6 +6669,17 @@ def main() -> int:
              scene_query_oracle_launches=s11c["oracle_launches"],
              graph_ms=mxu16["intersect_graph_ms"]),
         dict(s12["entry"], **walk15),
+        # The gather splat: launches in 16a's 256^2 frame (the benchmark
+        # cell's two chunks), timed on its full chunk; the tail chunk's
+        # row (1,028 valid lanes) and the 512^2 frame's launches beside.
+        dict(entry("splat", "trace_tpu/film/film.py:195",
+                   cfg4["config4_256_launches"]["splat"],
+                   max(v["max_abs_err"] for v in splat16.values()),
+                   splat16[256]["times"][0],
+                   source="trace_tpu_torch/csrc/splat.cu",
+                   library_key="library_ms"),
+             config4_512_launches=cfg4["config4_512_launches"]["splat"],
+             chunks=splat16[256]["times"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -18,7 +18,8 @@ Prints one JSON line: per span name and step, calls, host ms, self host
 ms, kernels, device ms and idle ms; the counters; what the spans and
 counters read (lane use of the chunks and of the sweep launches, host
 reads and their wait, also by the span that reads, device ms launched
-inside ``intersect`` and ``film.splat``); the host window of each pass;
+inside ``intersect`` and ``film.splat``, the gather kernel's splats a
+frame); the host window of each pass;
 the cost of a span off and on; the card's name and power limit. Needs a
 CUDA device.
 """
@@ -143,6 +144,9 @@ def readings(rows, within, counters, n_steps):
         "sweep_launches_per_step": (counters["sweep_launches"] / n_steps
                                     if "sweep_launches" in counters
                                     else None),
+        "film_splat_gathers_per_step": (
+            counters["film_splat_gathers"] / n_steps
+            if "film_splat_gathers" in counters else None),
     }
 
 

@@ -28,7 +28,8 @@ def test_every_module_is_listed():
                  "wavefront.lights", "film.png", "sampler.distribution",
                  "sampler.stratified", "utils.stats", "utils.compare",
                  "io.obj", "accel.bvh", "accel.wbvh", "ops.bvh_walk",
-                 "parallel.render", "parallel.sppm", "core.bounds"):
+                 "parallel.render", "parallel.sppm", "core.bounds",
+                 "ops.splat"):
         assert "trace_tpu_torch." + name in MODULES
 
 

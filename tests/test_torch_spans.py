@@ -258,3 +258,6 @@ def test_span_table_attributes_launches_and_gaps():
     assert read["host_reads_per_step"] == 1
     assert read["host_read_wait_ms_per_step"] == pytest.approx(0.010)
     assert read["sweep_lane_use_pct"] is None
+    assert read["film_splat_gathers_per_step"] is None
+    assert FS.readings(rows, within, {"film_splat_gathers": 4.0}, 2)[
+        "film_splat_gathers_per_step"] == 2.0

@@ -7,8 +7,11 @@ with ceil() offsets in x and floor() in y, the one-pixel-wider footprint,
 unfiltered splats added after the weight normalization, and the vertical
 flip on save. Two splats: ``add_samples_grid`` when the lanes are the
 complete sample-bounds grid (each filter-footprint offset is one shifted
-slice-add, no scatter), and ``add_samples``, the scatter over any lanes.
-Both add in the same order on every run, on the card too.
+slice-add, no scatter), and ``add_samples``, the scatter over any lanes;
+on the card a chunk of the render loop (``lanes``: a range of the grid)
+takes ops/splat.py's gather kernel instead, which adds a pixel's lanes in
+the order the CPU's scatter does. Each adds in the same order on every
+run, on the card too.
 """
 from __future__ import annotations
 
@@ -20,7 +23,8 @@ import torch
 
 from ..core import spectrum as spec
 from ..core.math import scatter_add
-from ..utils.stats import spanned
+from ..ops.splat import splat_kernel
+from ..utils.stats import count, spanned
 from .filters import LanczosSincFilter, weights
 
 F32 = torch.float32
@@ -97,17 +101,24 @@ class Film:
         step = r / np.float32(FILTER_TABLE_WIDTH)
         return [float(v) for v in inv_r], [float(v) for v in step]
 
-    @spanned("film.splat")
-    def add_samples(self, state: FilmState, p_film, L_rgb, sample_weight,
-                    valid=None) -> FilmState:
-        """Scatter N samples over their filter footprints (film.jl:134-164).
+    def filter_table(self, device) -> torch.Tensor:
+        """The filter's weights at the table's 16 x 16 quantized points,
+        [off_y, off_x] float32 on ``device``: the values ``add_samples``
+        evaluates entry by entry, by the same operations, once."""
+        _, (step_x, step_y) = self._table_points()
+        o = torch.arange(FILTER_TABLE_WIDTH, dtype=F32, device=device)
+        shape = (FILTER_TABLE_WIDTH, FILTER_TABLE_WIDTH)
+        return weights(self.filter,
+                       ((o + 0.5) * step_x)[None, :].expand(shape),
+                       ((o + 0.5) * step_y)[:, None].expand(shape)
+                       ).contiguous()
 
-        p_film: [N, 2] 1-based continuous film coordinates; L_rgb: [N, 3];
-        sample_weight: [N]. ``valid`` ([N] bool, optional) disables lanes
-        entirely: their xyz and their filter weight. The footprint entries
-        go through a deterministic scatter (core.math.scatter_add: in
-        sample order on the CPU, as JAX's; the same order every run on the
-        card). Returns a new state."""
+    def footprint(self, p_film, valid=None):
+        """The scatter's entries: every lane's floor(2r) + 2 pixels an axis
+        from its footprint's corner, lane by lane (x fastest within a
+        lane) -> (flat pixel index int64 [N * fy * fx], clamped onto the
+        film; filter weight [N * fy * fx], 0 outside the footprint or
+        where ``valid`` is False)."""
         dev = p_film.device
         d = p_film - 0.5
         r = self.filter.radius
@@ -121,7 +132,6 @@ class Film:
         p1y = (torch.floor(d[:, 1] + r[1]) + 1.0).clamp_max(
             float(self.crop_max[1]))
 
-        xyz = spec.rgb_to_xyz(L_rgb) * sample_weight[..., None]
         px = p0x[:, None] + torch.arange(self.fp_x, dtype=F32, device=dev)
         py = p0y[:, None] + torch.arange(self.fp_y, dtype=F32, device=dev)
         in_x = px <= p1x[:, None]                                 # [N, fx]
@@ -144,6 +154,48 @@ class Film:
         iy = (py - self.crop_min[1]).to(torch.int64)
         flat = (iy.clamp(0, self.height - 1)[:, :, None] * self.width
                 + ix.clamp(0, self.width - 1)[:, None, :]).reshape(-1)
+        return flat, wf
+
+    @spanned("film.splat")
+    def add_samples(self, state: FilmState, p_film, L_rgb, sample_weight,
+                    valid=None, lanes=None) -> FilmState:
+        """Scatter N samples over their filter footprints (film.jl:134-164).
+
+        p_film: [N, 2] 1-based continuous film coordinates; L_rgb: [N, 3];
+        sample_weight: [N]. ``valid`` ([N] bool, optional) disables lanes
+        entirely: their xyz and their filter weight. The footprint entries
+        (``footprint``) go through a deterministic scatter
+        (core.math.scatter_add: in sample order on the CPU, as JAX's; the
+        same order every run on the card).
+
+        ``lanes`` (ops/splat.py::GridLanes, in place of ``valid``): the
+        lanes are a chunk of the x-fastest sample grid, those from
+        ``lanes.n_valid`` on padding. On CUDA tensors such a chunk goes
+        through the gather kernel (one launch, counter
+        ``film_splat_gathers``), which reads no padded lane and adds each
+        pixel's lanes in the CPU scatter's order: the bits of that scatter
+        of the card's own entries wherever the valid lanes' radiance is
+        finite (the scatter's zero-weight entries carry 0 * inf = NaN onto
+        the film's edge pixels, the kernel adds a lane only where its
+        footprint covers). Elsewhere the padding is disabled as ``valid``
+        does it, radiance and weight zeroed, and the lanes scattered.
+        Returns a new state."""
+        if lanes is not None:
+            if valid is not None:
+                raise ValueError("add_samples: give valid or lanes, not "
+                                 "both")
+            if p_film.device.type == "cuda":
+                xyz = spec.rgb_to_xyz(L_rgb) * sample_weight[..., None]
+                new_xyz, new_ws = splat_kernel(self, state, p_film, xyz,
+                                               lanes)
+                count("film_splat_gathers", 1)
+                return FilmState(new_xyz, new_ws, state.splat_xyz)
+            valid = torch.arange(p_film.shape[0],
+                                 device=p_film.device) < lanes.n_valid
+            L_rgb = torch.where(valid[:, None], L_rgb, 0.0)
+            sample_weight = torch.where(valid, sample_weight, 0.0)
+        xyz = spec.rgb_to_xyz(L_rgb) * sample_weight[..., None]
+        flat, wf = self.footprint(p_film, valid)
         contrib = wf[:, None] * xyz.repeat_interleave(self.fp_x * self.fp_y,
                                                       dim=0)
         new_xyz = scatter_add(state.xyz.reshape(-1, 3).clone(), flat,

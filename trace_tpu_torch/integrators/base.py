@@ -10,25 +10,27 @@ the film. A sample pass over a chunk: identity-keyed camera samples, the
 film jitter confined to the sample's stratum (a StratifiedSampler's; the
 identity for the uniform sampler), ray generation, ``li``, then the
 splat: the stencil (``Film.add_samples_grid``, which offsets a cropped
-film by its crop window) when one chunk is the whole grid, otherwise the
-scatter (``Film.add_samples``) with the chunk's valid lanes. A lane's
-draws hang off its pixel, so every chunking draws the same samples; the
-splats differ only in their summation order. ``spp_per_dispatch`` (the
-JAX package's cap on the samples of one TPU dispatch, a relay
-workaround) is accepted for the signature only, stored and read nowhere:
-the port issues a chunk's samples one after another, so it has no
-dispatch to split. ``stats`` (a utils.stats.RenderStats) gathers the JAX
-twin's counters and the render's time.
+film by its crop window) when one chunk is the whole grid, otherwise
+``Film.add_samples`` with the chunk's range of the grid
+(ops/splat.py::GridLanes, its valid lanes first): the scatter on the
+CPU, the gather kernel on the card, which add each pixel's lanes in one
+order. A lane's draws hang off its pixel, so every chunking draws the
+same samples; the splats differ only in their summation order.
+``spp_per_dispatch`` (the JAX package's cap on the samples of one TPU
+dispatch, a relay workaround) is accepted for the signature only, stored
+and read nowhere: the port issues a chunk's samples one after another,
+so it has no dispatch to split. ``stats`` (a utils.stats.RenderStats)
+gathers the JAX twin's counters and the render's time.
 
 A frame is three parts: the per-view inputs (``frame_inputs``: the pixel
-grid and its ids, each chunk's lanes and ``valid`` mask, the strata, the
-key), the body (``frame_body``: the film zeroed, the chunk loop with its
-splats, the counts on the device) and one host read of the counts. An
-integrator that opts in (``frame_graph``) renders a view on the card
-through one CUDA graph of the body, captured under core/sync.py's
-``no_host_reads`` (integrators/fused.py::FrameGraphs): the view's first
-frame runs the body eagerly, each later one replays the graph;
-``replays`` says when a call takes this route.
+grid and its ids, each chunk's lanes and its range of the grid, the
+strata, the key), the body (``frame_body``: the film zeroed, the chunk
+loop with its splats, the counts on the device) and one host read of the
+counts. An integrator that opts in (``frame_graph``) renders a view on
+the card through one CUDA graph of the body, captured under
+core/sync.py's ``no_host_reads`` (integrators/fused.py::FrameGraphs):
+the view's first frame runs the body eagerly, each later one replays the
+graph; ``replays`` says when a call takes this route.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ import torch
 from ..core.ray import scale_differentials
 from ..film.film import FilmState
 from ..lights.lights import num_lights
+from ..ops.splat import GridLanes
 from ..sampler import uniform as U
 from ..sampler.uniform import UniformSampler
 from ..utils.stats import count, span, spanned
@@ -73,9 +76,10 @@ def stratum_arrays(sampler, spp: int, device):
 class FrameInputs(NamedTuple):
     """A frame's per-view inputs (``SamplerIntegrator.frame_inputs``).
     ``chunks``: per chunk of lanes, (pixels [C, 2] int32, the same as
-    float32, pixel ids [C], valid [C] bool or None where one chunk is the
-    grid, the valid lane count); ``lanes``: the grid's lane count; ``lo``,
-    ``scale``: stratum_arrays; ``key``: the sampler's base key."""
+    float32, pixel ids [C], its range of the grid: a GridLanes with the
+    filter's table, or None where one chunk is the grid);
+    ``lanes``: the grid's lane count; ``lo``, ``scale``: stratum_arrays;
+    ``key``: the sampler's base key."""
     chunks: list
     lanes: int
     lo: torch.Tensor
@@ -161,24 +165,26 @@ class SamplerIntegrator:
     def frame_inputs(self, device) -> FrameInputs:
         """The frame's inputs that depend only on the view (module
         docstring); host copies, so made outside a graph."""
+        film = self.camera.film
         pixels = self.pixel_grid(device)
         ids = U.pixel_ids(pixels)
         n = pixels.shape[0]
         chunk = min(self.pixel_chunk, n)
+        (x0, y0), (x1, _) = film.sample_bounds()
+        table = film.filter_table(device) if chunk < n else None
         chunks = []
         for start in range(0, n, chunk):
-            part, p_ids, valid = pixels[start:start + chunk], ids, None
+            part, p_ids, lanes = pixels[start:start + chunk], ids, None
             if chunk < n:
                 p_ids = ids[start:start + chunk]
-                valid = torch.ones(chunk, dtype=torch.bool, device=device)
+                lanes = GridLanes(start, part.shape[0], (x0, y0),
+                                  x1 - x0 + 1, table)
                 pad = chunk - part.shape[0]
                 if pad:   # the tail: lanes at pixel (0, 0), invalid
                     zeros = part.new_zeros((pad, 2))
                     part = torch.cat([part, zeros])
                     p_ids = torch.cat([p_ids, U.pixel_ids(zeros)])
-                    valid[chunk - pad:] = False
-            chunks.append((part, part.to(F32), p_ids, valid,
-                           min(chunk, n - start)))
+            chunks.append((part, part.to(F32), p_ids, lanes))
         lo, scale = stratum_arrays(self.sampler,
                                    self.sampler.samples_per_pixel, device)
         return FrameInputs(chunks, n, lo, scale,
@@ -195,22 +201,21 @@ class SamplerIntegrator:
         grid_hw = (y1 - y0 + 1, x1 - x0 + 1)
         drops = torch.zeros((), dtype=torch.int64, device=dev)
         useful = torch.zeros((), dtype=torch.int64, device=dev)
-        for part, pix_f, ids, valid, n_valid in inputs.chunks:
+        for part, pix_f, ids, lanes in inputs.chunks:
             with span("chunk"):
                 count("chunk_lanes_issued", part.shape[0])
-                count("chunk_lanes_valid", n_valid)
+                count("chunk_lanes_valid", part.shape[0] if lanes is None
+                      else lanes.n_valid)
                 for s in range(self.sampler.samples_per_pixel):
                     p_film, l, weight, aux = self.sample(
                         scene, part, pix_f, ids, inputs.key, s, inputs.lo,
                         inputs.scale)
-                    if valid is None:
+                    if lanes is None:
                         state = film.add_samples_grid(
                             state, p_film, l, weight, (x0, y0), grid_hw)
                     else:
-                        state = film.add_samples(
-                            state, p_film,
-                            torch.where(valid[:, None], l, 0.0),
-                            torch.where(valid, weight, 0.0), valid=valid)
+                        state = film.add_samples(state, p_film, l, weight,
+                                                 lanes=lanes)
                     drops = drops + aux["queue_drops"]
                     useful = useful + aux["useful_rays"]
         return state, torch.stack([drops, useful])

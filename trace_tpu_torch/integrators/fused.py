@@ -60,12 +60,14 @@ def kernel_counts() -> dict:
     """Launches so far of each hand-written kernel, by wrapper."""
     from ..ops.bvh_walk import walk_kernel
     from ..ops.intersect import intersect_kernel
+    from ..ops.splat import splat_kernel
     from ..ops.sweep import block_entry_kernel, sweep_kernel
 
     return {"sweep": sweep_kernel.launches,
             "prologue": block_entry_kernel.launches,
             "bvh_walk": walk_kernel.launches,
-            "intersect": intersect_kernel.launches}
+            "intersect": intersect_kernel.launches,
+            "splat": splat_kernel.launches}
 
 
 def uncapturable(scene):
