@@ -299,15 +299,17 @@ Phases (each prints lines with its seconds; any failure raises):
         iteration's pairs fit one pair chunk);
      c. two NCCL ranks on cuda:0 try one all_reduce: what the card does
         is recorded (expected: refused, a duplicate GPU), not gated.
- 14. SPPM's fused blocks, SPPMIntegrator(fused_iterations=True), one CUDA
-     graph a block (details in chiprun_out/slice14.json):
+ 14. SPPM's fused blocks, SPPMIntegrator(fused_iterations=True): a block
+     length's first block in a view eager, its second captured as a CUDA
+     graph and replayed, each later one replayed (details in
+     chiprun_out/slice14.json):
      a. mesh1m_sppm_1024_fused1, bench config 3's settings on the 1M mesh
         (1024^2, 262144 photons, depth 8, radius 0.075, seed 0),
         fused_block=1, four iterations (the first warm) through render,
         with the launch counts set to 0 before it: each block's state
         bit-equal to the stepwise state of the same iteration (run first,
         each iteration timed); each block's ms (CUDA events), the first
-        holding the eager warm-up and the capture (host ms of each), the
+        the eager body, the second holding the capture (its host ms), the
         graph's replay alone, pair totals and pair chunks K, launches per
         replay (counted while the graph was captured), peak GiB; every
         32nd captured sweep launch and its prologue, and the last, held
@@ -321,18 +323,19 @@ Phases (each prints lines with its seconds; any failure raises):
      b. anim_relight_128_standin_fused2, bench config 5's settings on the
         stand-in (as 7c: 128^2, 2 iterations of 65536 photons a frame,
         depth 5, radius 0.055, moving lights and translation),
-        fused_block=2: two frames stepwise and fused, each frame bit-equal,
-        timed (the fused frame holding its view's warm-up and capture), the
-        replay alone, launches per replay, pair totals, K, peak GiB; the
-        device-busy share of a replay.
+        fused_block=2: two frames stepwise and fused, each frame bit-equal
+        and timed; a frame is a view of its own, run once, so its block
+        runs eagerly and captures nothing (none may appear); the fused
+        frame's launches, pair totals, K, peak GiB; the device-busy share
+        of a fused frame.
  15. the walk kernel on bench config 3's 1M-ray calls (details in
      chiprun_out/slice15.json):
      a. mesh1m_sppm_1024_wbvh, config 3's settings (1024^2, 262144
         photons, depth 8, radius 0.075, seed 0) on the 1M mesh behind
         accelerator="wbvh": a warm iteration and two timed with their
         phases' ms and walk launches (counts set to 0 before each), peak
-        GiB; then _fused1, blocks of
-        one iteration replayed as one CUDA graph each: each block's state
+        GiB; then _fused1, blocks of one iteration (the first eager, the
+        second captured, each later one replayed): each block's state
         bit-equal to the stepwise state of the same iteration, its ms, the
         replay alone, walk launches per replay, one host sync a block, the
         busy share of a replay, peak GiB;
@@ -378,8 +381,8 @@ Phases (each prints lines with its seconds; any failure raises):
         walk's first block takes its pair buffer at the walk's bound, the
         later ones at the size its counts give), the replay alone,
         launches per replay, one host sync a block, overflow reruns;
-        after scene.bump_version() a block
-        captures anew;
+        after scene.bump_version() the view's second block captures
+        anew;
      d. on row 6's call (66,688 camera rays x 5,000 triangles) the matmul
         route (accel/mxu.py::MXUAccelerator) against csrc/intersect.cu:
         hits and untied ids equal, t within 2e-6 relative, and each
@@ -4796,8 +4799,8 @@ def slice14(dev, card, scene, t_all):
     cap = fz.fused_graphs.captures[0]
     same = [states_equal(r["state"], s) for r, s in zip(rows, step_states)]
     blocks_ms = [(r["it"], round(r["ms"], 2)) for r in rows]
-    log("14a", t0, f"fused_block=1: blocks {blocks_ms} ms (block 1 holds "
-        f"the warm-up {cap['warm_ms']:.1f} ms and the capture "
+    log("14a", t0, f"fused_block=1: blocks {blocks_ms} ms (block 1 runs "
+        f"the body eagerly; block 2 holds the capture "
         f"{cap['capture_ms']:.1f} ms, host); pair totals {[r['totals'] for r in rows]}, K "
         f"{rows[-1]['pair_chunks']} of {fz.pair_chunk}; launches per replay "
         f"{cap['launches']}; the run's launches {counts}; peak "
@@ -4822,8 +4825,9 @@ def slice14(dev, card, scene, t_all):
         raise AssertionError(f"captured launches disagree: {pro_tot} "
                              f"{swp_tot}")
     syncs = replay_syncs(fz, scene, rows[-2]["state"], n_it)
+    it_n = torch.full((), n_it, dtype=torch.int64, device=dev)
     busy = device_busy("14a", t0, card, "fused block (replay)",
-                       lambda: blk.replay(rows[-2]["state"], n_it),
+                       lambda: blk.replay(rows[-2]["state"], it_n),
                        replay_ms, require=False)
     # The cost of launching chunks with no live lane (the fused body's
     # static route): one such chunk's prologue, sweep and tensor ops,
@@ -4895,29 +4899,25 @@ def slice14(dev, card, scene, t_all):
         f_ms, f_state = timed(lambda: frame(fz5, shift))
         peak5 = torch.cuda.max_memory_allocated() / 2**30
         counts5 = kernel_counts()
-        cap5 = fz5.fused_graphs.captures[-1]
-        blk5 = next(iter(fz5.fused_graphs.graphs.values()))
-        r_ms = cuda_ms(blk5.graph.replay, 3)
         row = dict(shift=shift, stepwise_ms=s_ms, fused_ms=f_ms,
-                   replay_ms=r_ms, capture=cap5, run_launches=counts5,
+                   captures=len(fz5.fused_graphs.captures),
+                   run_launches=counts5,
                    pair_totals=fz5.last_pair_totals.tolist(),
                    pair_chunks=fz5.fused_pair_chunks, peak_gib=peak5,
                    same_bits=states_equal(f_state, s_state),
                    gathered=int((f_state.tau.sum(-1) > 0).sum()))
         frames.append(row)
         log("14b", t0, f"frame {shift}: stepwise {s_ms:.2f} ms, fused "
-            f"{f_ms:.2f} ms (warm-up {cap5['warm_ms']:.1f} ms and capture "
-            f"{cap5['capture_ms']:.1f} ms, host; the graph's replay alone "
-            f"{r_ms:.2f} ms); launches per replay {cap5['launches']}; pair "
-            f"totals {row['pair_totals']}, K {row['pair_chunks']}; peak "
-            f"{peak5:.2f} GiB; same bits {row['same_bits']}; pixels with "
-            f"tau > 0 {row['gathered']}; card {card}")
-        if not row["same_bits"] or cap5["n_iters"] != 2 \
-                or cap5["launches"]["sweep"] <= 0 or row["gathered"] <= 0 \
+            f"{f_ms:.2f} ms (the view's one block, run eagerly; captures "
+            f"{row['captures']}); the fused frame's launches {counts5}; "
+            f"pair totals {row['pair_totals']}, K {row['pair_chunks']}; "
+            f"peak {peak5:.2f} GiB; same bits {row['same_bits']}; pixels "
+            f"with tau > 0 {row['gathered']}; card {card}")
+        if not row["same_bits"] or row["captures"] or row["gathered"] <= 0 \
                 or counts5["sweep"] <= 0:
             raise AssertionError(f"config-5 fused frame {shift}: {row}")
-    busy5 = device_busy("14b", t0, card, "fused block (replay)",
-                        lambda: blk5.replay(f_state, 1), r_ms,
+    busy5 = device_busy("14b", t0, card, "fused frame (eager)",
+                        lambda: frame(fz5, FUSED_ANIM_SHIFTS[-1]), f_ms,
                         require=False)
     fz5.save(f_state, 2)
     out["anim_relight_128_standin_fused2"] = dict(
@@ -5063,8 +5063,9 @@ def slice15(dev, card, scene, t_all):
     blk = next(iter(fz.fused_graphs.graphs.values()))
     replay_ms = cuda_ms(blk.graph.replay, 3)
     syncs = replay_syncs(fz, view, blocks[-2]["state"], n_it)
+    it_n = torch.full((), n_it, dtype=torch.int64, device=dev)
     fused_busy = device_busy("15a", t0, card, "fused block (replay)",
-                             lambda: blk.replay(blocks[-2]["state"], n_it),
+                             lambda: blk.replay(blocks[-2]["state"], it_n),
                              replay_ms, require=False)
     img = fz.to_image(final, n_it)
     finite = bool(torch.isfinite(img).all())
@@ -5072,7 +5073,7 @@ def slice15(dev, card, scene, t_all):
     fz.save(final, n_it)
     log("15a", t0, f"fused_block=1 on wbvh: blocks "
         f"{[(r['it'], round(r['ms'], 2)) for r in blocks]} ms (block 1 "
-        f"holds the warm-up {cap['warm_ms']:.1f} ms and the capture "
+        f"runs the body eagerly; block 2 holds the capture "
         f"{cap['capture_ms']:.1f} ms, host); the graph's replay alone "
         f"{replay_ms:.2f} ms; launches per replay {cap['launches']}; the "
         f"run's launches {counts}; pair totals "
@@ -5287,9 +5288,10 @@ def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
     through fused blocks of one iteration (a block whose pairs overflow
     an instance walk's buffer runs again stepwise); each block's state
     against the stepwise state of its iteration, one host sync a block,
-    the replay's ms and launches; then a bumped scene version
-    must capture anew. ``stats``: the clusters accelerator's, read over
-    the stepwise run and over the fused one (its captures)."""
+    the replay's ms and launches; then after a bumped scene version the
+    view's second block must capture anew. ``stats``: the clusters
+    accelerator's, read over the stepwise run and over the fused one (its
+    captures)."""
     import torch
     from trace_tpu_torch.integrators.fused import kernel_counts
 
@@ -5316,7 +5318,7 @@ def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
     busy = NOT_PROFILED
     n_caps = len(graphs.captures)
     scene.bump_version()
-    fz.render(scene, n_iterations=1)
+    fz.render(scene, n_iterations=2)   # eager, then captured
     recaptured = len(graphs.captures) - n_caps
     finite = bool(torch.isfinite(fz.to_image(final, n_it)).all())
     row = dict(stepwise_ms=step_ms,
@@ -5333,7 +5335,7 @@ def fused16(phase, t0, card, scene, integ_of, n_it, label, stats=None):
         f"ms; fused blocks {[(r['it'], round(r['ms'], 2)) for r in rows]} "
         f"ms, overflow reruns {fz.fused_reruns} (instance pair capacity "
         f"{row['pair_capacity']}), cluster stages {stages}, captures "
-        f"{[(c['warm_ms'], c['capture_ms'], c['launches']) for c in caps]}"
+        f"{[(c['capture_ms'], c['launches']) for c in caps]}"
         f"; the replay alone {replay_ms:.2f} ms; each block == stepwise "
         f"{same}; host syncs a block {syncs}; recaptures after "
         f"bump_version {recaptured}; finite {finite}; card {card}")
@@ -6538,8 +6540,6 @@ def main() -> int:
     f14 = {name: dict(
         fused_sppm_1024_launches_per_replay=c14["capture"]["launches"][name],
         fused_sppm_1024_run_launches=c14["run_launches"][name],
-        anim_fused_launches_per_replay=[r["capture"]["launches"][name]
-                                        for r in a14],
         anim_fused_run_launches=[r["run_launches"][name] for r in a14])
         for name in ("sweep", "prologue")}
     # -- 15: the walk kernel on config 3's 1M-ray calls --------------------

@@ -1,17 +1,22 @@
-"""The Whitted frame as one CUDA graph (integrators/fused.py::FrameGraphs,
+"""The Whitted frame as one CUDA graph (integrators/fused.py::Graphs,
 SamplerIntegrator.frame_inputs / frame_body / replays).
 
 On the card a Whitted frame is a replay of the view's graph of
 ``frame_body``, captured under ``no_host_reads``. The body's sync-free
 route must give the eager frame's bits (film and counts) and read nothing
 on the host; the view key must drop the graph when the view or a setting
-changes; every other call (the CPU, animated geometry, ``stats``,
-instanced scenes, the path integrator, ``frame_graph=False``, an
-accelerator that may read the host) takes the eager route. A view's first
-frame runs the body eagerly and its second captures. On the CPU the
-graph's plumbing (captures, replays, counters, clones) runs with a stub in
-place of the capture; the ``cuda`` test replays real graphs on the card.
+changes (for SPPM's fused blocks too); every other call (the CPU,
+animated geometry, ``stats``, instanced scenes, the path integrator,
+``frame_graph=False``, an accelerator that may read the host) takes the
+eager route. A view's first frame runs the body eagerly and its second
+captures. On the CPU the graph's plumbing (captures, replays, counters,
+clones) runs with a stub in place of the capture; the ``cuda`` test
+replays real graphs on the card, and checks that no reference cycle
+keeps an integrator's graphs alive.
 """
+import gc
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +26,7 @@ from trace_tpu_torch.core import transform as T
 from trace_tpu_torch.core.sync import no_host_reads
 from trace_tpu_torch.integrators import fused as F
 from trace_tpu_torch.integrators.path import PathIntegrator
+from trace_tpu_torch.integrators.sppm import SPPMIntegrator
 from trace_tpu_torch.integrators.whitted import WhittedIntegrator
 from trace_tpu_torch.lights import lights as TL
 from trace_tpu_torch.materials.materials import MatteMaterial
@@ -215,45 +221,63 @@ def test_cpu_and_path_renders_stay_eager(scenes):
     assert a.frame_graphs is None and path.frame_graphs is None
 
 
-def test_view_key_drops_the_graph(scenes):
-    """FrameGraphs keys a view on its objects and settings: the same view
-    keeps its graph; a bumped version, a new camera or sampler, and each
-    changed setting drop it."""
+# Per integrator, the settings its graphs are kept under, each with
+# another value.
+VIEW_SETTINGS = {
+    "whitted": (("max_depth", 3), ("pixel_chunk", 64),
+                ("queue_capacity", 500), ("level_caps", (9,)),
+                ("sort_materials", True)),
+    "sppm": (("seed", 2), ("max_depth", 3), ("n_iterations", 5),
+             ("photons_per_iteration", 512), ("pixel_chunk", 64),
+             ("pair_chunk", 2048)),
+}
+
+
+@pytest.mark.parametrize("kind", ["whitted", "sppm"])
+def test_view_key_drops_the_graph(scenes, kind):
+    """Graphs keys a view on its objects and the integrator's
+    ``graph_settings``, for the Whitted frame and SPPM's blocks alike: the
+    same view keeps its graphs; a bumped version (Scene.bump_version), a
+    new camera or sampler, each changed setting and another scene drop
+    them, and the keys that ran eagerly with them."""
     scene = scenes["shadows"].with_geometry(scenes["shadows"].triangles,
                                             scenes["shadows"].accel)
-    integ = _integ("drops")
-    graphs = F.FrameGraphs()
+    integ = (_integ("drops") if kind == "whitted" else SPPMIntegrator(
+        TSph.build_camera(16, "unused.png"), device="cpu"))
+    graphs = F.Graphs("test.replay")
 
     def kept():
-        new = graphs._view(integ, scene)
-        out = graphs.frame is not None
-        assert new != out
-        graphs.frame = "captured"
+        graphs._view(integ, scene)
+        out = bool(graphs.graphs)
+        assert out == bool(graphs.eager)
+        graphs.eager.add("key")
+        graphs.graphs["key"] = "captured"
         return out
 
     assert not kept()
     assert kept()
+    version = scene._version
     scene.bump_version()
+    assert scene._version == version + 1
     assert not kept()
     integ.camera = TSph.build_camera(16, "unused.png")
     assert not kept()
-    integ.sampler = UniformSampler(1, seed=1)
-    assert not kept()
+    if kind == "whitted":
+        integ.sampler = UniformSampler(1, seed=1)
+        assert not kept()
     assert kept()
-    for name, value in (("max_depth", 3), ("pixel_chunk", 64),
-                        ("queue_capacity", 500), ("level_caps", (9,)),
-                        ("sort_materials", True)):
+    for name, value in VIEW_SETTINGS[kind]:
         setattr(integ, name, value)
         assert not kept(), name
         assert kept(), name
-    integ.sampler.seed = 2
-    assert not kept()
-    integ.sampler.samples_per_pixel = 2
-    assert not kept()
-    assert kept()
-    other = scenes["mesh"]
-    assert graphs._view(integ, other)
-    assert graphs.frame is None
+    if kind == "whitted":
+        integ.sampler.seed = 2
+        assert not kept()
+        integ.sampler.samples_per_pixel = 2
+        assert not kept()
+        assert kept()
+    graphs._view(integ, scenes["mesh"])
+    assert not graphs.graphs and not graphs.eager
 
 
 class _StubGraph:
@@ -264,25 +288,24 @@ class _StubGraph:
         self.body, self.out = body, out
 
     def replay(self):
-        with collect():   # a replay runs no Python: its counts are apart
-            state, counts = self.body()
-        for dst, src in zip(self.out[0], state):
-            dst.copy_(src)
-        self.out[1].copy_(counts)
+        # A replay runs no Python: its counts are apart.
+        with collect(), no_host_reads():
+            new = self.body()
+        F._map(torch.Tensor.copy_, self.out, new)
 
 
 def _stub_capture(dev, body):
-    with collect() as counted:
+    with collect() as counted, no_host_reads():
         out = body()
     rec = dict(capture_ms=0.0, launches={})
     return _StubGraph(body, out), out, rec, counted.as_dict()
 
 
-def _scribble(integ):
-    """Overwrite the graph's own output buffers, as the next replay
+def scribble(graphs):
+    """Overwrite every graph's own output buffers, as the next replay
     would: the states handed out must not change."""
-    for x in integ.frame_graphs.frame.state:
-        x.fill_(-1.0)
+    for graph in graphs.graphs.values():
+        F._map(lambda x: x.fill_(-1), graph.out)
 
 
 def test_graph_route_replays_with_a_stub(scenes, monkeypatch):
@@ -305,7 +328,7 @@ def test_graph_route_replays_with_a_stub(scenes, monkeypatch):
             held.append(integ.render(scene))
             assert (integ.last_queue_drops, integ.last_useful_rays) == (
                 eager.last_queue_drops, eager.last_useful_rays)
-    _scribble(integ)
+    scribble(integ.frame_graphs)
     assert all(_equal(s, ref) for s in held)
     c, w = got.as_dict(), want.as_dict()
     assert c["frame_graph_captures"] == 1 and c["frame_graph_replays"] == 2
@@ -321,7 +344,7 @@ def test_graph_route_replays_with_a_stub(scenes, monkeypatch):
     integ.camera = TMH.build_camera(16, "unused.png")
     with collect() as again:
         integ.render(scene)
-        assert graphs.frame is None   # a new view: its first frame eager
+        assert not graphs.graphs   # a new view: its first frame eager
         integ.render(scene)
     c = again.as_dict()
     assert c["frame_graph_captures"] == 1 and c["frame_graph_replays"] == 1
@@ -353,10 +376,10 @@ def test_cuda_frame_graph_replays_equal_eager_frames():
     with collect() as stats:
         for i in range(4):
             held.append(graphed.render(scene))
-            assert (graphed.frame_graphs.frame is None) == (i == 0)
+            assert ("frame" in graphed.frame_graphs.graphs) == (i > 0)
             assert (graphed.last_queue_drops, graphed.last_useful_rays) == (
                 eager.last_queue_drops, eager.last_useful_rays)
-    _scribble(graphed)
+    scribble(graphed.frame_graphs)
     torch.cuda.synchronize()
     assert all(_equal(s, ref) for s in held)
     c = stats.as_dict()
@@ -364,3 +387,13 @@ def test_cuda_frame_graph_replays_equal_eager_frames():
     rec = graphed.frame_graphs.captures
     print(f"frame graph capture: {rec}")
     assert len(rec) == 1 and rec[0]["launches"]["sweep"] > 0
+    # No reference cycle runs through the integrator's graphs: they go
+    # with its last reference, not at a later collection, which could
+    # fall inside another capture and invalidate it.
+    ref = weakref.ref(graphed)
+    gc.disable()
+    try:
+        del graphed
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -7,8 +7,10 @@ device and a fixed number of pair chunks run, the sweep launches every
 chunk, the walks run every depth, the Halton digit loops their full trip
 count. Each piece must give the stepwise bits, and so must whole renders
 (bit-equal: a fused block is the same arithmetic on the same lanes). On
-the CPU the body runs eagerly; on the card each block is a CUDA graph
-(integrators/fused.py; the ``cuda`` test, and chip_smoke.py phase 14).
+the CPU the body runs eagerly; on the card a block length's blocks after
+its first are replays of a CUDA graph (integrators/fused.py; a stub
+stands in for the capture on the CPU; the ``cuda`` test, and
+chip_smoke.py phase 14).
 
 Scenes: the shadows scene (spheres and brute-force triangles) at 16^2,
 and a soup of 300 matte triangles under a point light (the sweep route,
@@ -17,6 +19,8 @@ and a soup of 300 matte triangles under a point light (the sweep route,
 overflows; on the CPU the pair sums do not depend on the chunking (the
 deterministic scatter adds pairs one after another, in pair order).
 """
+import gc
+import weakref
 from dataclasses import fields
 
 import numpy as np
@@ -396,22 +400,44 @@ def test_instance_pair_overflow_reruns_stepwise(scenes, first_capacity):
     assert not hasattr(geom, "pair_capacity")
 
 
-def test_bump_version_drops_captured_view(scenes):
-    """BlockGraphs keys a scene view on its version: bump_version()
-    drops the captured graphs."""
-    scene = scenes["soup"].with_geometry(scenes["soup"].triangles,
-                                         scenes["soup"].accel)
-    integ = _integ("soup")
-    graphs = F.BlockGraphs()
-    graphs._view(integ, scene)
-    graphs.graphs[(1, 1, ())] = "captured"
-    graphs._view(integ, scene)
-    assert graphs.graphs
-    v = scene._version
-    scene.bump_version()
-    assert scene._version == v + 1
-    graphs._view(integ, scene)
-    assert not graphs.graphs
+def test_graph_route_replays_with_a_stub(scenes, monkeypatch):
+    """The card's route for fused blocks on the CPU, a stub in place of
+    the capture (test_torch_frame_graph.py's): one-iteration blocks of one
+    view, the first runs the body eagerly, the second captures it and
+    each from the second on replays it. Every block equals the stepwise
+    state of its iteration, a held state is not overwritten by the next
+    replay, and each replay adds the eager block's counters."""
+    from test_torch_frame_graph import _stub_capture, scribble
+    from trace_tpu_torch.utils.stats import collect
+
+    scene = scenes["soup"]
+    monkeypatch.setattr(F, "_capture", _stub_capture)
+    monkeypatch.setattr(F, "on_card", lambda device: True)
+    stepwise = _integ("soup")
+    integ = _integ("soup", fused_iterations=True, fused_block=1)
+    ref, held, counted = [], [], []
+    a = b = None
+    for it in range(1, 5):
+        a = stepwise.render(scene, n_iterations=it, state=a,
+                            start_iteration=it)
+        with collect() as c:
+            b = integ.render(scene, n_iterations=it, state=b,
+                             start_iteration=it)
+        ref.append(a)
+        held.append(b)
+        counted.append(c.as_dict())
+        assert bool(integ.fused_graphs.graphs) == (it > 1)
+    graphs = integ.fused_graphs
+    scribble(graphs)
+    assert all(_equal(x, y) for x, y in zip(held, ref))
+    assert [(r["n_iters"], r["pair_chunks"]) for r in graphs.captures] == [
+        (1, 1)]
+    eager, *replays = counted
+    assert "frame_graph_replays" not in eager and eager["sweep_launches"] > 0
+    for i, c in enumerate(replays):
+        assert c.pop("frame_graph_captures", 0) == (i == 0)
+        assert c.pop("frame_graph_replays") == 1
+        assert c == eager
 
 
 def test_wbvh_scene_fused_blocks_equal_stepwise(scenes):
@@ -439,8 +465,9 @@ def test_fused_settings_and_cost_analysis(scenes):
 
 @pytest.mark.cuda
 def test_cuda_fused_blocks_match_stepwise():
-    """On the card: fused blocks (CUDA graph replays) against the
-    stepwise path, bit for bit, through the sweep kernels."""
+    """On the card: fused blocks (eager first blocks and CUDA graph
+    replays) against the stepwise path, bit for bit, through the sweep
+    kernels; a capture at each block length's second block."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
@@ -452,10 +479,23 @@ def test_cuda_fused_blocks_match_stepwise():
     for block in (1, 2):
         integ = SPPMIntegrator(TMH.build_camera(32, "unused.png"),
                                fused_iterations=True, fused_block=block, **kw)
-        assert _equal(integ.render(scene), ref)
+        # A block length's first block runs eagerly and its second
+        # captures: with fused_block=2 the second render captures.
+        for _ in range(2):
+            assert _equal(integ.render(scene), ref)
         rec = integ.fused_graphs.captures
         assert [r["n_iters"] for r in rec] == {1: [1], 2: [2, 1]}[block]
         assert all(r["launches"]["sweep"] > 0 for r in rec)
+    # No reference cycle runs through the integrator's graphs: they go
+    # with its last reference, not at a later collection, which could
+    # fall inside another capture and invalidate it.
+    ref = weakref.ref(integ)
+    gc.disable()
+    try:
+        del integ
+        assert ref() is None
+    finally:
+        gc.enable()
 
 
 class _Counter(TorchDispatchMode):

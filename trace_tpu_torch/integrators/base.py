@@ -28,12 +28,14 @@ strata, the key), the body (``frame_body``: the film zeroed, the chunk
 loop with its splats, the counts on the device) and one host read of the
 counts. An integrator that opts in (``frame_graph``) renders a view on
 the card through one CUDA graph of the body, captured under
-core/sync.py's ``no_host_reads`` (integrators/fused.py::FrameGraphs):
-the view's first frame runs the body eagerly, each later one replays the
-graph; ``replays`` says when a call takes this route.
+core/sync.py's ``no_host_reads`` (integrators/fused.py::Graphs): the
+view's first frame runs the body eagerly, its second captures it, and
+each from the second on replays the graph; ``replays`` says when a call
+takes this route.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -48,7 +50,7 @@ from ..sampler.uniform import UniformSampler
 from ..utils.stats import count, span, spanned
 from . import common
 from .common import sanitize_radiance
-from .fused import FrameGraphs, uncapturable
+from .fused import Graphs, on_card, uncapturable
 
 F32 = torch.float32
 PIXEL_CHUNK = 1 << 16
@@ -150,7 +152,7 @@ class SamplerIntegrator:
     def replays(self, scene, geometry=None, geometry_transform=None,
                 geometry_accel=None) -> bool:
         """Whether ``render`` with these arguments takes the frame graph
-        (integrators/fused.py::FrameGraphs): the integrator opts in
+        (integrators/fused.py::Graphs): the integrator opts in
         (``frame_graph``); no geometry arguments (an animated frame); no
         ``stats`` (RenderStats synchronises at its timers); no instanced
         geometry (the instance walks' pair buffers are sized on SPPM's
@@ -160,7 +162,7 @@ class SamplerIntegrator:
                 and geometry_transform is None and geometry_accel is None
                 and self.stats is None and not scene.instanced
                 and uncapturable(scene) is None
-                and scene.device.type == "cuda")
+                and on_card(scene.device))
 
     def frame_inputs(self, device) -> FrameInputs:
         """The frame's inputs that depend only on the view (module
@@ -234,8 +236,10 @@ class SamplerIntegrator:
         if self.replays(scene, geometry, geometry_transform,
                         geometry_accel):
             if self.frame_graphs is None:
-                self.frame_graphs = FrameGraphs()
-            state, counts = self.frame_graphs.run(self, scene)
+                self.frame_graphs = Graphs("whitted.replay")
+            state, counts = self.frame_graphs.run(
+                self, scene, "frame", partial(self.frame_body, scene),
+                lambda: self.frame_inputs(scene.device))
             self._read_counts(counts)
             return state
         scene = common.apply_geometry(scene, common.prepare_geometry(

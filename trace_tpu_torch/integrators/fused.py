@@ -1,27 +1,26 @@
 """CUDA graphs of the render path on the card: SPPM's fused blocks and the
-Whitted frame.
+Whitted frame, kept by one cache (:class:`Graphs`).
 
 The card's counterpart of the JAX package's one-dispatch iteration block
 (trace_tpu/integrators/sppm.py::_iterations_fused) is a CUDA graph of
-``SPPMIntegrator._iterations_body``: captured once per (scene view,
-block length, pair chunks) and replayed with nothing read back inside the
-block. Before a block's capture it runs once eagerly on the current stream
-(on a copy of the state, the result dropped), so that modules load and
-the caches of the path (device constants, a view's area-light tables)
-fill outside the capture. A Whitted frame (``SamplerIntegrator.
+``SPPMIntegrator._iterations_body``, one per block length, pair chunks
+and instance walks' pair capacities; a Whitted frame (``SamplerIntegrator.
 frame_body``: the film zeroed, every chunk's sample passes and splats) is
-one graph per scene view (:class:`FrameGraphs`), which pays only where a
-view is rendered again: a view's first frame is its body run eagerly on
-the current stream (the same warm-up, and the caller's frame), its second
-captures the body, and each frame from the second on is a replay. A
-capture runs under ``torch.cuda.set_sync_debug_mode("error")``, so any
-host read in the body raises. Nothing falls back: a capture or a kernel
-build that fails raises.
+one graph. Both are kept per scene view and follow one policy, which pays
+only where a body runs again: a key's first call in a view runs the body
+eagerly on the current stream under ``no_host_reads`` (the warm-up:
+modules load and the caches of the path -- device constants, a view's
+area-light tables -- fill outside a capture, and the caller gets its
+result), its second call captures the body, and each call from the second
+on replays it. A render of a view that runs each key once captures
+nothing. A capture runs under ``torch.cuda.set_sync_debug_mode("error")``,
+so any host read in the body raises. Nothing falls back: a capture or a
+kernel build that fails raises.
 
-A block's replay copies the caller's state into the graph's input buffers
-and the iteration number into a device scalar (a fill), replays, and
-clones the outputs; a frame's replay clones the film. A state the caller
-holds is never written.
+A replay copies the caller's inputs into the graph's input buffers (a
+block's state and its first iteration, a device scalar; a frame has
+none), replays, clones the outputs and adds again the host counters its
+capture made. A state the caller holds is never written.
 
 Every accelerator of the package has a route with no host read under
 core/sync.py's ``no_host_reads``: the sweep's every chunk, the walk
@@ -35,7 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from dataclasses import fields
+from dataclasses import fields, is_dataclass
 
 import torch
 
@@ -47,7 +46,7 @@ from ..accel.wbvh import WBVHAccelerator
 from ..core.sync import no_host_reads
 from ..ops.intersect import IntersectAccelerator
 from ..ops.sweep import SweepAccelerator
-from ..utils.stats import collect, count, spanned
+from ..utils.stats import collect, count, span
 
 # The accelerators whose routes read nothing on the host under
 # no_host_reads.
@@ -68,6 +67,11 @@ def kernel_counts() -> dict:
             "bvh_walk": walk_kernel.launches,
             "intersect": intersect_kernel.launches,
             "splat": splat_kernel.launches}
+
+
+def on_card(device) -> bool:
+    """Whether bodies on ``device`` run through graphs: the card's."""
+    return torch.device(device).type == "cuda"
 
 
 def uncapturable(scene):
@@ -99,27 +103,31 @@ def _sync_errors():
         torch.cuda.set_sync_debug_mode(prev)
 
 
-def _clone(state):
-    """A copy of a dataclass (SPPMState) or NamedTuple (FilmState) of
-    tensors."""
-    if isinstance(state, tuple):
-        return type(state)(*[x.clone() for x in state])
-    return type(state)(*[getattr(state, f.name).clone()
-                         for f in fields(state)])
+def _map(fn, x, *ys):
+    """``fn`` on each tensor of ``x`` (a tensor, or a tuple, NamedTuple or
+    dataclass of them, such as SPPMState and FilmState) and the tensors
+    in the same places of ``ys``, in ``x``'s structure."""
+    if torch.is_tensor(x):
+        return fn(x, *ys)
+    if is_dataclass(x):
+        return type(x)(*[_map(fn, *[getattr(z, f.name) for z in (x, *ys)])
+                         for f in fields(x)])
+    out = [_map(fn, *zs) for zs in zip(x, *ys)]
+    return type(x)(*out) if hasattr(x, "_fields") else tuple(out)
 
 
 def _capture(dev, body):
-    """``body()`` captured into a CUDA graph under :func:`_sync_errors` ->
-    (the graph, the captured outputs, a record: capture host ms and kernel
-    launches per replay by wrapper, the host counters the captured body
-    added). The capture's counters go to a RenderStats of its own, not the
-    ambient one: a capture runs nothing."""
+    """``body()`` captured into a CUDA graph under :func:`_sync_errors`
+    and ``no_host_reads`` -> (the graph, the captured outputs, a record:
+    capture host ms and kernel launches per replay by wrapper, the host
+    counters the captured body added). The capture's counters go to a
+    RenderStats of its own, not the ambient one: a capture runs nothing."""
     t0 = time.perf_counter()
     before = kernel_counts()
     graph = torch.cuda.CUDAGraph()
     with collect() as counted:
         with torch.cuda.graph(graph):
-            with _sync_errors():
+            with _sync_errors(), no_host_reads():
                 out = body()
     torch.cuda.synchronize(dev)
     after = kernel_counts()
@@ -128,169 +136,79 @@ def _capture(dev, body):
     return graph, out, record, counted.as_dict()
 
 
-class _Block:
-    """One captured block: its input buffers, graph and outputs."""
+class _Graph:
+    """One captured body: its input buffers, graph and outputs, and what
+    else it reads (``made``). It holds no reference to the integrator:
+    a cycle would leave a dropped graph to the garbage collector, which
+    may free it during another capture and so invalidate that one."""
 
-    def __init__(self, integ, scene, state, it: int, n_iters: int, pixels,
-                 key, light_cdf, light_pmf, pair_chunks: int):
-        dev = state.ld.device
+    def __init__(self, dev, body, made, inputs):
         # The graph reads these at their capture addresses: keep them.
-        self.inputs = (scene, pixels, key, light_cdf, light_pmf)
-        self.state = _clone(state)
-        self.it = torch.full((), it, dtype=torch.int64, device=dev)
+        self.made = made
+        self.inputs = _map(torch.clone, inputs)
+        self.graph, self.out, self.record, self.counted = _capture(
+            dev, lambda: body(made, *self.inputs))
 
-        def body():
-            return integ._iterations_body(
-                scene, self.state, n_iters, self.it, pixels, key, light_cdf,
-                light_pmf, pair_chunks)
-
-        t0 = time.perf_counter()
-        body()
-        torch.cuda.synchronize(dev)
-        warm_ms = (time.perf_counter() - t0) * 1e3
-        self.graph, out, rec, _ = _capture(dev, body)
-        self.out, self.totals, self.pairs = out
-        self.record = dict(n_iters=n_iters, pair_chunks=pair_chunks,
-                           warm_ms=warm_ms, **rec)
-
-    @spanned("sppm.replay")
-    def replay(self, state, it: int):
-        for f in fields(state):
-            getattr(self.state, f.name).copy_(getattr(state, f.name))
-        self.it.fill_(it)
+    def replay(self, *inputs):
+        """``inputs`` (the capture's structure) -> a copy of the outputs."""
+        _map(torch.Tensor.copy_, self.inputs, inputs)
         self.graph.replay()
-        return _clone(self.out), self.totals.clone(), self.pairs.clone()
+        # The host counts the body made at capture, once a replay.
+        for name, n in self.counted.items():
+            count(name, n)
+        return _map(torch.clone, self.out)
 
 
-class _Views:
-    """Graphs captured for one scene view at a time: a view other than the
-    last one (another scene, light table, accelerator or sweep tables,
-    triangle table, camera or sampler, a scene whose version was bumped,
-    or changed integrator ``settings``) drops every graph first
-    (``drop``). ``captures`` lists each capture's record
-    (:func:`_capture`)."""
+class Graphs:
+    """One integrator's captured bodies, for one scene view at a time: a
+    view other than the last one (another scene, light table, accelerator
+    or sweep tables, triangle table, camera or sampler, a scene whose
+    version was bumped, or other ``integ.graph_settings()``) drops every
+    graph first. Within a view a body is kept by key, under the module
+    docstring's policy. ``captures`` lists each capture's record
+    (:func:`_capture`, with the caller's fields). ``name``: the span of a
+    replay. Counters: ``frame_graph_captures``, ``frame_graph_replays``."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.view = None
+        self.eager = set()   # the keys whose first call ran eagerly
+        self.graphs = {}
         self.captures = []
 
-    def settings(self, integ) -> tuple:
-        raise NotImplementedError
-
-    def drop(self) -> None:
-        raise NotImplementedError
-
-    def _view(self, integ, scene) -> bool:
-        """Whether the view is new (its graphs dropped)."""
+    def _view(self, integ, scene) -> None:
+        """Drop every graph when the view is not the last one."""
         # A refit replaces the sweep's tables in place.
         objects = (scene, scene.lights, scene.accel,
                    getattr(scene.accel, "tables", None), scene.triangles,
                    integ.camera, getattr(integ, "sampler", None))
-        settings = self.settings(integ) + (scene._version,)
+        settings = integ.graph_settings() + (scene._version,)
         if self.view is None or settings != self.view[1] or any(
                 a is not b for a, b in zip(objects, self.view[0])):
-            self.drop()
+            self.eager.clear()
+            self.graphs.clear()
             self.view = (objects, settings)
-            return True
-        return False
 
-
-class BlockGraphs(_Views):
-    """One SPPM integrator's captured blocks, for one scene view at a time
-    (:class:`_Views`). A block is captured per block length, pair chunks
-    and the instance walks' pair capacities. A capture's record holds its
-    block length, pair chunks and warm-up host ms besides (the wrappers
-    count launches while the graph is captured, and a replay repeats
-    them)."""
-
-    def __init__(self):
-        super().__init__()
-        self.graphs = {}
-
-    def drop(self) -> None:
-        self.graphs.clear()
-
-    def settings(self, integ) -> tuple:
-        return (integ.seed, integ.max_depth, integ.n_iterations,
-                integ.photons_per_iteration, integ.pixel_chunk,
-                integ.pair_chunk)
-
-    def run(self, integ, scene, state, it: int, n_iters: int, pixels, key,
-            light_cdf, light_pmf, pair_chunks: int):
-        """Iterations it .. it + n_iters - 1 from ``state`` -> (state, pair
-        totals [n_iters], instance pairs [G]), by a replay of the block's
-        graph (captured here at its first use)."""
+    def run(self, integ, scene, key, body, make, inputs=(), **record):
+        """``body(make(), *inputs)`` -> the body's outputs, by the policy
+        (module docstring): the key's first call in the view runs the
+        body, each later one replays the graph its second captured.
+        ``make()``: what the body reads besides its ``inputs`` (tensors),
+        made outside any graph for the eager run and the capture, and
+        kept with the graph. ``record``: fields for the capture's
+        record."""
         check_capturable(scene)
         self._view(integ, scene)
-        key_ = (n_iters, pair_chunks,
-                tuple(integ.fused_pair_capacity.get(g)
-                      for g in scene.instanced))
-        blk = self.graphs.get(key_)
-        if blk is None:
-            blk = _Block(integ, scene, state, it, n_iters, pixels, key,
-                         light_cdf, light_pmf, pair_chunks)
-            self.graphs[key_] = blk
-            self.captures.append(blk.record)
-        return blk.replay(state, it)
-
-
-class _Frame:
-    """One captured Whitted frame: its per-view inputs, graph and
-    outputs."""
-
-    def __init__(self, integ, scene):
-        # The graph reads these at their capture addresses: keep them.
-        self.scene, self.inputs = scene, integ.frame_inputs(scene.device)
-
-        def body():
+        graph = self.graphs.get(key)
+        if graph is None and key not in self.eager:
+            self.eager.add(key)
             with no_host_reads():
-                return integ.frame_body(scene, self.inputs)
-
-        self.graph, out, self.record, self.counted = _capture(
-            scene.device, body)
-        self.state, self.counts = out
-
-    @spanned("whitted.replay")
-    def replay(self):
-        self.graph.replay()
-        # The host counts the body made at capture, once a frame.
-        for name, n in self.counted.items():
-            count(name, n)
-        return _clone(self.state), self.counts
-
-
-class FrameGraphs(_Views):
-    """One Whitted integrator's captured frame (``frame``), for one scene
-    view at a time (:class:`_Views`; the settings: seed, samples per pixel,
-    depth, pixel chunk, queue capacity, level caps, material sort).
-    Counters: ``frame_graph_captures``, ``frame_graph_replays``."""
-
-    def __init__(self):
-        super().__init__()
-        self.frame = None
-
-    def drop(self) -> None:
-        self.frame = None
-
-    def settings(self, integ) -> tuple:
-        caps = integ.level_caps
-        return (integ.sampler.seed, integ.sampler.samples_per_pixel,
-                integ.max_depth, integ.pixel_chunk, integ.queue_capacity,
-                None if caps is None else tuple(caps), integ.sort_materials)
-
-    def run(self, integ, scene):
-        """One frame -> (film state, counts int64 [2]: queue drops, useful
-        rays). A view's first frame runs the body eagerly; its second
-        captures the body, and each from the second on replays it.
-        ``counts`` is the graph's own buffer on a replay: read it before
-        the next frame."""
-        if self._view(integ, scene):
-            with no_host_reads():
-                return integ.frame_body(
-                    scene, integ.frame_inputs(scene.device))
-        if self.frame is None:
-            self.frame = _Frame(integ, scene)
-            self.captures.append(self.frame.record)
+                return body(make(), *inputs)
+        if graph is None:
+            graph = self.graphs[key] = _Graph(scene.device, body, make(),
+                                              inputs)
+            self.captures.append(dict(record, **graph.record))
             count("frame_graph_captures", 1)
         count("frame_graph_replays", 1)
-        return self.frame.replay()
+        with span(self.name):
+            return graph.replay(*inputs)

@@ -2,7 +2,8 @@
 trace_tpu/integrators/sppm.py, the stepwise path, on one device or
 sharded over a torch.distributed mesh).
 
-Five phases per iteration, each a method so a caller can time it:
+Five phases an iteration (``_iteration``, on either route), each a
+method so a caller can time it:
 
 1. ``_camera_pass_all``: one bounce walk per pixel, in chunks of
    ``pixel_chunk`` pixels (wavefront/sppm_camera.py); visible points land
@@ -24,16 +25,17 @@ Ld is not scaled by the path throughput.
 
 Fused blocks (``fused_iterations``, JAX's ``_iterations_fused``): up to
 ``fused_block`` iterations run as one block through the sync-free body
-``_iterations_body`` -- every depth and every sweep chunk (core/sync.py),
-full Halton trips, the pair total kept on the device and a fixed number
-of pair chunks, the instance walks' pairs in buffers of a fixed size
-(accel/instances.py) -- which gives the stepwise state bit for bit. On
-the card each block is one CUDA graph replay (integrators/fused.py); the
-host reads once a block whether the pairs overflowed the chunks or an
+``_iterations_body`` -- every depth and every sweep chunk
+(core/sync.py), full Halton trips, the pair total kept on the device and
+a fixed number of pair chunks, the instance walks' pairs in buffers of a
+fixed size (accel/instances.py) -- which gives the stepwise state bit
+for bit. On the card a block length's blocks after its first in a scene
+view are replays of one CUDA graph (integrators/fused.py); the host
+reads once a block whether the pairs overflowed the chunks or an
 instance walk's buffer (the block then runs again stepwise, and later
 blocks take larger ones). ``fused_cost_analysis`` counts a block's work
-from its static shapes. ``fused_unroll`` is kept for the JAX
-signature: a block is straight-line code in a graph either way.
+from its static shapes. ``fused_unroll`` is kept for the JAX signature:
+a block is straight-line code in a graph either way.
 
 Animated geometry (``render(geometry=, geometry_transform=)``) and
 relit frames (``render_frames``) run the same stepwise path on a scene
@@ -66,7 +68,7 @@ from ..sampler import uniform as U
 from ..utils.stats import span, spanned
 from ..wavefront import path as WP
 from ..wavefront import shade as S
-from . import common
+from . import common, fused
 
 F32 = torch.float32
 M32 = 0xFFFFFFFF
@@ -375,9 +377,24 @@ class SPPMIntegrator:
         every pixel sums the same pairs in the same order as the host loop
         (and no row gathers a long run of them: the card's deterministic
         scatter adds one row's entries one after another); pairs past
-        ``chunks`` chunks are left out, and the caller checks the total."""
+        ``chunks`` chunks are left out, and the caller checks the total.
+        With a mesh, rank r takes the r-th ``pair_chunk`` pairs of each
+        (mesh size) x ``pair_chunk`` (parallel.sppm.pair_pass_sharded)."""
         tables = pair_tables(vp, radius, splat["p"], splat["d"],
                              splat["beta"], kinds)
+        if self.mesh is not None:
+            from ..parallel.sppm import pair_pass_sharded
+
+            size = self._mesh_size()
+            for base in range(0, total, size * self.pair_chunk):
+                phi, m_cnt = pair_pass_sharded(
+                    self, self.mesh, self.shard_axis, phi, m_cnt, total,
+                    offsets, splat["p"], splat["d"], splat["beta"],
+                    splat["start"], vp, radius, sorted_vp,
+                    size * self.pair_chunk,
+                    [base + r * self.pair_chunk for r in range(size)],
+                    tables=tables)
+            return phi, m_cnt
         if chunks is None:
             phi, m_cnt = phi.clone(), m_cnt.clone()
             bases = range(0, total, self.pair_chunk)
@@ -585,7 +602,7 @@ class SPPMIntegrator:
 
     def step(self, scene, state: SPPMState, iteration: int, pixels, key,
              light_cdf, light_pmf, geom=None) -> SPPMState:
-        """One iteration: camera pass, grid, photon walk, pairs, update;
+        """One iteration (``_iteration``, the pair total read on the host);
         with a mesh, the passes split as the constructor says. ``geom``:
         a frame's (triangles, sweep tables) from
         common.prepare_geometry, rendered in place of the scene's (one
@@ -594,7 +611,19 @@ class SPPMIntegrator:
             if self.mesh is not None:
                 raise ValueError("animated geometry renders on one device")
             scene = common.apply_geometry(scene, geom)
-        it_key = U.fold_in(key, iteration)
+        return self._iteration(scene, state, iteration, pixels, key,
+                               light_cdf, light_pmf)[0]
+
+    def _iteration(self, scene, state: SPPMState, it, pixels, key,
+                   light_cdf, light_pmf, pair_chunks: int | None = None):
+        """One iteration's five phases: camera pass, grid, photon walk,
+        pairs, update -> (state, pair total). ``it`` a host int: the total
+        is read on the host and the pair chunks cover it (``step``). ``it``
+        a device int64 scalar with ``pair_chunks``: the total stays on the
+        device and that many pair chunks run (``_iterations_body``, under
+        no_host_reads). A mesh splits the passes and ``stats`` counts the
+        iteration; neither is set in a fused block."""
+        it_key = U.fold_in(key, it)
         n_pix = pixels.shape[0]
         # The walks' self-hit counts, kept on the device for _count's read;
         # the sharded passes keep none.
@@ -612,7 +641,7 @@ class SPPMIntegrator:
                 scene, pixels, it_key, tally=tally.get("camera"))
         grid = self._build_grid(vp, state.radius)
         np_iter = self.photons_per_iteration
-        halton_base = ((iteration - 1) * np_iter) & M32
+        halton_base = ((it - 1) * np_iter) & M32
         if self.mesh is not None:
             from ..parallel.sppm import photon_walk_sharded
 
@@ -631,28 +660,26 @@ class SPPMIntegrator:
                                           tally=tally.get("photon"))
         counts = splat["count"]
         offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-        with span("host_read"):
-            total = int(counts.sum())
-        if self.mesh is not None:
-            phi, m_cnt = self._pair_loop_sharded(
-                state.phi, state.m, total, offsets, splat, vp, state.radius,
-                grid["sorted_vp"], self.vp_kinds(scene))
+        if pair_chunks is None:
+            with span("host_read"):
+                total = int(counts.sum())
         else:
-            phi, m_cnt = self._pair_loop(state.phi, state.m, total, offsets,
-                                         splat, vp, state.radius,
-                                         grid["sorted_vp"],
-                                         self.vp_kinds(scene))
+            total = counts.sum()
+        phi, m_cnt = self._pair_loop(state.phi, state.m, total, offsets,
+                                     splat, vp, state.radius,
+                                     grid["sorted_vp"], self.vp_kinds(scene),
+                                     chunks=pair_chunks)
         if self.stats is not None:
-            self._count(vp, grid, splat, total, pixels.shape[0], tally)
+            self._count(vp, grid, splat, total, n_pix, tally)
         return self._update_pixels(
             SPPMState(state.ld, state.tau, state.radius, state.n, phi,
-                      m_cnt), ld_add)
+                      m_cnt), ld_add), total
 
     def _iterations_body(self, scene, state: SPPMState, n_iters: int,
                          it_start, pixels, key, light_cdf, light_pmf,
                          pair_chunks: int):
         """Iterations it_start .. it_start + n_iters - 1 (``it_start`` a
-        device int64 scalar) with no host read: ``step``'s phases on their
+        device int64 scalar) with no host read: ``_iteration`` on the
         sync-free routes (core/sync.py), the pair total on the device and
         ``pair_chunks`` pair chunks. -> (state, pair totals int64
         [n_iters], instance pairs int64 [G]: per instanced geometry, the
@@ -661,30 +688,14 @@ class SPPMIntegrator:
         The state is ``step``'s bit for bit while every total is at most
         pair_chunks * pair_chunk and no geometry's pairs exceed its
         capacity."""
-        kinds = self.vp_kinds(scene)
-        np_iter = self.photons_per_iteration
         totals = []
         route = StaticRoute(self.fused_pair_capacity)
         with no_host_reads(route):
             for k in range(n_iters):
-                it = it_start + k
-                ld_add, vp = self._camera_pass_all(scene, pixels,
-                                                   U.fold_in(key, it))
-                grid = self._build_grid(vp, state.radius)
-                splat = self._photon_walk_all(
-                    scene, ((it - 1) * np_iter) & M32, light_cdf, light_pmf,
-                    grid)
-                counts = splat["count"]
-                offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-                total = counts.sum()
-                phi, m_cnt = self._pair_loop(
-                    state.phi, state.m, total, offsets, splat, vp,
-                    state.radius, grid["sorted_vp"], kinds,
-                    chunks=pair_chunks)
+                state, total = self._iteration(
+                    scene, state, it_start + k, pixels, key, light_cdf,
+                    light_pmf, pair_chunks)
                 totals.append(total)
-                state = self._update_pixels(
-                    SPPMState(state.ld, state.tau, state.radius, state.n, phi,
-                              m_cnt), ld_add)
         zero = torch.zeros((), dtype=torch.int64, device=pixels.device)
         most = [torch.stack(route.counts.get(g, []) + [zero]).max()
                 for g in scene.instanced]
@@ -692,8 +703,8 @@ class SPPMIntegrator:
 
     def _fused_block(self, scene, state: SPPMState, it: int, n_iters: int,
                      pixels, key, light_cdf, light_pmf) -> SPPMState:
-        """Iterations it .. it + n_iters - 1 as one block: on the card a
-        replay of the block's CUDA graph (integrators/fused.py), on the CPU
+        """Iterations it .. it + n_iters - 1 as one block: on the card
+        through ``fused_graphs`` (integrators/fused.py), on the CPU
         ``_iterations_body`` itself. One host read: the largest pair total
         of the block (``last_pair_totals`` keeps them all), with the
         instance walks' pair counts. A block whose pairs overflowed
@@ -703,19 +714,23 @@ class SPPMIntegrator:
         geometry's buffer is sized from its counts after its first block
         and after an overflow: twice the count's next power of two."""
         k = self.fused_pair_chunks
-        if state.ld.device.type == "cuda":
-            from .fused import BlockGraphs
+        it0 = torch.full((), it, dtype=torch.int64, device=pixels.device)
+        made = (pixels, key, light_cdf, light_pmf)
 
+        def body(made, start, first):
+            return self._iterations_body(scene, start, n_iters, first, *made,
+                                         k)
+
+        if fused.on_card(state.ld.device):
             if self.fused_graphs is None:
-                self.fused_graphs = BlockGraphs()
+                self.fused_graphs = fused.Graphs("sppm.replay")
+            capacities = tuple(self.fused_pair_capacity.get(g)
+                               for g in scene.instanced)
             out, totals, over = self.fused_graphs.run(
-                self, scene, state, it, n_iters, pixels, key, light_cdf,
-                light_pmf, k)
+                self, scene, (n_iters, k, capacities), body, lambda: made,
+                (state, it0), n_iters=n_iters, pair_chunks=k)
         else:
-            it0 = torch.full((), it, dtype=torch.int64, device=pixels.device)
-            out, totals, over = self._iterations_body(
-                scene, state, n_iters, it0, pixels, key, light_cdf,
-                light_pmf, k)
+            out, totals, over = body(made, state, it0)
         self.last_pair_totals = totals
         with span("host_read"):
             most, *pairs = torch.cat([totals.max()[None], over]).tolist()
@@ -737,6 +752,11 @@ class SPPMIntegrator:
         self.fused_pair_chunks = max(k, -(-most // self.pair_chunk))
         return state
 
+    def graph_settings(self) -> tuple:
+        """The settings a block's graph is kept under (fused.Graphs)."""
+        return (self.seed, self.max_depth, self.n_iterations,
+                self.photons_per_iteration, self.pixel_chunk, self.pair_chunk)
+
     def _mesh_size(self) -> int:
         from ..parallel.render import axis_group
 
@@ -750,26 +770,6 @@ class SPPMIntegrator:
                                               device=pixels.device)])
         valid = torch.arange(n_pix + pad, device=pixels.device) < n_pix
         return part, valid
-
-    def _pair_loop_sharded(self, phi, m_cnt, total: int, offsets,
-                           splat: dict, vp: VisiblePoints, radius, sorted_vp,
-                           kinds=()):
-        """All ``total`` pairs in super-chunks of (mesh size) x
-        ``pair_chunk``, rank r taking the r-th chunk of each
-        (parallel.sppm.pair_pass_sharded) -> (phi, M)."""
-        from ..parallel.sppm import pair_pass_sharded
-
-        size = self._mesh_size()
-        super_chunk = size * self.pair_chunk
-        tables = pair_tables(vp, radius, splat["p"], splat["d"],
-                             splat["beta"], kinds)
-        for base in range(0, total, super_chunk):
-            bases = [base + r * self.pair_chunk for r in range(size)]
-            phi, m_cnt = pair_pass_sharded(
-                self, self.mesh, self.shard_axis, phi, m_cnt, total, offsets,
-                splat["p"], splat["d"], splat["beta"], splat["start"], vp,
-                radius, sorted_vp, super_chunk, bases, tables=tables)
-        return phi, m_cnt
 
     def _count(self, vp, grid, splat, total, n_pix, tally=None) -> None:
         """Add an iteration's counters to ``stats`` in one host read; with

@@ -38,6 +38,15 @@ class WhittedIntegrator(SamplerIntegrator):
         self.level_caps = level_caps
         self.frame_graph = bool(frame_graph)
 
+    def graph_settings(self) -> tuple:
+        """The settings a frame graph is kept under (integrators/fused.py::
+        Graphs): seed, samples per pixel, depth, pixel chunk, queue
+        capacity, level caps, material sort."""
+        caps = self.level_caps
+        return (self.sampler.seed, self.sampler.samples_per_pixel,
+                self.max_depth, self.pixel_chunk, self.queue_capacity,
+                None if caps is None else tuple(caps), self.sort_materials)
+
     def _resolve_caps(self, n: int):
         caps = self.level_caps
         if caps is None:
