@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (trace_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+(``--parent``: another checkout, e.g. the parent commit unpacked with
+``git archive`` into a git-ignored directory, whose cells' images phase
+18c holds bit-equal to this checkout's.)
 
 Phases (each prints lines with its seconds; any failure raises):
   0. device: the card's name and power limit, torch and CUDA versions;
-  1. build: the sweep, prologue, intersect, walk and splat kernels (one
+  1. build: the sweep, prologue, intersect, walk, splat and Threefry
+     kernels (one
      nvcc each, in parallel, sm_90a) with ptxas's registers and spills
      per kernel arm, the sweep's warps per CTA, and the SAH builder (g++);
   2. kernel vs plain, on the main paths' own launches:
@@ -424,6 +429,28 @@ Phases (each prints lines with its seconds; any failure raises):
         the terrain, at its shared-memory key capacity and at 64 keys a
         row (most rows sorted in the global workspace): bit-equal to
         plain.
+18. the Threefry kernel (csrc/threefry.cu; details in
+    chiprun_out/slice18.json):
+     a. at the cells' shapes, each bit-equal to the plain twin and one
+        launch a call: fold_in of 65,536 and 1,048,576 lanes in the
+        callers' three forms (one key and a lane's datum, lane keys and a
+        scalar, lane keys and a lane's datum), uniform_lanes of [1M, 1],
+        [1M, 2] and [1M, 5], uniform(key, (65536, 2)); kernel (each
+        launch on its own copy of the inputs, 150 MB of them, so that
+        they come from HBM; and on one copy, from L2) and twin
+        graph-timed; the bound, the larger of bytes over 3.35 TB/s and
+        integer instructions over 16.7e12/s (THREEFRY_OPS a hash); ptxas's
+        registers and spills;
+     b. the benchmark cells mesh1m_whitted_256 and mesh1m_sppm_1024_fused
+        at seed 1234 through perfbench's drivers: the Threefry calls
+        (fold_in and uniform_lanes) of the eager first step against the
+        kernel's launches and the threefry_launches counter, the capture's
+        launches a replay, and the counter over a replay; the eager
+        step's calls replayed through the kernel and through the twin,
+        graph-timed (the step's Threefry ms after and before);
+     c. both cells' first three steps (eager, capture, replay) rendered by
+        scripts/torch_threefry_images.py for this checkout and, with
+        --parent, for that one: every output array's SHA-256 equal.
 The last three lines are the kernels' JSON line (each kernel with its
 launches on the main path, max abs error, ms, plain ms, bound ms and what
 bounds it, and the library call's ms: for the prologue, the torch
@@ -446,6 +473,8 @@ launches in 16a's two config-4 frames and in config 6's sweep legs (17b);
 splat with its launches in 16a's 256^2 frame, timed on its full chunk
 (65,536 lanes) against the scatter route, the tail chunk's row beside,
 and its launches in the 512^2 frame;
+threefry with its launches in 18b's Whitted frame and fused SPPM
+iteration, timed on the [1M, 5] uniform, 18a's cases beside;
 sweep_tiled, the tiled kernel at the JAX package's tilings: launches in
 config 6's leg (a), ms, plain ms and bound on its 8192-ray launch shape
 (phase 4's chunk's first 8192 rays that hit), with phase 4's tiling grid
@@ -501,6 +530,13 @@ PEAK_HBM = 3.35e12
 # csrc/sweep.cu's note) and of the fused kernel, and per (live ray, box)
 # pair of the prologue kernel (csrc/entry.cu's note).
 SWEEP_OPS = {False: 40, True: 90}
+# Phase 18's bound for the Threefry kernel (csrc/threefry.cu's note):
+# integer instructions a hash (60 in the rounds, 18 in the key schedule
+# and injections) and a uniform's 4 more, at 64 integer instructions a
+# clock an SM (half the FP32 rate): 132 x 64 x 1.98 GHz = 16.7e12/s.
+THREEFRY_OPS = 78
+UNIFORM_OPS = 4
+PEAK_INT32 = 132 * 64 * 1.98e9
 INTERSECT_OPS = 40
 ENTRY_OPS = 30
 
@@ -572,10 +608,10 @@ def compare(kt, ki, pt, pi):
     }
 
 
-def bound(ops, nbytes):
-    """(bound ms, what bounds it): the larger of operations over the FP32
-    peak and bytes over the HBM rate."""
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_HBM * 1e3
+def bound(ops, nbytes, peak=PEAK_F32):
+    """(bound ms, what bounds it): the larger of operations over ``peak``
+    (FP32 instructions unless said) and bytes over the HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_HBM * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -916,6 +952,10 @@ def ptxas_summary(logtext: str) -> list:
                 name = "block_entry_table"
             elif "splat_gather_kernel" in name:
                 name = "splat"
+            elif "threefry_fold_kernel" in name:
+                name = "threefry_fold"
+            elif "threefry_uniform_kernel" in name:
+                name = "threefry_uniform"
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -5963,13 +6003,254 @@ def slice17(dev, card, t_all):
     return out
 
 
+# Phase 18: the Threefry kernel (csrc/threefry.cu) at the cells' shapes,
+# its launches against the Threefry calls of the cells' steps, and the
+# cells' images against another checkout's.
+
+
+def threefry_cases(dev):
+    """Phase 18a's calls: name -> (kernel call, plain call, keys, data,
+    hashes, extra instructions a hash, bytes read and written once); a
+    call takes (keys, data), data a tensor, a Python int or a column
+    count."""
+    import torch
+    from trace_tpu_torch.sampler import uniform as U
+
+    key = U.key(1234, dev)
+    cases = {}
+    for n in (65536, 1 << 20):
+        ids = torch.arange(n, device=dev) * 977 + 11
+        ks = U.fold_in_plain(key, ids)
+        path = torch.arange(n, device=dev) % 7
+        for name, k, d, nbytes in (
+                ("key_lanes", key, ids, 16 + 8 * n + 16 * n),
+                ("keys_scalar", ks, 3, 16 * n + 16 * n),
+                ("keys_lanes", ks, path, 16 * n + 8 * n + 16 * n)):
+            cases[f"fold_{name}_{n}"] = (U.fold_in, U.fold_in_plain, k, d,
+                                         n, 0, nbytes)
+    ks = U.fold_in_plain(key, torch.arange(1 << 20, device=dev))
+    n = ks.shape[0]
+    for cols in (1, 2, 5):
+        cases[f"uniform_{n}x{cols}"] = (
+            U.uniform_lanes, U.uniform_lanes_plain, ks, cols, n * cols,
+            UNIFORM_OPS, 16 * n + 4 * n * cols)
+    cases["uniform_key_65536x2"] = (
+        lambda k, _: U.uniform(k, (65536, 2)),
+        lambda k, _: U.uniform_lanes_plain(k[None], 131072).reshape(
+            65536, 2), key, None, 131072, UNIFORM_OPS, 16 + 4 * 131072)
+    return cases
+
+
+def cold_ms(fn, keys, data, nbytes, reps=50):
+    """graph_ms of ``fn(keys, data)`` with each launch on its own copy of
+    the keys and data tensor, as many copies as exceed the 50 MB L2 three
+    times over: every launch reads its inputs from HBM, as a bound that
+    counts each byte once from HBM assumes."""
+    import torch
+
+    copies = [(keys.clone(), data.clone() if torch.is_tensor(data)
+               else data) for _ in range(min(reps, -(-150_000_000
+                                                     // nbytes)))]
+    turn = iter(range(1 << 30))
+    return graph_ms(lambda: fn(*copies[next(turn) % len(copies)]), reps)
+
+
+def threefry_calls(U, record=None):
+    """Count U.fold_in and U.uniform_lanes calls (every draw of the port
+    goes through one of the two), and those with an empty result, which
+    launch nothing -> (counts, undo). ``record``: a list that gets each
+    call's (name, arguments), tensors cloned."""
+    import torch
+
+    names = ("fold_in", "uniform_lanes")
+    calls = dict.fromkeys(names + ("empty",), 0)
+    orig = {k: getattr(U, k) for k in names}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            if record is not None:
+                record.append((name, [x.clone() if torch.is_tensor(x)
+                                      else x for x in a]))
+            res = orig[name](*a, **kw)
+            calls["empty"] += int(res.numel() == 0)
+            return res
+        return call
+
+    for k in names:
+        setattr(U, k, counted(k))
+    return calls, lambda: [setattr(U, k, f) for k, f in orig.items()]
+
+
+def threefry_steps(cell, seed):
+    """Phase 18b on one benchmark cell (perfbench's driver, no warm step):
+    the eager first step's Threefry calls, kernel launches and
+    threefry_launches counter; the capture's launches a replay (second
+    step); the counter over a replay (third step)."""
+    import torch
+    from perfbench.harness import CellSpec
+    from trace_tpu_torch.ops.threefry import threefry_kernel
+    from trace_tpu_torch.sampler import uniform as U
+    from trace_tpu_torch.utils.stats import collect
+
+    spec = CellSpec(REPO, cell)
+    run = spec.driver().Cell(spec.config, dict(spec.traffic, warm_steps=0),
+                             seed, "cuda")
+    run.setup()
+    def graphs():   # made at the first render
+        return getattr(run.integ, "frame_graphs", None) \
+            or getattr(run.integ, "fused_graphs", None)
+
+    row, recorded = {}, []
+    for step in ("eager", "capture", "replay"):
+        calls, undo = threefry_calls(U, recorded if step == "eager"
+                                     else None)
+        before = threefry_kernel.launches
+        n_caps = len(graphs().captures) if graphs() else 0
+        try:
+            with collect() as stats:
+                run.step()
+            torch.cuda.synchronize()
+        finally:
+            undo()
+        row[step] = dict(calls=dict(calls),
+                         launches=threefry_kernel.launches - before,
+                         counter=stats.counters.get("threefry_launches", 0))
+        caps = graphs().captures if graphs() else []
+        if len(caps) > n_caps:
+            row[step]["capture_launches"] = caps[-1]["launches"]["threefry"]
+    # The step's Threefry device ms: its calls replayed through the kernel
+    # and through the plain twin (the parent's route), graph-timed.
+    kern = {"fold_in": U.fold_in, "uniform_lanes": U.uniform_lanes}
+    twin = {"fold_in": U.fold_in_plain,
+            "uniform_lanes": U.uniform_lanes_plain}
+    row["kernel_ms"] = graph_ms(
+        lambda: [kern[n](*a) for n, a in recorded], 5)
+    row["plain_ms"] = graph_ms(
+        lambda: [twin[n](*a) for n, a in recorded], 1)
+    row["calls_by_lanes"] = {}
+    for n, a in recorded:
+        k = f"{n} {tuple(a[0].shape)}"
+        row["calls_by_lanes"][k] = row["calls_by_lanes"].get(k, 0) + 1
+    del recorded
+    run.release()
+    torch.cuda.empty_cache()
+    return row
+
+
+def slice18(dev, card, t_all, parent=None):
+    """Phase 18 (module docstring): the Threefry kernel."""
+    import torch
+    from trace_tpu_torch.ops.threefry import threefry_kernel
+
+    out = {"card": card}
+    # -- 18a: kernel vs twin at the cells' shapes, timed ----------------------
+    t0 = time.perf_counter()
+    threefry_kernel.lib.load()
+    out["ptxas"] = [r for r in ptxas_summary(threefry_kernel.lib.build_log)
+                    if r[0].startswith("threefry")]
+    rows = {}
+    for name, (kern, plain, keys, data, hashes, extra, nbytes) in \
+            threefry_cases(dev).items():
+        before = threefry_kernel.launches
+        k = kern(keys, data)
+        torch.cuda.synchronize()
+        launched = threefry_kernel.launches - before
+        equal = torch.equal(k, plain(keys, data))
+        if not equal or launched != 1:
+            raise AssertionError(f"threefry {name}: bit-equal {equal}, "
+                                 f"{launched} launches")
+        bound_ms, bound_by = bound(hashes * (THREEFRY_OPS + extra), nbytes,
+                                   PEAK_INT32)
+        ms = cold_ms(kern, keys, data, nbytes)
+        rows[name] = dict(hashes=hashes, bytes=nbytes, ms=ms,
+                          warm_ms=graph_ms(lambda: kern(keys, data), 50),
+                          plain_ms=graph_ms(lambda: plain(keys, data), 3),
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          bound_share=bound_ms / ms)
+        log("18a", t0, f"{name}: kernel {ms * 1e3:.2f} us (inputs in L2: "
+            f"{rows[name]['warm_ms'] * 1e3:.2f} us), twin "
+            f"{rows[name]['plain_ms'] * 1e3:.1f} us, bound "
+            f"{bound_ms * 1e3:.2f} us ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f}%), bit-equal")
+        torch.cuda.empty_cache()
+    out["cases"] = rows
+    log("18a", t0, f"ptxas (kernel, registers, spill stores, spill loads): "
+        f"{out['ptxas']}; card {card}")
+    if any(s or l for _, _, s, l in out["ptxas"]):
+        print("[18a] note: a Threefry kernel spills registers", flush=True)
+    # -- 18b: launches against the cells' Threefry calls ----------------------
+    t0 = time.perf_counter()
+    out["steps"] = {}
+    for cell in ("mesh1m_whitted_256", "mesh1m_sppm_1024_fused"):
+        row = threefry_steps(cell, 1234)
+        out["steps"][cell] = row
+        eager = row["eager"]
+        n_calls = eager["calls"]["fold_in"] \
+            + eager["calls"]["uniform_lanes"] - eager["calls"]["empty"]
+        log("18b", t0, f"{cell}: eager step {eager['calls']} Threefry "
+            f"calls, {eager['launches']} launches, counter "
+            f"{eager['counter']:.0f}; capture "
+            f"{row['capture'].get('capture_launches')} launches a replay; "
+            f"a replay counts {row['replay']['counter']:.0f}; the step's "
+            f"calls graph-timed: kernel {row['kernel_ms']:.3f} ms, twin "
+            f"{row['plain_ms']:.3f} ms; by key shape "
+            f"{row['calls_by_lanes']}")
+        if not (n_calls > 0 and eager["launches"] == n_calls
+                == eager["counter"]
+                == row["capture"].get("capture_launches")
+                == row["replay"]["counter"]
+                and row["replay"]["launches"] == 0):
+            raise AssertionError(f"{cell}: Threefry calls and launches "
+                                 f"disagree: {row}")
+    # -- 18c: the cells' images against another checkout's -------------------
+    t0 = time.perf_counter()
+    script = os.path.join(REPO, "scripts", "torch_threefry_images.py")
+    images = {}
+    for label, root in (("change", REPO), ("parent", parent)):
+        if root is None:
+            continue
+        res = subprocess.run(
+            [sys.executable, script, "--root", root, "--seed", "1234"],
+            check=True, capture_output=True, text=True, timeout=900)
+        images[label] = json.loads(res.stdout.strip().splitlines()[-1])
+        step_ms = {c: [round(r["ms"], 2) for r in v["steps"]]
+                   for c, v in images[label]["cells"].items()}
+        log("18c", t0, f"{label} ({root}): step ms {step_ms}")
+    out["images"] = images
+    ch = images["change"]["cells"]
+    frames = [r["digest"] for r in ch["mesh1m_whitted_256"]["steps"]]
+    if any(f != frames[0] for f in frames):
+        raise AssertionError("the Whitted cell's eager, captured and "
+                             "replayed frames differ")
+    if parent is not None:
+        same = {c: [a["digest"] == b["digest"] for a, b in zip(
+            v["steps"], images["parent"]["cells"][c]["steps"])]
+            for c, v in ch.items()}
+        out["bit_equal_to_parent"] = same
+        log("18c", t0, f"bit-equal to the parent, step by step: {same}")
+        if not all(all(v) for v in same.values()):
+            raise AssertionError(f"images differ from the parent's: {same}")
+    log(18, t_all, "the Threefry kernel")
+    return out
+
+
 def n_pix_of(cam) -> int:
     (x0, y0), (x1, y1) = cam.film.sample_bounds()
     return (x1 - x0 + 1) * (y1 - y0 + 1)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one GPU (module docstring).")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose cells' images phase 18c holds "
+                    "bit-equal to this one's")
+    opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5985,6 +6266,7 @@ def main() -> int:
     from trace_tpu_torch.ops.splat import splat_kernel
     from trace_tpu_torch.ops.sweep import (block_entry_kernel, sweep_kernel,
                                            sweep_plain)
+    from trace_tpu_torch.ops.threefry import threefry_kernel
     from trace_tpu_torch.sampler import uniform as U
     from trace_tpu_torch.wavefront import whitted as WF
 
@@ -6002,13 +6284,14 @@ def main() -> int:
     # -- 1: builds, one nvcc per source, in parallel ------------------------
     t0 = time.perf_counter()
     libs = (sweep_kernel, block_entry_kernel, TI.intersect_kernel,
-            walk_kernel, splat_kernel)
+            walk_kernel, splat_kernel, threefry_kernel)
     with ThreadPoolExecutor() as ex:   # nvcc runs outside the GIL
         list(ex.map(lambda k: k.lib.load(), libs))
     t_nvcc = time.perf_counter() - t0
     native.load()
     regs = ptxas_summary("".join(k.lib.build_log for k in libs))
-    log(1, t0, f"built sweep, prologue, intersect, walk and splat kernels "
+    log(1, t0, f"built sweep, prologue, intersect, walk, splat and "
+        f"Threefry kernels "
         f"(nvcc "
         f"{t_nvcc:.2f} s, in parallel) and SAH builder; sweep CTA: "
         f"{TS.SWEEP_WARPS} warps per {TS.KERNEL_BLOCK_RAYS} rays; "
@@ -6580,7 +6863,13 @@ def main() -> int:
             for name in ("sweep", "prologue")}
     leg_a = s17["legs"]["sweep_g64_b128"]
     c6_key = tiling_name(64, 128, f"h{CONFIG6_CHUNK}")
-    log(17, t_all, "the whole run, phases 0-17")
+    # -- 18: the Threefry kernel --------------------------------------------
+    del s17
+    torch.cuda.empty_cache()
+    s18 = slice18(dev, card, t_all, parent=opts.parent)
+    with open(os.path.join(REPO, "chiprun_out", "slice18.json"), "w") as f:
+        json.dump(s18, f, indent=1)
+    log(18, t_all, "the whole run, phases 0-18")
     with open(os.path.join(REPO, "chiprun_out", "slice4.json"), "w") as f:
         json.dump(dict(card=card, ptxas=regs, warps=TS.SWEEP_WARPS,
                        frames=frames, tilings=tilings,
@@ -6680,6 +6969,16 @@ def main() -> int:
                    library_key="library_ms"),
              config4_512_launches=cfg4["config4_512_launches"]["splat"],
              chunks=splat16[256]["times"]),
+        # Threefry: launches in one eager step of each cell (18b), timed
+        # on the fused SPPM cell's largest call, the [1M, 5] camera draw;
+        # every case of 18a beside it.
+        dict(entry("threefry", "none: jax.random's threefry (XLA)",
+                   s18["steps"]["mesh1m_whitted_256"]["eager"]["launches"],
+                   0, s18["cases"]["uniform_1048576x5"],
+                   source="trace_tpu_torch/csrc/threefry.cu"),
+             sppm_launches=s18["steps"]["mesh1m_sppm_1024_fused"]["eager"][
+                 "launches"],
+             cases=s18["cases"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi())

@@ -29,7 +29,7 @@ def test_every_module_is_listed():
                  "sampler.stratified", "utils.stats", "utils.compare",
                  "io.obj", "accel.bvh", "accel.wbvh", "ops.bvh_walk",
                  "parallel.render", "parallel.sppm", "core.bounds",
-                 "ops.splat"):
+                 "ops.splat", "ops.threefry"):
         assert "trace_tpu_torch." + name in MODULES
 
 
@@ -37,7 +37,8 @@ def test_every_module_is_listed():
 SCRIPTS = ["chip_smoke.py", "scripts/torch_sweep_launches.py",
            "scripts/torch_sweep_warps.py", "scripts/torch_intersect_tiles.py",
            "scripts/torch_walk_calls.py", "scripts/torch_sweep_tilings.py",
-           "scripts/torch_config6_leg.py", "scripts/torch_frame_spans.py"]
+           "scripts/torch_config6_leg.py", "scripts/torch_frame_spans.py",
+           "scripts/torch_threefry_images.py"]
 
 
 def _assert_no_jax_imports(path):

@@ -61,12 +61,14 @@ def kernel_counts() -> dict:
     from ..ops.intersect import intersect_kernel
     from ..ops.splat import splat_kernel
     from ..ops.sweep import block_entry_kernel, sweep_kernel
+    from ..ops.threefry import threefry_kernel
 
     return {"sweep": sweep_kernel.launches,
             "prologue": block_entry_kernel.launches,
             "bvh_walk": walk_kernel.launches,
             "intersect": intersect_kernel.launches,
-            "splat": splat_kernel.launches}
+            "splat": splat_kernel.launches,
+            "threefry": threefry_kernel.launches}
 
 
 def on_card(device) -> bool:

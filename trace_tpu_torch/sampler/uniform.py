@@ -1,15 +1,24 @@
 """Counter-based sampling: Threefry-2x32, bit-exact with ``jax.random``.
 
 Port of trace_tpu/sampler/uniform.py. A key is an int64 tensor [..., 2]
-holding two uint32 words; all arithmetic runs in int64 masked to 32 bits
-(torch's uint32 op coverage is thin). The layout matches JAX with
-``jax_threefry_partitionable=True`` (its default): ``uniform(key, (c,))``
-hashes the counter pair (0, i) for i < c and XORs the two output words.
+holding two uint32 words; the plain version's arithmetic runs in int64
+masked to 32 bits (torch's uint32 op coverage is thin). The layout
+matches JAX with ``jax_threefry_partitionable=True`` (its default):
+``uniform(key, (c,))`` hashes the counter pair (0, i) for i < c and XORs
+the two output words.
 There is no global RNG: every draw hangs off an explicit key.
+
+On the card every :func:`fold_in` and :func:`uniform_lanes` (and so every
+function here that draws) is one launch of the hand-written kernel
+(ops/threefry.py, csrc/threefry.cu); CPU tensors take the plain twins
+:func:`fold_in_plain` and :func:`uniform_lanes_plain`, which give the same
+bits on either device.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.threefry import threefry_kernel
 
 M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -49,7 +58,15 @@ def key(seed: int, device) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a key array [..., 2]; ``data`` is a
-    scalar or an integer tensor broadcasting against the key batch."""
+    scalar or an integer tensor broadcasting against the key batch. On
+    the card one kernel launch (ops/threefry.py::ThreefryKernel.fold)."""
+    if keys.device.type == "cuda":
+        return threefry_kernel.fold(keys, data)
+    return fold_in_plain(keys, data)
+
+
+def fold_in_plain(keys: torch.Tensor, data) -> torch.Tensor:
+    """:func:`fold_in` in tensor ops on any device: the kernel's twin."""
     if not torch.is_tensor(data):
         # A fill on the device, not a host copy (which would wait for the
         # device to drain).
@@ -72,7 +89,16 @@ def fold_lanes(keys: torch.Tensor, salt) -> torch.Tensor:
 
 
 def uniform_lanes(keys: torch.Tensor, cols: int) -> torch.Tensor:
-    """[N, cols] float32 uniforms in [0, 1), one row per lane key."""
+    """[N, cols] float32 uniforms in [0, 1), one row per lane key. On the
+    card one kernel launch (ops/threefry.py::ThreefryKernel.uniform)."""
+    if keys.device.type == "cuda":
+        return threefry_kernel.uniform(keys, cols)
+    return uniform_lanes_plain(keys, cols)
+
+
+def uniform_lanes_plain(keys: torch.Tensor, cols: int) -> torch.Tensor:
+    """:func:`uniform_lanes` in tensor ops on any device: the kernel's
+    twin."""
     ctr = torch.arange(cols, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(keys[:, 0:1], keys[:, 1:2],
                           torch.zeros_like(ctr), ctr)
