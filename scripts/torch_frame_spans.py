@@ -20,14 +20,17 @@ counters read (lane use of the chunks and of the sweep launches, host
 reads and their wait, also by the span that reads, device ms launched
 inside ``intersect`` and ``film.splat``, the gather kernel's splats a
 frame); the host window of each pass;
-the cost of a span off and on; the card's name and power limit. Needs a
-CUDA device.
+the cost of a span off and on; the card's name and power limit; for a
+path-tracing cell, ``path_self_hits`` of one more frame (the integrator's
+own ``stats``) on the port's continuation rule and on the JAX package's
+(1e-6 along the new direction). Needs a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import bisect
 import contextlib
+import functools
 import json
 import os
 import statistics
@@ -204,6 +207,29 @@ def span_cost_ns(calls: int = 200_000) -> dict:
     return {"off": off, "on": on}
 
 
+def path_self_hits(cell) -> dict:
+    """Continuations that re-met the primitive they left, in one frame of
+    a path-tracing cell, on each continuation rule."""
+    from trace_tpu_torch.core.ray import SPAWN_EPS
+    from trace_tpu_torch.utils.stats import RenderStats
+    from trace_tpu_torch.wavefront import path as WP
+
+    li = WP.li
+    out = {}
+    for rule, spawn in (("port", None),
+                        ("along_wi", lambda p, n, wi: p + wi * SPAWN_EPS)):
+        cell.integ.stats = RenderStats()
+        if spawn is not None:
+            WP.li = functools.partial(li, spawn=spawn)
+        try:
+            cell.step()
+        finally:
+            WP.li = li
+        out[rule] = cell.integ.stats.as_dict()["path_self_hits"]
+    cell.integ.stats = None
+    return out
+
+
 def card() -> str:
     try:
         return subprocess.run(
@@ -282,6 +308,8 @@ def main(argv=None) -> int:
         "spans": dict(sorted(rows.items(), key=lambda kv: -kv[1]["host_ms"])),
         "within_ms": within,
     }
+    if spec.config["integrator"] == "path":
+        out["path_self_hits"] = path_self_hits(cell)
     line = json.dumps(out)
     if a.out:
         with open(a.out, "w") as f:

@@ -154,9 +154,11 @@ def test_delta_light_scenes_unchanged(name):
 @pytest.mark.parametrize("name", DELTA)
 def test_delta_light_scenes_on_the_port_rules(name):
     """The same scenes on the port's own rules, the route the program
-    takes (the SPPM walks' normal-offset spawn, the sphere's
-    non-cancelling discriminant), against goldens rendered on those
-    rules (``<name>_port.npy``)."""
+    takes (the SPPM walks' and, from the path tracer's repair, the path
+    continuations' normal-offset spawn, the sphere's non-cancelling
+    discriminant), against goldens rendered on those rules
+    (``<name>_port.npy``; the two path goldens rendered again with the
+    path tracer's repair)."""
     img = _delta_render(name)
     ref = np.load(os.path.join(GOLDENS, f"{name}_port.npy"))
     diff = np.abs(img - ref)

@@ -261,3 +261,83 @@ def test_span_table_attributes_launches_and_gaps():
     assert read["film_splat_gathers_per_step"] is None
     assert FS.readings(rows, within, {"film_splat_gathers": 4.0}, 2)[
         "film_splat_gathers_per_step"] == 2.0
+
+
+@pytest.fixture(scope="module")
+def path_frame():
+    """An 8^2 path-traced frame of the Cornell box (2 spp, depth 4, one
+    chunk), under the profiler inside collect(), and the same frame with
+    spans off."""
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.models import cornell
+
+    scene = cornell.build_scene(device="cpu")
+    cam = cornell.build_camera(8, "unused.png")
+
+    def integ():
+        return PathIntegrator(cam, UniformSampler(2, seed=4), max_depth=4)
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with collect() as stats:
+            on = integ().render(scene)
+    off = integ().render(scene)
+    (x0, y0), (x1, y1) = cam.film.sample_bounds()
+    return dict(spans=_spans(prof), counters=stats.as_dict(), on=on,
+                off=off, lanes=(x1 - x0 + 1) * (y1 - y0 + 1), spp=2,
+                depth=4)
+
+
+def test_path_spans_nest_inside_collect(path_frame):
+    spans = path_frame["spans"]
+    parent, _, _ = FS.nesting(spans)
+    up = {}
+    for i, p in enumerate(parent):
+        up.setdefault(spans[i][0], set()).add(
+            None if p is None else spans[p][0])
+    assert set(up) == {"render", "chunk", "camera", "closest_hit", "shade",
+                       "direct_light", "mis_bsdf", "spawn", "film.splat",
+                       "host_read"}
+    for name in ("camera", "closest_hit", "shade", "direct_light", "spawn",
+                 "film.splat"):
+        assert up[name] == {"chunk"}, name
+    # The BSDF-sampling leg runs inside next-event estimation.
+    assert up["mis_bsdf"] == {"direct_light"}
+    names = [s[0] for s in spans]
+    bounces = path_frame["spp"] * path_frame["depth"]
+    for name in ("closest_hit", "shade", "direct_light", "mis_bsdf",
+                 "spawn"):
+        assert names.count(name) == bounces, name
+
+
+def test_path_counters_are_the_lanes(path_frame):
+    c = path_frame["counters"]
+    lanes = path_frame["lanes"] * path_frame["spp"] * path_frame["depth"]
+    assert c["path_bounce_lanes"] == lanes
+    assert c["path_mis_lanes"] == lanes
+    assert c["chunk_lanes_issued"] == path_frame["lanes"]
+    # The integrator's own self-hit count is not the ambient stats'.
+    assert "path_self_hits" not in c
+
+
+def test_path_film_is_bit_equal_with_spans_on_and_off(path_frame):
+    on, off = path_frame["on"], path_frame["off"]
+    assert torch.equal(on.xyz, off.xyz)
+    assert torch.equal(on.weight_sum, off.weight_sum)
+
+
+def test_path_self_hits_read_once_under_stats():
+    from trace_tpu_torch.integrators.path import PathIntegrator
+    from trace_tpu_torch.models import cornell
+
+    scene = cornell.build_scene(device="cpu")
+    own = RenderStats()
+    integ = PathIntegrator(cornell.build_camera(6, "unused.png"),
+                           UniformSampler(1, seed=2), max_depth=3,
+                           stats=own)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with collect():
+            integ.render(scene)
+    assert own.as_dict()["path_self_hits"] == 0
+    # The render's counts and the self hits: one read each.
+    names = [s[0] for s in _spans(prof)]
+    assert names.count("host_read") == 2

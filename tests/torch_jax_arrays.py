@@ -262,22 +262,27 @@ def cancelling_disc(o_obj, d_obj, a, od, radius):
 
 @contextlib.contextmanager
 def jax_rules():
-    """The port with the two float32 rules of the JAX package that it has
-    left on purpose (ROADMAP §C.1-2, both repaired): a continuation of the
-    SPPM walks spawned 1e-6 along wi (:func:`spawn_along`, through the
-    walks' ``spawn`` argument), and the sphere's cancelling discriminant
+    """The port with the float32 rules of the JAX package that it has
+    left on purpose (ROADMAP §C.1-2, all repaired): a continuation of the
+    SPPM walks and of the path tracer spawned 1e-6 along wi
+    (:func:`spawn_along`, through the walks' and ``wavefront/path.py::li``'s
+    ``spawn`` argument), and the sphere's cancelling discriminant
     (:func:`cancelling_disc` in place of ``geom._sphere_disc``). Tests
     that hold the port's other arithmetic to the JAX package, or to
     renders made under those rules, run the port inside it."""
     from trace_tpu_torch.wavefront import geom as G
+    from trace_tpu_torch.wavefront import path as WP
     from trace_tpu_torch.wavefront import sppm_camera as SC
     from trace_tpu_torch.wavefront import sppm_photon as SP
 
-    saved = (G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body)
+    saved = (G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body,
+             WP.li)
     G._sphere_disc = cancelling_disc
     SC.camera_pass_body = functools.partial(saved[1], spawn=spawn_along)
     SP.photon_walk_body = functools.partial(saved[2], spawn=spawn_along)
+    WP.li = functools.partial(saved[3], spawn=spawn_along)
     try:
         yield
     finally:
-        G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body = saved
+        (G._sphere_disc, SC.camera_pass_body, SP.photon_walk_body,
+         WP.li) = saved

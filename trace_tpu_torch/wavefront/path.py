@@ -15,15 +15,23 @@ renders them there.
 Dead lanes (finished paths, shading lanes whose shadow or MIS ray cannot
 contribute) go to the sweep with t_max = -1, which skips them; their
 results were masked out anyway, so the image does not change.
+
+Inside utils/stats.py's ``collect()`` each bounce's passes are spans
+named as Whitted's (``closest_hit``, ``shade``, ``direct_light``,
+``spawn``), with ``mis_bsdf`` around the BSDF-sampling leg of
+``estimate_direct``; ``path_bounce_lanes`` and ``path_mis_lanes`` count
+the lanes given to each bounce's closest hit and to the MIS leg's.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import ray as R
 from ..core import vec as V
 from ..core.ray import SPAWN_EPS
 from ..core.vec import V3
 from ..sampler import uniform as U
+from ..utils.stats import count, span
 from . import geom as G
 from . import lights as WL
 from . import materials as WM
@@ -50,6 +58,20 @@ def power_heuristic(nf, f_pdf, ng, g_pdf):
     return torch.where(f + g > 0, f / (f + g), 0.0)
 
 
+def russian_roulette(beta: V3, u):
+    """A path ends where ``u`` < q = max(1 - Y(beta), 0.05); a survivor's
+    throughput is divided by 1 - q -> (beta, killed [N])."""
+    q = (1.0 - to_y(beta)).clamp_min(0.05)
+    killed = u < q
+    return V.where(~killed, beta / (1.0 - q).clamp_min(1e-6), beta), killed
+
+
+def has_mis_leg(scene) -> bool:
+    """Whether ``estimate_direct`` runs the BSDF-sampling leg: the scene
+    has an area or an environment light."""
+    return scene.max_area_tris > 0 or scene.env is not None
+
+
 def _offset_origin(p: V3, d: V3, n_geom: V3) -> V3:
     o = p + d * SPAWN_EPS
     scale = 1e-4 * p.abs().max_component().clamp_min(1.0)
@@ -68,9 +90,6 @@ def estimate_direct(scene, hit: G.HitP, lobes: S.LobesP, idx, u_l0, u_l1,
     the lanes whose light is not a delta light. Its ray counts where it
     hits a flat triangle of the lane's area light, or escapes on a lane
     whose light is the environment."""
-    n = hit.t.shape[0]
-    dev = hit.t.device
-
     radiance, wi, light_pdf, p_light = WL.sample_li_lanes(
         scene, idx, hit.p, u_l0, u_l1)
     f_val = S.f(lobes, hit.wo, wi, flags) * wi.dot(hit.ns).abs()
@@ -83,9 +102,18 @@ def estimate_direct(scene, hit: G.HitP, lobes: S.LobesP, idx, u_l0, u_l1,
                       power_heuristic(1.0, light_pdf, 1.0, scatter_pdf))
     ld = V.where(vis, f_val * radiance * (w_l / light_pdf.clamp_min(1e-20)),
                  0.0)
-    if not (scene.max_area_tris > 0 or scene.env is not None):
+    if not has_mis_leg(scene):
         return ld
+    with span("mis_bsdf"):
+        return ld + _mis_bsdf(scene, hit, lobes, idx, delta, u_s0, u_s1,
+                              flags)
 
+
+def _mis_bsdf(scene, hit: G.HitP, lobes: S.LobesP, idx, delta, u_s0, u_s1,
+              flags: int) -> V3:
+    """The BSDF-sampling leg of ``estimate_direct``."""
+    n = hit.t.shape[0]
+    dev = hit.t.device
     # BSDF samples that escape see the sky; the area pdf would be
     # inf / inf on them, so an env lane reads the texel pdf only.
     bs = S.sample_f(lobes, hit.wo, u_s0, u_s1, flags)
@@ -117,8 +145,8 @@ def estimate_direct(scene, hit: G.HitP, lobes: S.LobesP, idx, u_l0, u_l1,
         counts = counts | (escaped & ~le_e.is_black())
     w_b = torch.where(spec_sample, 1.0,
                       power_heuristic(1.0, bs.pdf, 1.0, li_pdf))
-    return ld + V.where(go & counts,
-                        f_b * le * (w_b / bs.pdf.clamp_min(1e-20)), 0.0)
+    return V.where(go & counts, f_b * le * (w_b / bs.pdf.clamp_min(1e-20)),
+                   0.0)
 
 
 def uniform_sample_one_light(scene, hit: G.HitP, lobes: S.LobesP,
@@ -139,12 +167,16 @@ def uniform_sample_one_light(scene, hit: G.HitP, lobes: S.LobesP,
 
 
 def li(scene, rd, key, max_depth: int = 5, rr_depth: int = 3,
-       return_aux: bool = True):
+       return_aux: bool = True, tally: list | None = None, spawn=R.spawn):
     """Path-traced radiance [N, 3] for a batch of camera rays (``key``:
     per-lane keys [N, 2]), with ``return_aux`` (the port's default; the
     JAX package's is False) also {"queue_drops" (0), "useful_rays"}: per
     bounce one closest-hit ray per active path and two rays (NEE shadow,
-    BSDF-MIS) per live hit."""
+    BSDF-MIS) per live hit. ``tally`` (optional): a list that gets each
+    bounce's count of self hits (core/ray.py::self_hits), device scalars.
+    ``spawn``: the rule that places a continuation's origin
+    (core/ray.py; the JAX package's, 1e-6 along the new direction, let
+    grazing continuations re-meet the primitive they left: ROADMAP C.3)."""
     keys = key
     n = rd.o.shape[0]
     dev = rd.o.device
@@ -157,51 +189,62 @@ def li(scene, rd, key, max_depth: int = 5, rr_depth: int = 3,
     specular_bounce = torch.zeros((n,), dtype=torch.bool, device=dev)
     useful = torch.zeros((), dtype=torch.int64, device=dev)
     inf = torch.full((n,), INF, dtype=F32, device=dev)
+    mis_leg = has_mis_leg(scene) and WL.light_count(scene) > 0
+    left = None
     for bounce in range(max_depth):
         k = U.fold_lanes(keys, bounce)
-        hit = WW.closest_hit(scene, o, d, inf, time, live=active)
-        live = active & hit.valid
-        useful = useful + active.sum() + 2 * live.sum()
+        with span("closest_hit"):
+            count("path_bounce_lanes", n)
+            hit = WW.closest_hit(scene, o, d, inf, time, live=active)
+            live = active & hit.valid
+            useful = useful + active.sum() + 2 * live.sum()
+        if tally is not None and left is not None:
+            tally.append(R.self_hits(live, hit.prim_id, hit.t, left, o))
+        left = hit.prim_id
 
-        camera_or_specular = (bounce == 0) | specular_bounce
-        le = WL.area_light_radiance(scene, hit, hit.wo)
-        l_out = l_out + V.where(live & camera_or_specular, beta * le, 0.0)
-        if scene.env is not None:
-            # Other escapes are the BSDF-sampling leg's (NEE's MIS).
-            esc = active & ~hit.valid & camera_or_specular
-            l_out = l_out + V.where(esc, beta * WL.env_le(scene, d), 0.0)
+        with span("shade"):
+            camera_or_specular = (bounce == 0) | specular_bounce
+            le = WL.area_light_radiance(scene, hit, hit.wo)
+            l_out = l_out + V.where(live & camera_or_specular, beta * le,
+                                    0.0)
+            if scene.env is not None:
+                # Other escapes are the BSDF-sampling leg's (NEE's MIS).
+                esc = active & ~hit.valid & camera_or_specular
+                l_out = l_out + V.where(esc, beta * WL.env_le(scene, d),
+                                        0.0)
+            hit = hit._replace(valid=live)
+            lobes = WM.compute_scattering(scene.materials, hit,
+                                          allow_multiple_lobes=True,
+                                          mode=S.RADIANCE)
+        with span("direct_light"):
+            if mis_leg:
+                count("path_mis_lanes", n)
+            ld = uniform_sample_one_light(scene, hit, lobes,
+                                          U.fold_lanes(k, 0))
+            l_out = l_out + V.where(live, beta * ld, 0.0)
 
-        hit = hit._replace(valid=live)
-        lobes = WM.compute_scattering(scene.materials, hit,
-                                      allow_multiple_lobes=True,
-                                      mode=S.RADIANCE)
-        ld = uniform_sample_one_light(scene, hit, lobes, U.fold_lanes(k, 0))
-        l_out = l_out + V.where(live, beta * ld, 0.0)
+        with span("spawn"):
+            u0, u1 = WW.uniform2(U.fold_lanes(k, 1))
+            bs = S.sample_f(lobes, hit.wo, u0, u1, S.BSDF_ALL)
+            ok = live & (bs.pdf > 0) & ~bs.f.is_black()
+            specular_bounce = torch.where(
+                ok, (bs.sampled_flags & S.BSDF_SPECULAR) != 0,
+                specular_bounce)
+            beta_next = V.where(
+                ok, beta * bs.f * (bs.wi.dot(hit.ns).abs()
+                                   / bs.pdf.clamp_min(1e-20)), beta)
 
-        u0, u1 = WW.uniform2(U.fold_lanes(k, 1))
-        bs = S.sample_f(lobes, hit.wo, u0, u1, S.BSDF_ALL)
-        ok = live & (bs.pdf > 0) & ~bs.f.is_black()
-        specular_bounce = torch.where(
-            ok, (bs.sampled_flags & S.BSDF_SPECULAR) != 0, specular_bounce)
-        beta_next = V.where(
-            ok, beta * bs.f * (bs.wi.dot(hit.ns).abs()
-                               / bs.pdf.clamp_min(1e-20)), beta)
+            if bounce >= rr_depth:
+                beta_next, killed = russian_roulette(
+                    beta_next, U.uniform_lanes(U.fold_lanes(k, 2), 1)[:, 0])
+            else:
+                killed = torch.zeros_like(ok)
+            beta = V.where(ok, beta_next, beta)
 
-        if bounce >= rr_depth:
-            q = (1.0 - to_y(beta_next)).clamp_min(0.05)
-            u_rr = U.uniform_lanes(U.fold_lanes(k, 2), 1)[:, 0]
-            killed = u_rr < q
-            beta_next = V.where(~killed,
-                                beta_next / (1.0 - q).clamp_min(1e-6),
-                                beta_next)
-        else:
-            killed = torch.zeros_like(ok)
-        beta = V.where(ok, beta_next, beta)
-
-        active = ok & ~killed
-        o = V.where(active, hit.p + bs.wi * SPAWN_EPS, o)
-        d = V.where(active, bs.wi, d)
-        time = torch.where(active, hit.time, time)
+            active = ok & ~killed
+            o = V.where(active, spawn(hit.p, hit.n, bs.wi), o)
+            d = V.where(active, bs.wi, d)
+            time = torch.where(active, hit.time, time)
     l_arr = torch.stack([l_out.x, l_out.y, l_out.z], dim=1)
     if not return_aux:
         return l_arr
