@@ -3,11 +3,16 @@
     python scripts/torch_frame_spans.py [--cell mesh1m_whitted_256] \
         [--seed 1] [--frames 10] [--steps 3] [--out spans.json]
 
-Builds the cell from perfbench's files, as ``perfbench/run.py`` does, with
-one change: a Whitted cell renders with ``frame_graph=False``, the eager
-route, so that every pass is issued from the host inside its span and the
-table stays pass by pass (a graph replay is one ``whitted.replay`` span).
-Then: ``--frames`` frames with tracing off (host clock, each
+Builds the cell from perfbench's files, as ``perfbench/run.py`` does; its
+warm frames leave a Whitted or path-tracing cell's view captured as a CUDA
+graph. The replay is read first: ``--frames`` frames with tracing off,
+then ``--steps`` under torch.profiler (device ms, kernels and idle ms a
+frame), and the capture's record (capture ms, launches by kernel
+wrapper). Then the integrator's ``frame_graph`` is set False on the
+instance, the eager route, so that every pass is issued from the host
+inside its span and the table stays pass by pass (a replay is one
+``whitted.replay`` or ``path.replay`` span), and the rest reads eager
+frames: ``--frames`` frames with tracing off (host clock, each
 ending in a synchronise); four passes of ``--steps`` frames under
 torch.profiler (CPU and CUDA activity), with spans off and on (inside
 ``trace_tpu_torch.utils.stats.collect()``) in turn; the last is read.
@@ -230,6 +235,36 @@ def path_self_hits(cell) -> dict:
     return out
 
 
+def frames(cell, n: int) -> list:
+    """Host ms of ``n`` steps with tracing off, each ending in a
+    synchronise."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        cell.step()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def replay_reading(cell, graphs, n_frames: int, n_steps: int) -> dict:
+    """The view's frame graph: untraced replays (host ms), then device
+    ms, kernels and idle ms a replay under the profiler, and the capture
+    records."""
+    untraced = frames(cell, n_frames)
+    _, device, _, steps, _, _ = profile(cell.step, n_steps, False)
+    kernels = [e for e in device if not e[0].startswith(NOT_KERNELS)]
+    return {
+        "untraced_step_ms": untraced,
+        "untraced_step_ms_median": statistics.median(untraced),
+        "device_ms_per_step": sum(b - a for _, a, b, _ in device) * 1e-3
+        / n_steps,
+        "kernels_per_step": len(kernels) / n_steps,
+        "idle_ms_per_step": sum(b - a for a, b in idle_gaps(device, steps))
+        * 1e-3 / n_steps,
+        "captures": graphs.captures,
+    }
+
+
 def card() -> str:
     try:
         return subprocess.run(
@@ -258,17 +293,14 @@ def main(argv=None) -> int:
         print("torch_frame_spans: needs a CUDA device", file=sys.stderr)
         return 2
     spec = harness.CellSpec(REPO, a.cell)
-    traffic = spec.traffic
-    if spec.config["integrator"] == "whitted":
-        traffic = dict(traffic, integrator_args=dict(
-            traffic.get("integrator_args", {}), frame_graph=False))
-    cell = spec.driver().Cell(spec.config, traffic, a.seed, "cuda")
+    cell = spec.driver().Cell(spec.config, spec.traffic, a.seed, "cuda")
     cell.setup()
-    untraced = []
-    for _ in range(a.frames):
-        t0 = time.perf_counter()
-        cell.step()
-        untraced.append((time.perf_counter() - t0) * 1e3)
+    graphs = getattr(cell.integ, "frame_graphs", None)
+    replay = None
+    if graphs is not None and graphs.graphs:
+        replay = replay_reading(cell, graphs, a.frames, a.steps)
+        cell.integ.frame_graph = False
+    untraced = frames(cell, a.frames)
     windows = {False: [], True: []}
     for on in (False, True, False, True):   # the last pass is kept
         spans, device, launches, steps, counters, window = profile(
@@ -287,6 +319,7 @@ def main(argv=None) -> int:
     out = {
         "cell": a.cell, "seed": a.seed, "card": card(),
         "device": torch.cuda.get_device_name(0),
+        "replay": replay,
         "untraced_step_ms": untraced,
         "untraced_step_ms_median": statistics.median(untraced),
         "profiled_spans_off_ms_per_step": windows[False],

@@ -1,5 +1,6 @@
-"""The benchmark cells' Whitted frame and fused SPPM iteration, rendered by
-a checkout's port, digested so that two checkouts can be held bit-equal.
+"""The benchmark cells' Whitted frame, fused SPPM iteration and path-traced
+frame, rendered by a checkout's port, digested so that two checkouts can
+be held bit-equal.
 
     python scripts/torch_threefry_images.py [--root DIR] [--seed 1234] \
         [--steps 3] [--out digests.json]
@@ -10,13 +11,14 @@ builds the cells through this checkout's ``perfbench`` drivers (their
 scene, camera and integrator from the configuration and the traffic
 files, with no warm step): ``mesh1m_whitted_256`` (1M-triangle
 heightfield, 256^2, Whitted depth 2) and ``mesh1m_sppm_1024_fused``
-(1024^2, 2^18 photons, depth 8, one iteration a fused block). Each cell
-runs ``--steps`` steps: the first runs its body eagerly, the second
-captures its CUDA graph, the rest replay it. Per step: the host ms, a
-SHA-256 of every tensor of the step's state (the film's sums; SPPM's
-state), and the port's Threefry kernel launches where the checkout has
-that kernel. One JSON line on stdout, also written to ``--out``. Needs a
-CUDA device.
+(1024^2, 2^18 photons, depth 8, one iteration a fused block) and
+``cornell_mis_512`` (the Cornell box, 512^2, 4 spp, depth 5). Each cell
+runs ``--steps`` steps: on a route with a CUDA graph the first runs its
+body eagerly, the second captures the graph, the rest replay it. Per
+step: the host ms, a SHA-256 of every tensor of the step's state (the
+film's sums; SPPM's state), and the port's Threefry kernel launches where
+the checkout has that kernel. One JSON line on stdout, also written to
+``--out``. Needs a CUDA device.
 """
 import argparse
 import hashlib
@@ -27,7 +29,8 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CELLS = ("mesh1m_whitted_256", "mesh1m_sppm_1024_fused")
+CELLS = ("mesh1m_whitted_256", "mesh1m_sppm_1024_fused",
+         "cornell_mis_512")
 
 
 def digest(state) -> dict:

@@ -1,18 +1,19 @@
-"""The Whitted frame as one CUDA graph (integrators/fused.py::Graphs,
-SamplerIntegrator.frame_inputs / frame_body / replays).
+"""The Whitted and the path-traced frame as one CUDA graph
+(integrators/fused.py::Graphs, SamplerIntegrator.frame_inputs /
+frame_body / replays).
 
-On the card a Whitted frame is a replay of the view's graph of
-``frame_body``, captured under ``no_host_reads``. The body's sync-free
-route must give the eager frame's bits (film and counts) and read nothing
-on the host; the view key must drop the graph when the view or a setting
-changes (for SPPM's fused blocks too); every other call (the CPU,
-animated geometry, ``stats``, instanced scenes, the path integrator,
-``frame_graph=False``, an accelerator that may read the host) takes the
-eager route. A view's first frame runs the body eagerly and its second
-captures. On the CPU the graph's plumbing (captures, replays, counters,
-clones) runs with a stub in place of the capture; the ``cuda`` test
-replays real graphs on the card, and checks that no reference cycle
-keeps an integrator's graphs alive.
+On the card a Whitted or path-traced frame is a replay of the view's
+graph of ``frame_body``, captured under ``no_host_reads``. The body's
+sync-free route must give the eager frame's bits (film and counts) and
+read nothing on the host; the view key must drop the graph when the view
+or a setting changes (for SPPM's fused blocks too); every other call (the
+CPU, animated geometry, ``stats``, instanced scenes, ``frame_graph``
+False, an accelerator that may read the host) takes the eager route. A
+view's first frame runs the body eagerly and its second captures. On the
+CPU the graph's plumbing (captures, replays, counters, clones) runs with
+a stub in place of the capture; the ``cuda`` tests replay real graphs on
+the card, and check that no reference cycle keeps an integrator's graphs
+alive.
 """
 import gc
 import weakref
@@ -30,6 +31,7 @@ from trace_tpu_torch.integrators.sppm import SPPMIntegrator
 from trace_tpu_torch.integrators.whitted import WhittedIntegrator
 from trace_tpu_torch.lights import lights as TL
 from trace_tpu_torch.materials.materials import MatteMaterial
+from trace_tpu_torch.models import cornell as TCor
 from trace_tpu_torch.models import env_studio as TEnv
 from trace_tpu_torch.models import mesh_heavy as TMH
 from trace_tpu_torch.models import spheres as TSph
@@ -72,6 +74,7 @@ def scenes():
     return {"mesh": mesh, "shadows": TSph.build_scene(device="cpu"),
             "instanced": _instanced_scene(),
             "env": TEnv.build_scene(device="cpu"),
+            "cornell": TCor.build_scene(device="cpu"),
             "textured": dryrun.build(device="cpu")}
 
 
@@ -84,7 +87,9 @@ def _dryrun_camera(res, filename):
 # the same with each level in material order; "shadows": the brute-force
 # grid, one chunk through the stencil, four strata; "drops": level caps
 # too small for the children, in chunks; "env": an environment light;
-# "textured": six lights of four kinds and an image texture.
+# "textured": six lights of four kinds and an image texture; "path": the
+# path tracer on the Cornell box (an area light, so the MIS leg), 2 spp,
+# Russian roulette from the fourth bounce.
 CASES = {
     "mesh": ("mesh", TMH.build_camera, dict(max_depth=2, pixel_chunk=128)),
     "sorted": ("mesh", TMH.build_camera, dict(max_depth=2, pixel_chunk=128,
@@ -96,15 +101,23 @@ CASES = {
                                                  level_caps=(8,))),
     "env": ("env", TEnv.build_camera, dict(max_depth=3, pixel_chunk=128)),
     "textured": ("textured", _dryrun_camera, dict(max_depth=2)),
+    "path": ("cornell", TCor.build_camera, dict(max_depth=5, rr_depth=3,
+                                                spp=2, path=True)),
 }
 
 
 def _integ(case, res=16, **over):
     _, camera, kw = CASES[case]
     kw = dict(kw, **over)
+    spp = kw.pop("spp", 1)
     sampler = (StratifiedSampler(2, 2, seed=3) if kw.pop("strata", False)
-               else UniformSampler(1, seed=1))
-    return WhittedIntegrator(camera(res, "unused.png"), sampler, **kw)
+               else UniformSampler(spp, seed=1))
+    cls = PathIntegrator if kw.pop("path", False) else WhittedIntegrator
+    eager = not kw.pop("frame_graph", True)
+    integ = cls(camera(res, "unused.png"), sampler, **kw)
+    if eager:
+        integ.frame_graph = False
+    return integ
 
 
 def _equal(a, b):
@@ -203,14 +216,16 @@ def test_eager_reasons(scenes):
     assert not _integ("mesh", frame_graph=False).replays(card)
     path = PathIntegrator(TMH.build_camera(16, "unused.png"),
                           UniformSampler(1), max_depth=2)
-    assert not path.frame_graph
-    assert not path.replays(card)
+    assert path.frame_graph
+    assert path.replays(card)
+    assert not _integ("path", stats=RenderStats()).replays(card)
+    assert not _integ("path", frame_graph=False).replays(card)
 
 
 def test_cpu_and_path_renders_stay_eager(scenes):
     """On the CPU the default Whitted frame is the eager frame of
     ``frame_graph=False``, and neither the Whitted nor the path integrator
-    makes a frame graph."""
+    (which opts in on the card) makes a frame graph."""
     scene = scenes["shadows"]
     a, b = _integ("drops"), _integ("drops", frame_graph=False)
     assert _equal(a.render(scene), b.render(scene))
@@ -230,20 +245,23 @@ VIEW_SETTINGS = {
     "sppm": (("seed", 2), ("max_depth", 3), ("n_iterations", 5),
              ("photons_per_iteration", 512), ("pixel_chunk", 64),
              ("pair_chunk", 2048)),
+    "path": (("max_depth", 4), ("pixel_chunk", 64), ("rr_depth", 1)),
 }
 
 
-@pytest.mark.parametrize("kind", ["whitted", "sppm"])
+@pytest.mark.parametrize("kind", ["whitted", "sppm", "path"])
 def test_view_key_drops_the_graph(scenes, kind):
     """Graphs keys a view on its objects and the integrator's
-    ``graph_settings``, for the Whitted frame and SPPM's blocks alike: the
-    same view keeps its graphs; a bumped version (Scene.bump_version), a
-    new camera or sampler, each changed setting and another scene drop
-    them, and the keys that ran eagerly with them."""
+    ``graph_settings``, for the Whitted and path frames and SPPM's blocks
+    alike: the same view keeps its graphs; a bumped version
+    (Scene.bump_version), a new camera or sampler, each changed setting
+    and another scene drop them, and the keys that ran eagerly with
+    them."""
     scene = scenes["shadows"].with_geometry(scenes["shadows"].triangles,
                                             scenes["shadows"].accel)
-    integ = (_integ("drops") if kind == "whitted" else SPPMIntegrator(
-        TSph.build_camera(16, "unused.png"), device="cpu"))
+    integ = (SPPMIntegrator(TSph.build_camera(16, "unused.png"),
+                            device="cpu") if kind == "sppm"
+             else _integ("drops" if kind == "whitted" else kind))
     graphs = F.Graphs("test.replay")
 
     def kept():
@@ -262,7 +280,7 @@ def test_view_key_drops_the_graph(scenes, kind):
     assert not kept()
     integ.camera = TSph.build_camera(16, "unused.png")
     assert not kept()
-    if kind == "whitted":
+    if kind != "sppm":
         integ.sampler = UniformSampler(1, seed=1)
         assert not kept()
     assert kept()
@@ -270,7 +288,7 @@ def test_view_key_drops_the_graph(scenes, kind):
         setattr(integ, name, value)
         assert not kept(), name
         assert kept(), name
-    if kind == "whitted":
+    if kind != "sppm":
         integ.sampler.seed = 2
         assert not kept()
         integ.sampler.samples_per_pixel = 2
@@ -351,6 +369,35 @@ def test_graph_route_replays_with_a_stub(scenes, monkeypatch):
     assert len(graphs.captures) == 2
 
 
+def test_path_graph_route_replays_with_a_stub(scenes, monkeypatch):
+    """The path tracer's frames on the graph route, a stub in place of
+    the capture (as above): the first frame eager, the second captures,
+    two replays, each frame and its counts equal to an eager instance's
+    (``frame_graph`` False), a held state not overwritten, and the
+    replays spanned ``path.replay``."""
+    scene = scenes["cornell"]
+    monkeypatch.setattr(F, "_capture", _stub_capture)
+    eager = _integ("path", frame_graph=False)
+    with collect() as want:
+        ref = eager.render(scene)
+    assert eager.frame_graphs is None
+    integ = _integ("path")
+    monkeypatch.setattr(integ, "replays", lambda *a, **k: True)
+    held = []
+    with collect() as got:
+        for _ in range(3):
+            held.append(integ.render(scene))
+            assert (integ.last_queue_drops, integ.last_useful_rays) == (
+                eager.last_queue_drops, eager.last_useful_rays)
+    scribble(integ.frame_graphs)
+    assert all(_equal(s, ref) for s in held)
+    assert integ.frame_graphs.name == "path.replay"
+    c, w = got.as_dict(), want.as_dict()
+    assert c["frame_graph_captures"] == 1 and c["frame_graph_replays"] == 2
+    for name in ("path_bounce_lanes", "path_mis_lanes", "chunk_lanes_issued"):
+        assert c[name] == 3 * w[name], name
+
+
 @pytest.mark.cuda
 def test_cuda_frame_graph_replays_equal_eager_frames():
     """On the card, ``mesh_heavy`` (1M triangles) at 256^2: three replays
@@ -390,6 +437,55 @@ def test_cuda_frame_graph_replays_equal_eager_frames():
     # No reference cycle runs through the integrator's graphs: they go
     # with its last reference, not at a later collection, which could
     # fall inside another capture and invalidate it.
+    ref = weakref.ref(graphed)
+    gc.disable()
+    try:
+        del graphed
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
+@pytest.mark.cuda
+def test_cuda_path_frame_graph_replays_equal_eager_frames():
+    """On the card, the Cornell box at 128^2, 4 spp, depth 5 (roulette
+    from the fourth bounce): three replays of the path tracer's frame
+    graph, each bit-equal to the eager frame of an instance whose
+    ``frame_graph`` is False, a held state not overwritten by the next
+    replay, the counts equal, one capture and three replays (the view's
+    first frame runs the body eagerly), and no reference cycle keeping
+    the graphs alive."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene = TCor.build_scene(device="cuda")
+
+    def integ():
+        return PathIntegrator(TCor.build_camera(128, "unused.png"),
+                              UniformSampler(4, seed=5), max_depth=5,
+                              rr_depth=3)
+
+    eager = integ()
+    eager.frame_graph = False
+    ref = eager.render(scene)
+    assert eager.frame_graphs is None
+    graphed = integ()
+    assert graphed.replays(scene)
+    held = []
+    with collect() as stats:
+        for i in range(4):
+            held.append(graphed.render(scene))
+            assert ("frame" in graphed.frame_graphs.graphs) == (i > 0)
+            assert (graphed.last_queue_drops, graphed.last_useful_rays) == (
+                eager.last_queue_drops, eager.last_useful_rays)
+    scribble(graphed.frame_graphs)
+    torch.cuda.synchronize()
+    assert all(_equal(s, ref) for s in held)
+    assert float(ref.weight_sum.sum()) > 0 and eager.last_useful_rays > 0
+    c = stats.as_dict()
+    assert c["frame_graph_captures"] == 1 and c["frame_graph_replays"] == 3
+    rec = graphed.frame_graphs.captures
+    print(f"path frame graph capture: {rec}")
+    assert len(rec) == 1 and rec[0]["launches"]["threefry"] > 0
     ref = weakref.ref(graphed)
     gc.disable()
     try:

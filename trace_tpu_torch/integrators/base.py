@@ -26,12 +26,13 @@ A frame is three parts: the per-view inputs (``frame_inputs``: the pixel
 grid and its ids, each chunk's lanes and its range of the grid, the
 strata, the key), the body (``frame_body``: the film zeroed, the chunk
 loop with its splats, the counts on the device) and one host read of the
-counts. An integrator that opts in (``frame_graph``) renders a view on
-the card through one CUDA graph of the body, captured under
-core/sync.py's ``no_host_reads`` (integrators/fused.py::Graphs): the
-view's first frame runs the body eagerly, its second captures it, and
-each from the second on replays the graph; ``replays`` says when a call
-takes this route.
+counts. An integrator that opts in (``frame_graph``: the Whitted and the
+path integrator) renders a view on the card through one CUDA graph of the
+body, captured under core/sync.py's ``no_host_reads``
+(integrators/fused.py::Graphs, kept under ``graph_settings``): the view's
+first frame runs the body eagerly, its second captures it, and each from
+the second on replays the graph, in a span named by ``replay_span``;
+``replays`` says when a call takes this route.
 """
 from __future__ import annotations
 
@@ -90,7 +91,8 @@ class FrameInputs(NamedTuple):
 
 
 class SamplerIntegrator:
-    # The eager route unless a subclass opts in to the frame graph.
+    # The eager route unless a subclass opts in to the frame graph and
+    # names the span of its replays (``replay_span``).
     frame_graph = False
 
     def __init__(self, camera, sampler: UniformSampler | None = None,
@@ -164,6 +166,13 @@ class SamplerIntegrator:
                 and uncapturable(scene) is None
                 and on_card(scene.device))
 
+    def graph_settings(self) -> tuple:
+        """The settings a frame graph is kept under (integrators/fused.py::
+        Graphs): seed, samples per pixel, depth, pixel chunk; a subclass
+        adds the settings its ``li`` reads."""
+        return (self.sampler.seed, self.sampler.samples_per_pixel,
+                self.max_depth, self.pixel_chunk)
+
     def frame_inputs(self, device) -> FrameInputs:
         """The frame's inputs that depend only on the view (module
         docstring); host copies, so made outside a graph."""
@@ -236,7 +245,7 @@ class SamplerIntegrator:
         if self.replays(scene, geometry, geometry_transform,
                         geometry_accel):
             if self.frame_graphs is None:
-                self.frame_graphs = Graphs("whitted.replay")
+                self.frame_graphs = Graphs(self.replay_span)
             state, counts = self.frame_graphs.run(
                 self, scene, "frame", partial(self.frame_body, scene),
                 lambda: self.frame_inputs(scene.device))

@@ -1,21 +1,22 @@
 """CUDA graphs of the render path on the card: SPPM's fused blocks and the
-Whitted frame, kept by one cache (:class:`Graphs`).
+Whitted and path-traced frames, kept by one cache (:class:`Graphs`).
 
 The card's counterpart of the JAX package's one-dispatch iteration block
 (trace_tpu/integrators/sppm.py::_iterations_fused) is a CUDA graph of
 ``SPPMIntegrator._iterations_body``, one per block length, pair chunks
-and instance walks' pair capacities; a Whitted frame (``SamplerIntegrator.
-frame_body``: the film zeroed, every chunk's sample passes and splats) is
-one graph. Both are kept per scene view and follow one policy, which pays
-only where a body runs again: a key's first call in a view runs the body
-eagerly on the current stream under ``no_host_reads`` (the warm-up:
-modules load and the caches of the path -- device constants, a view's
-area-light tables -- fill outside a capture, and the caller gets its
-result), its second call captures the body, and each call from the second
-on replays it. A render of a view that runs each key once captures
-nothing. A capture runs under ``torch.cuda.set_sync_debug_mode("error")``,
-so any host read in the body raises. Nothing falls back: a capture or a
-kernel build that fails raises.
+and instance walks' pair capacities; a Whitted or path-traced frame
+(``SamplerIntegrator.frame_body``: the film zeroed, every chunk's sample
+passes and splats) is one graph. Both are kept per scene view and follow
+one policy, which pays only where a body runs again: a key's first call
+in a view runs the body eagerly on the current stream under
+``no_host_reads`` (the warm-up: modules load and the caches of the path
+-- device constants, a view's area-light tables -- fill outside a
+capture, and the caller gets its result), its second call captures the
+body, and each call from the second on replays it. A render of a view
+that runs each key once captures nothing. A capture runs under
+``torch.cuda.set_sync_debug_mode("error")``, so any host read in the body
+raises. Nothing falls back: a capture or a kernel build that fails
+raises.
 
 A replay copies the caller's inputs into the graph's input buffers (a
 block's state and its first iteration, a device scalar; a frame has

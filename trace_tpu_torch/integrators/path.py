@@ -13,10 +13,17 @@ from .base import PIXEL_CHUNK, SamplerIntegrator
 class PathIntegrator(SamplerIntegrator):
     """NEE + MIS path tracer with Russian roulette after ``rr_depth``
     bounces, in chunks of ``pixel_chunk`` lanes (integrators/base.py).
-    ``li_impl`` other than "auto"/"planar" raises. With ``stats`` (a
-    utils.stats.RenderStats) a render also adds ``path_self_hits``, in
-    one host read after it: continuations whose next hit is the primitive
-    they left, within the spawn offset (core/ray.py::self_hits)."""
+    ``li_impl`` other than "auto"/"planar" raises. On the card, where
+    ``replays`` holds (integrators/base.py), a view's frames after its
+    first are replays of one CUDA graph; an instance whose ``frame_graph``
+    is set False issues every frame eagerly, pass by pass (the same image,
+    bit for bit). With ``stats`` (a utils.stats.RenderStats) a render is
+    eager and also adds ``path_self_hits``, in one host read after it:
+    continuations whose next hit is the primitive they left, within the
+    spawn offset (core/ray.py::self_hits)."""
+
+    frame_graph = True
+    replay_span = "path.replay"
 
     def __init__(self, camera, sampler=None, max_depth: int = 5,
                  rr_depth: int = 3, pixel_chunk: int = PIXEL_CHUNK,
@@ -28,6 +35,11 @@ class PathIntegrator(SamplerIntegrator):
                          stats=stats)
         self.rr_depth = int(rr_depth)
         self._tally = None
+
+    def graph_settings(self) -> tuple:
+        """The base's settings (integrators/base.py), then the roulette
+        depth."""
+        return super().graph_settings() + (self.rr_depth,)
 
     def li(self, scene, rd, key):
         planar.supports(scene)

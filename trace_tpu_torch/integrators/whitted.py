@@ -21,8 +21,9 @@ class WhittedIntegrator(SamplerIntegrator):
     (the port keeps one stack) and raises. ``frame_graph``: on the card,
     where ``replays`` holds (integrators/base.py), a view's frames after
     its first are replays of one CUDA graph; False issues every frame
-    eagerly, pass by pass (the same image, bit for bit). The path
-    integrator does not opt in: it keeps the eager route."""
+    eagerly, pass by pass (the same image, bit for bit)."""
+
+    replay_span = "whitted.replay"
 
     def __init__(self, *args, queue_capacity: int | None = None,
                  sort_materials: bool = False, li_impl: str = "auto",
@@ -39,13 +40,12 @@ class WhittedIntegrator(SamplerIntegrator):
         self.frame_graph = bool(frame_graph)
 
     def graph_settings(self) -> tuple:
-        """The settings a frame graph is kept under (integrators/fused.py::
-        Graphs): seed, samples per pixel, depth, pixel chunk, queue
-        capacity, level caps, material sort."""
+        """The base's settings (integrators/base.py), then queue capacity,
+        level caps, material sort."""
         caps = self.level_caps
-        return (self.sampler.seed, self.sampler.samples_per_pixel,
-                self.max_depth, self.pixel_chunk, self.queue_capacity,
-                None if caps is None else tuple(caps), self.sort_materials)
+        return super().graph_settings() + (
+            self.queue_capacity, None if caps is None else tuple(caps),
+            self.sort_materials)
 
     def _resolve_caps(self, n: int):
         caps = self.level_caps
